@@ -1,0 +1,40 @@
+// K3 seed_bits: the 2-bit seed-liveness pair table.
+//
+// Replaces the XLA programs of sbwt_tpu/ops/turbo.py _pack_seed_pair_bits
+// and _pack_2bit_u32. Entry m, over all (p+1)-mers, has bit0 = (precalc
+// row m mod 4^p is non-empty) and bit1 = (precalc row m >> 2 is
+// non-empty); word w holds entries 16w .. 16w + 15, entry e at bits 2e.
+//
+// Bound on the H100: reading the left column of the precalc table
+// (4^p rows of 8 bytes, 537 MB at p = 13) twice over. Design: one thread
+// per output word reads its 16 + 4 neighbouring rows, so neighbouring
+// threads read neighbouring rows, and writes one word.
+#include "sbwt_common.cuh"
+
+namespace {
+
+__global__ void seed_bits_kernel(const int2* __restrict__ precalc, int p,
+                                 int64_t n_out, unsigned* __restrict__ out) {
+    const int64_t w = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (w >= n_out) return;
+    const int64_t q_mask = ((int64_t)1 << (2 * p)) - 1;
+    unsigned v = 0;
+    for (int e = 0; e < 16; ++e) {
+        const int64_t m = w * 16 + e;
+        const unsigned b0 = precalc[m & q_mask].x >= 0;
+        const unsigned b1 = precalc[m >> 2].x >= 0;
+        v |= (b0 | (b1 << 1)) << (2 * e);
+    }
+    out[w] = v;
+}
+
+}  // namespace
+
+extern "C" int sbwt_seed_bits(int device, const void* precalc, int p, void* out,
+                              void* stream) {
+    cudaSetDevice(device);
+    const int64_t n_out = ((int64_t)1 << (2 * (p + 1))) / 16;
+    seed_bits_kernel<<<sbwt::grid_for(n_out), sbwt::kBlock, 0, (cudaStream_t)stream>>>(
+        (const int2*)precalc, p, n_out, (unsigned*)out);
+    return (int)cudaGetLastError();
+}

@@ -1,0 +1,120 @@
+"""Port parity: the precalc table (K1's plain version) and k-mer search.
+
+The JAX package and the port run on the same index (carried over as numpy
+state) and the same numpy-seeded k-mers; answers must be equal exactly and
+must agree with the independent string oracle (tests/oracle.py).
+"""
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from oracle import OracleIndex
+from sbwt_tpu.models.matrix import with_precalc as jax_with_precalc
+from sbwt_tpu.models.sbwt import SBWT
+from sbwt_tpu.ops.search import forward_jit, search_jit, update_interval_jit
+from sbwt_tpu.utils.dna import encode_query
+from sbwt_tpu_torch.models import matrix as tm
+from sbwt_tpu_torch.ops import search as ts
+from torch_state import matrix_state
+
+K = 14
+
+
+@pytest.fixture(scope="module")
+def genome():
+    rng = np.random.default_rng(41)
+    return "".join(rng.choice(list("ACGT"), size=1500))
+
+
+@pytest.fixture(scope="module")
+def js(genome):
+    return SBWT.build([genome], K, precalc_k=0)
+
+
+@pytest.fixture(scope="module")
+def oracle(genome):
+    return OracleIndex([genome], K)
+
+
+@pytest.mark.parametrize("p", [1, 4, 6])
+def test_precalc_table_matches_jax(js, p):
+    ref = np.asarray(jax_with_precalc(js.device_index, p).precalc)
+    ti = tm.from_numpy_state(matrix_state(js.device_index), "cpu")
+    tm.with_precalc(ti, p)
+    assert ti.precalc_k == p
+    assert ti.precalc.dtype == torch.int32
+    np.testing.assert_array_equal(ti.precalc.numpy(), ref)
+    # the kernel's plain version, called directly, gives the same table
+    np.testing.assert_array_equal(tm.precalc_fill_plain(ti, p, chunk=64).numpy(), ref)
+
+
+def test_precalc_limits(js):
+    ti = tm.from_numpy_state(matrix_state(js.device_index), "cpu")
+    with pytest.raises(ValueError, match="precalc_k > 13"):
+        tm.with_precalc(ti, 14)
+    small = SBWT.build(["ACGTTGCA"], 3)
+    ts_small = tm.from_numpy_state(matrix_state(small.device_index), "cpu")
+    with pytest.raises(ValueError, match="> k"):
+        tm.with_precalc(ts_small, 4)
+    tm.with_precalc(ti, 0)
+    assert ti.precalc_k == 0 and tuple(ti.precalc.shape) == (1, 2)
+
+
+def _kmer_batch(genome, rng):
+    """Present, absent, lowercase and N-holding k-mers, as query codes."""
+    enc = encode_query(genome)
+    starts = rng.integers(0, len(genome) - K, size=200)
+    present = enc[starts[:, None] + np.arange(K)]
+    absent = rng.integers(0, 4, size=(200, K)).astype(np.int8)
+    lower = present[:50] | 4
+    one_lower = present[50:100].copy()
+    one_lower[np.arange(50), rng.integers(0, K, 50)] |= 4
+    with_n = present[100:150].copy()
+    with_n[np.arange(50), rng.integers(0, K, 50)] = -1
+    return np.concatenate([present, absent, lower, one_lower, with_n]).astype(np.int8)
+
+
+@pytest.mark.parametrize("p", [0, 4])
+def test_search_batch_matches_jax_and_oracle(js, oracle, genome, p):
+    codes = _kmer_batch(genome, np.random.default_rng(7 + p))
+    di = jax_with_precalc(js.device_index, p) if p else js.device_index
+    ref = np.asarray(search_jit(di, jnp.asarray(codes)))
+    ti = tm.from_numpy_state(matrix_state(di), "cpu")
+    got = ts.search_batch(ti, torch.from_numpy(codes)).numpy()
+    np.testing.assert_array_equal(got, ref)
+    assert got.dtype == np.int32
+    assert (got[:200] >= 0).all() and (got[200 + 200 :] == -1).all()
+    for row, a in zip(codes[:400:3], got[:400:3]):
+        text = "".join("ACGT"[c] for c in row)
+        assert a == oracle.search(text), text
+
+
+def test_search_batch_rejects_wrong_k(js):
+    ti = tm.from_numpy_state(matrix_state(js.device_index), "cpu")
+    with pytest.raises(ValueError, match="query length"):
+        ts.search_batch(ti, torch.zeros((2, K + 1), dtype=torch.int8))
+
+
+def test_update_interval_and_forward_match_jax(js, genome):
+    rng = np.random.default_rng(9)
+    di = js.device_index
+    ti = tm.from_numpy_state(matrix_state(di), "cpu")
+    codes = _kmer_batch(genome, rng)[:, :6]  # lowercase extends here (toupper)
+    n = di.n_nodes
+    l0 = np.zeros(len(codes), np.int32)
+    r0 = np.full(len(codes), n - 1, np.int32)
+    rl, rr, ra = (np.asarray(a) for a in update_interval_jit(
+        di, jnp.asarray(codes), jnp.asarray(l0), jnp.asarray(r0)))
+    gl, gr, ga = ts.update_interval_batch(ti, torch.from_numpy(codes), torch.from_numpy(l0),
+                                          torch.from_numpy(r0))
+    np.testing.assert_array_equal(ga.numpy(), ra)
+    np.testing.assert_array_equal(gl.numpy(), rl)
+    np.testing.assert_array_equal(gr.numpy(), rr)
+
+    nodes = rng.integers(0, n, size=500).astype(np.int32)
+    chars = rng.integers(0, 4, size=500).astype(np.int32)
+    ref = np.asarray(forward_jit(di, jnp.asarray(nodes), jnp.asarray(chars)))
+    got = ts.forward_batch(ti, torch.from_numpy(nodes), torch.from_numpy(chars))
+    np.testing.assert_array_equal(got.numpy(), ref)

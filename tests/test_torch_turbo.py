@@ -1,0 +1,293 @@
+"""Port parity: turbo tables (K2, K3) and streaming search (K4), plain versions.
+
+Each index is built once by the JAX package and carried into the port as
+numpy state. The port builds its own successor tables and seed bits, which
+must equal the JAX ones byte for byte (the JAX arity-2/3 tables carry pad
+rows past n * 4^A that no query reads; the port's have none). Streaming
+answers must equal ``turbo_streaming_jit`` exactly on every corpus, and
+the plain-uppercase reads of each corpus must also agree with the
+independent string oracle (tests/oracle.py). One batch per index and arity
+holds all of its corpora, so JAX compiles one program per pair.
+"""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from oracle import OracleIndex
+from sbwt_tpu.models.sbwt import SBWT
+from sbwt_tpu.ops.turbo import build_turbo as jax_build_turbo
+from sbwt_tpu.ops.turbo import fast_search_jit, turbo_streaming_jit
+from sbwt_tpu.utils.dna import encode_query
+from sbwt_tpu.utils.memory import select_turbo_arity as jax_select_turbo_arity
+from sbwt_tpu_torch.models import matrix as tm
+from sbwt_tpu_torch.ops import turbo as tt
+from sbwt_tpu_torch.utils.memory import select_turbo_arity, turbo_table_bytes
+from torch_state import matrix_state, turbo_state
+
+
+class Case:
+    """A JAX index, its port, and one batch of named corpora (lane slices)."""
+
+    def __init__(self, seqs, k, p, corpora, L):
+        self.k, self.p = k, p
+        self.seqs = seqs
+        self.js = SBWT.build(seqs, k, precalc_k=p)
+        self.ti = tm.from_numpy_state(matrix_state(self.js.device_index), "cpu")
+        parts, self.slices, start = [], {}, 0
+        for name, (codes, lengths) in corpora.items():
+            parts.append((codes, lengths))
+            self.slices[name] = slice(start, start + len(codes))
+            start += len(codes)
+        self.codes = np.concatenate([c for c, _ in parts]).astype(np.int8)
+        self.lengths = np.concatenate([n for _, n in parts]).astype(np.int32)
+        assert self.codes.shape[1] == L
+        self._runs = {}
+        self._oracle = None
+
+    def run(self, arity):
+        """(jax answers, port answers, jax turbo, port turbo) at one arity."""
+        if arity not in self._runs:
+            jt = jax_build_turbo(self.js.device_index, arity=arity)
+            ref = np.asarray(turbo_streaming_jit(
+                jt, self.js.device_index, jnp.asarray(self.codes), jnp.asarray(self.lengths)))
+            pt = tt.build_turbo(self.ti, arity=arity)
+            got = tt.turbo_streaming_search(pt, self.ti, torch.from_numpy(self.codes),
+                                            torch.from_numpy(self.lengths)).numpy()
+            self._runs[arity] = (ref, got, jt, pt)
+        return self._runs[arity]
+
+    def oracle(self):
+        if self._oracle is None:
+            self._oracle = OracleIndex(self.seqs, self.k)
+        return self._oracle
+
+
+def _genomic(enc, rng, n, L):
+    starts = rng.integers(0, len(enc) - L, size=n)
+    return enc[starts[:, None] + np.arange(L)]
+
+
+def _full(codes):
+    return codes, np.full(len(codes), codes.shape[1], dtype=np.int32)
+
+
+def main_corpora(g, k, rng, L=40, n=96):
+    enc = encode_query(g)
+    all_hit = _genomic(enc, rng, n, L)
+    all_miss = rng.integers(0, 4, size=(n, L)).astype(np.int8)
+    # alternating genomic and random stretches inside each read
+    alt = _genomic(enc, rng, n, L)
+    for i in range(n):
+        for s in range(int(rng.integers(3, 12)), L, 24):
+            e = s + int(rng.integers(1, 4))
+            alt[i, s:e] = (alt[i, s:e] + int(rng.integers(1, 4))) % 4
+    # lowercase spans and N: extension accepts lowercase only until the
+    # first -1 (the chain), restarts reject it
+    low = _genomic(enc, rng, n, L)
+    low[0::4, 10:15] |= 4
+    low[1::4, 5] = -1
+    low[1::4, 5 + k + 3] |= 4  # lowercase after a restart: the quirk
+    low[2::4, :] |= 4
+    low[3::4, int(rng.integers(0, L))] = -1
+    low[3::4, 25:] |= 4
+    # padded reads: -1 past a short length, some shorter than k
+    pad = np.concatenate([_genomic(enc, rng, n // 2, L),
+                          rng.integers(0, 4, size=(n - n // 2, L)).astype(np.int8)])
+    plen = rng.integers(0, L + 1, size=n).astype(np.int32)
+    plen[:4] = [0, k - 1, k, L]
+    for i, ln in enumerate(plen):
+        pad[i, ln:] = -1
+    return {"all_hit": _full(all_hit), "all_miss": _full(all_miss), "alternating": _full(alt),
+            "lowercase_n": _full(low), "padded": (pad, plen)}
+
+
+def chimeric_corpora(enc, k, rng, L, n=96):
+    """Genomic, chimeric (random prefix, genomic suffix: restarts must
+    resolve real k-mers) and random reads."""
+    gen = _genomic(enc, rng, n, L)
+    chim = rng.integers(0, 4, size=(n, L)).astype(np.int8)
+    src = _genomic(enc, rng, n, L)
+    for i in range(n):
+        cut = int(rng.integers(1, L - k))
+        chim[i, cut:] = src[i, : L - cut]
+    rand = rng.integers(0, 4, size=(n, L)).astype(np.int8)
+    return {"genomic": _full(gen), "chimeric": _full(chim), "random": _full(rand)}
+
+
+@pytest.fixture(scope="module")
+def main_case():
+    rng = np.random.default_rng(5)
+    g = "".join(rng.choice(list("ACGT"), size=4000))
+    return Case([g], 14, 6, main_corpora(g, 14, rng), 40)
+
+
+def _repeat_case():
+    # 8 mutated copies of one base, short precalc: most live seeds are
+    # non-singleton, so restarts take the exact LF steps
+    rng = np.random.default_rng(21)
+    base = rng.choice(list("ACGT"), size=1500)
+    parts = []
+    for i in range(8):
+        c = base.copy()
+        pos = rng.choice(len(base), size=15 * (i + 1), replace=False)
+        c[pos] = rng.choice(list("ACGT"), size=len(pos))
+        parts.append("".join(c))
+    return Case(parts, 14, 4, chimeric_corpora(encode_query(parts[0]), 14, rng, 40), 40)
+
+
+def _long_case(k, p):
+    # k - p > 32: the JAX engine's wide-window path
+    rng = np.random.default_rng(k)
+    g = "".join(rng.choice(list("ACGT"), size=6000))
+    return Case([g], k, p, chimeric_corpora(encode_query(g), k, rng, 70), 70)
+
+
+def _k_eq_p_case():
+    rng = np.random.default_rng(8)
+    g = "".join(rng.choice(list("ACGT"), size=2000))
+    return Case([g], 8, 8, chimeric_corpora(encode_query(g), 8, rng, 32), 32)
+
+
+_OTHER = {"repeat_dense": _repeat_case, "k36_p3": lambda: _long_case(36, 3),
+          "k45_p12": lambda: _long_case(45, 12), "k8_eq_p": _k_eq_p_case}
+_OTHER_ARITIES = {"repeat_dense": (1, 3), "k36_p3": (3,), "k45_p12": (2,), "k8_eq_p": (1,)}
+
+
+@pytest.fixture(scope="module")
+def other_cases():
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            cache[name] = _OTHER[name]()
+        return cache[name]
+
+    return get
+
+
+def _check_oracle(case, name, arity, n_reads=4):
+    """Sampled plain-uppercase reads of a corpus against the string oracle."""
+    sl = case.slices[name]
+    codes, lengths = case.codes[sl], case.lengths[sl]
+    got = case.run(arity)[1][sl]
+    upper = [i for i in range(len(codes)) if ((codes[i, : lengths[i]] >= 0)
+                                               & (codes[i, : lengths[i]] < 4)).all()]
+    assert upper, name
+    orc = case.oracle()
+    for i in upper[:: max(1, len(upper) // n_reads)][:n_reads]:
+        text = "".join("ACGT"[c] for c in codes[i, : lengths[i]])
+        want = orc.streaming_search(text)
+        assert got[i, : len(want)].tolist() == want, (name, i)
+        assert (got[i, len(want):] == -1).all()
+
+
+@pytest.mark.parametrize("arity", [1, 2, 3])
+def test_tables_byte_equal(main_case, arity):
+    _, _, jt, pt = main_case.run(arity)
+    n = main_case.ti.n_nodes
+    ref = np.asarray(jt.tbl)[: n * 4**arity]
+    assert pt.tbl.numpy().dtype == ref.dtype and pt.tbl.numpy().tobytes() == ref.tobytes()
+    assert pt.seed_bits.numpy().tobytes() == np.asarray(jt.seed_bits).tobytes()
+    assert pt.precalc.numpy().tobytes() == np.asarray(jt.precalc).tobytes()
+
+
+@pytest.mark.parametrize("p", [1, 5, 6])
+def test_seed_bits_equal(main_case, p):
+    from sbwt_tpu.ops.turbo import _pack_seed_pair_bits
+
+    ti = tm.from_numpy_state(matrix_state(main_case.js.device_index), "cpu")
+    tm.with_precalc(ti, p)
+    ref = np.asarray(_pack_seed_pair_bits(jnp.asarray(ti.precalc.numpy()[:, 0] >= 0)))
+    got = tt.seed_bits_plain(ti.precalc, p, chunk=256)
+    assert got.numpy().tobytes() == ref.tobytes()
+
+
+@pytest.mark.parametrize("corpus", ["all_hit", "all_miss", "alternating", "lowercase_n", "padded"])
+@pytest.mark.parametrize("arity", [1, 2, 3])
+def test_streaming_main_corpora(main_case, arity, corpus):
+    ref, got, _, _ = main_case.run(arity)
+    sl = main_case.slices[corpus]
+    assert got.dtype == np.int32 and got.shape == ref.shape
+    np.testing.assert_array_equal(got[sl], ref[sl])
+
+
+@pytest.mark.parametrize("corpus", ["all_hit", "all_miss", "alternating", "padded"])
+def test_streaming_main_corpora_oracle(main_case, corpus):
+    _check_oracle(main_case, corpus, arity=3)
+
+
+def test_corpora_reach_their_regimes(main_case):
+    ref, _, _, _ = main_case.run(3)
+    hit = {name: (ref[sl] >= 0).mean() for name, sl in main_case.slices.items()}
+    assert hit["all_hit"] == 1.0 and hit["all_miss"] < 0.02
+    assert 0.1 < hit["alternating"] < 0.9
+    # the quirk lanes: a restart hit followed by a lowercase char is -1
+    low = main_case.slices["lowercase_n"]
+    q = ref[low][1::4]
+    assert (q[:, 6] >= 0).all() and (q[:, 6 + 3] == -1).all()
+
+
+@pytest.mark.parametrize("name,arity", [(n, a) for n, arities in _OTHER_ARITIES.items()
+                                        for a in arities])
+def test_streaming_adversarial_indexes(other_cases, name, arity):
+    case = other_cases(name)
+    ref, got, _, _ = case.run(arity)
+    np.testing.assert_array_equal(got, ref)
+    _check_oracle(case, "chimeric", arity, n_reads=3)
+
+
+def test_repeat_corpus_is_non_singleton_dense(other_cases):
+    case = other_cases("repeat_dense")
+    pre = case.ti.precalc.numpy()
+    live = pre[:, 0] >= 0
+    assert (pre[live, 0] != pre[live, 1]).mean() > 0.5
+
+
+def test_turbo_from_numpy_state(main_case):
+    ref, _, jt, pt = main_case.run(2)
+    carried = tt.turbo_from_numpy_state(turbo_state(jt), "cpu")
+    assert carried.tbl.numpy().tobytes() == pt.tbl.numpy().tobytes()
+    got = tt.turbo_streaming_search(carried, main_case.ti, torch.from_numpy(main_case.codes),
+                                    torch.from_numpy(main_case.lengths)).numpy()
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_fast_search_matches_jax(main_case):
+    _, _, jt, pt = main_case.run(3)
+    wins = np.lib.stride_tricks.sliding_window_view(main_case.codes, 14, axis=1)
+    wins = np.ascontiguousarray(wins[::5, ::3].reshape(-1, 14))
+    ra, rs = (np.asarray(a) for a in fast_search_jit(jt, jnp.asarray(wins)))
+    ga, gs = tt.fast_search(pt, torch.from_numpy(wins))
+    np.testing.assert_array_equal(gs.numpy(), rs)
+    np.testing.assert_array_equal(ga.numpy(), ra)
+
+
+def test_build_turbo_preconditions(main_case):
+    ti = main_case.ti
+    with pytest.raises(ValueError, match="arity"):
+        tt.build_turbo(ti, arity=4)
+    with pytest.raises(ValueError, match="exceeds int32"):
+        tt.check_turbo_index_range(2**25, 3)
+    tt.check_turbo_index_range(2**25 - 1, 3)
+    no_pre = tm.from_numpy_state(matrix_state(main_case.js.device_index), "cpu")
+    tm.with_precalc(no_pre, 0)
+    with pytest.raises(ValueError, match="precalc"):
+        tt.build_turbo(no_pre)
+    no_sgs = SBWT.build(main_case.seqs, 14, streaming_support=False, precalc_k=4)
+    with pytest.raises(ValueError, match="streaming"):
+        tt.build_turbo(tm.from_numpy_state(matrix_state(no_sgs.device_index), "cpu"))
+
+
+def test_arity_selection_matches_jax():
+    from sbwt_tpu.utils.memory import turbo_table_bytes as jax_table_bytes
+
+    for n in (1000, 4_000_000, 20_000_000, 2**25, 300_000_000, 10**9):
+        for free in (1 << 20, 8 << 30, 80 << 30):
+            for p in (0, 8, 13):
+                assert select_turbo_arity(n, free, p) == jax_select_turbo_arity(n, free, p)
+        for a in (1, 2, 3):
+            assert turbo_table_bytes(n, a, 13) == jax_table_bytes(n, a, 13)
+    # unmeasurable free memory: the JAX engine's fixed thresholds
+    assert [select_turbo_arity(n, None) for n in (6_000_000, 16_000_000, 400_000_000, 10**9)] == [
+        3, 2, 1, None]
