@@ -7,16 +7,27 @@ the bench's real size, every kernel against its plain PyTorch version.
 Phases, one line each; any failure exits nonzero:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: nvcc compiles K1-K4 from sbwt_tpu_torch/csrc;
+2. build: nvcc compiles K1-K4 and K14 from sbwt_tpu_torch/csrc, one
+   process per source;
 3. main path (launches counted): ``SBWT.build`` of a 4 Mbp uniform random
    genome (numpy seed 20260817, as bench.py) at k = 30 with precalc_k = 13
-   (K1), ``enable_turbo(arity=3)`` (K2, K3), ``streaming_search_batch`` of
-   1M reads of 100 bp at the hit98 and hit0 mixes (K4) and
-   ``search_batch`` of their first k-mers (K1);
-4. kernels against their plain versions on the card, at the main path's
-   shapes (K4 on each whole 1M-read batch), with times;
-5. the CLI (``python -m sbwt_tpu_torch build`` / ``search``) on the
-   reference's golden inputs, byte-equal to the golden output.
+   (K1's fill), ``enable_turbo(arity=3)`` (K2, K3),
+   ``streaming_search_batch`` of 1M reads of 100 bp at the hit98 and hit0
+   mixes (K4) and ``search_batch`` of their first k-mers (K1's search);
+4. variants path (launches counted): for each of the ten variants,
+   ``to_variant`` (carrying the p = 13 table), ``streaming_search_batch``
+   of both 1M-read batches on the LF engine (K14 over the variant's ranks,
+   K15-K17), whose answers must equal K4's, ``search_batch`` of 1M 30-mers
+   (the variant's K1 search) and the variant's K1 fill at p = 12;
+5. kernels against their plain versions on the card, at the main path's
+   shapes, with times: K1 on plain-matrix (the p = 13 fill, the 1M
+   30-mers), K2, K3, K4 on each whole 1M-read batch; K14 of each variant
+   on the first 2^16 reads of each mix and on a batch with lowercase, N
+   and short lengths; each variant's K1 search on the 1M 30-mers and fill
+   at p = 8, and its p = 12 table of phase 4 against the plain version's;
+6. the CLI (``python -m sbwt_tpu_torch build`` / ``build-variant`` /
+   ``search``) on the reference's golden inputs, byte-equal to the golden
+   output, on plain-matrix (turbo) and rrr-split (LF).
 
 It prints one JSON line of per-kernel results, the card's nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``. Without a CUDA device it exits
@@ -59,15 +70,31 @@ GOLDEN = (
     "-1 -1 26 5 25 66 -1 -1 \n"
 )
 
+VARIANTS = ("plain-matrix", "rrr-matrix", "mef-matrix", "plain-split", "rrr-split",
+            "mef-split", "plain-concat", "mef-concat", "plain-subsetwt", "rrr-subsetwt")
+GENERIC_P = 12  # the largest precalc a compressed variant fills itself
+PLAIN_READS = 1 << 16  # reads per mix that K14's plain version answers
+
 # kernel entry point -> (source, the XLA program it replaces)
 KERNELS = {
-    "precalc_fill": ("sbwt_tpu_torch/csrc/lf_interval.cu", "sbwt_tpu/models/matrix.py:267"),
-    "kmer_search": ("sbwt_tpu_torch/csrc/lf_interval.cu", "sbwt_tpu/ops/search.py:83"),
+    "precalc_fill[plain-matrix]": ("sbwt_tpu_torch/csrc/lf_stream.cu",
+                                   "sbwt_tpu/models/matrix.py:267"),
+    "kmer_search[plain-matrix]": ("sbwt_tpu_torch/csrc/lf_stream.cu", "sbwt_tpu/ops/search.py:83"),
     "succ1": ("sbwt_tpu_torch/csrc/succ_table.cu", "sbwt_tpu/ops/turbo.py:294"),
     "succ_compose": ("sbwt_tpu_torch/csrc/succ_table.cu", "sbwt_tpu/ops/turbo.py:342"),
     "seed_bits": ("sbwt_tpu_torch/csrc/seed_bits.cu", "sbwt_tpu/ops/turbo.py:271"),
     "turbo_stream": ("sbwt_tpu_torch/csrc/turbo_stream.cu", "sbwt_tpu/ops/turbo.py:610"),
 }
+# the LF entry points of the variants path, one instance per variant
+# (csrc/lf_stream.cuh); plain-matrix's K1 is in KERNELS
+LF_KERNELS = {}
+for _v in VARIANTS:
+    _fam = _v.split("-")[1]
+    _src = "sbwt_tpu_torch/csrc/" + ("lf_stream.cu" if _fam == "matrix" else f"lf_{_fam}.cu")
+    LF_KERNELS[f"lf_stream[{_v}]"] = (_src, "sbwt_tpu/ops/search.py:185")
+    if _v != "plain-matrix":
+        LF_KERNELS[f"kmer_search[{_v}]"] = (_src, "sbwt_tpu/ops/search.py:83")
+        LF_KERNELS[f"precalc_fill[{_v}]"] = (_src, "sbwt_tpu/models/variants.py:125")
 
 
 class SmokeFailure(Exception):
@@ -188,35 +215,77 @@ def run_main_path(dev):
     return genome, sbwt, runs
 
 
-def compare_kernels(dev, genome, sbwt, runs, launches, card: str):
-    """Each kernel against its plain version on the main path's shapes."""
+def run_variants_path(sbwt, runs):
+    """The LF engine on each of the ten variants, through the entry points:
+    ``to_variant`` (carrying the p = 13 table), ``streaming_search_batch``
+    of both whole batches, whose answers must equal K4's, ``search_batch``
+    of the hit98 batch's first 30-mers, and the fill wrapper at p = 12 (the
+    largest table a compressed variant fills itself). Returns variant ->
+    (SBWT at p = 13, its p = 12 table)."""
+    from sbwt_tpu_torch import kernels
+
+    km = np.ascontiguousarray(runs["hit98"][0][:, :K])
+    first = runs["hit98"][1][:, 0]
+    out = {}
+    for v in VARIANTS:
+        t0 = time.perf_counter()
+        vs = sbwt.to_variant(v)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        check(vs.variant == v and vs.get_precalc_k() == PRECALC_K, f"{v}: precalc not carried")
+        fields = {}
+        for mix, (codes, ans) in runs.items():
+            t0 = time.perf_counter()
+            got = vs.streaming_search_batch(codes)
+            fields[f"{mix}_host_seconds"] = round(time.perf_counter() - t0, 4)
+            check(np.array_equal(got, ans), f"{v} {mix}: LF answers differ from K4's")
+            del got
+        check(np.array_equal(vs.search_batch(km), first), f"{v}: search_batch != K4 position 0")
+        di = vs.device_index
+        out[v] = (vs, kernels.precalc_fill(v, di.kernel_desc(di.device), di.C, di.n_nodes,
+                                           GENERIC_P))
+        say("variant", name=v, structure_bytes=vs.structure_size_in_bytes(),
+            to_variant_seconds=round(build_s, 3), **fields)
+    return out
+
+
+def recorder(launches: dict, card: str):
+    """The per-kernel results of the JSON line, and the function that checks
+    and adds one."""
+    results = {}
+
+    def record(name, err, ms, plain_ms, **extra):
+        check(err == 0, f"{name}: kernel differs from its plain version (max_abs_err {err})")
+        src, replaces = {**KERNELS, **LF_KERNELS}[name]
+        results[name] = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                         "launches": launches[name], "max_abs_err": err,
+                         "ms": ms, "plain_ms": plain_ms}
+        say("kernel", name=name, max_abs_err=err, ms=ms, plain_ms=plain_ms, card=repr(card), **extra)
+
+    return results, record
+
+
+def compare_kernels(dev, genome, sbwt, runs, record):
+    """Each kernel of the main path against its plain version on the main
+    path's shapes."""
     from sbwt_tpu_torch import kernels
     from sbwt_tpu_torch.models import matrix as tm
     from sbwt_tpu_torch.ops import search as ts
     from sbwt_tpu_torch.ops import turbo as tt
 
     di, turbo = sbwt.device_index, sbwt._turbo
-    results = {}
-
-    def record(name, err, ms, plain_ms, **extra):
-        check(err == 0, f"{name}: kernel differs from its plain version (max_abs_err {err})")
-        src, replaces = KERNELS[name]
-        results[name] = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                         "launches": launches[name], "max_abs_err": err,
-                         "ms": ms, "plain_ms": plain_ms}
-        say("kernel", name=name, max_abs_err=err, ms=ms, plain_ms=plain_ms, card=repr(card), **extra)
-
     p = di.precalc_k
-    k_pre = lambda: kernels.precalc_fill(di.rank_tbl, di.n_words, di.C, di.n_nodes, p)
+    desc = di.kernel_desc(dev)
+    k_pre = lambda: kernels.precalc_fill("plain-matrix", desc, di.C, di.n_nodes, p)
     plain = tm.precalc_fill_plain(di, p)
-    record("precalc_fill", max_abs_err(k_pre(), plain) + max_abs_err(di.precalc, plain),
+    record("precalc_fill[plain-matrix]", max_abs_err(k_pre(), plain) + max_abs_err(di.precalc, plain),
            cuda_ms(k_pre, 3), cuda_ms(lambda: tm.precalc_fill_plain(di, p), 1),
            shape=tuple(plain.shape))
     del plain
 
     km = torch.from_numpy(np.ascontiguousarray(runs["hit98"][0][:, :K])).to(dev)
     k_km = lambda: ts.search_batch(di, km)
-    record("kmer_search", max_abs_err(k_km(), ts.search_batch_plain(di, km)),
+    record("kmer_search[plain-matrix]", max_abs_err(k_km(), ts.search_batch_plain(di, km)),
            cuda_ms(k_km, 5), cuda_ms(lambda: ts.search_batch_plain(di, km), 1),
            shape=tuple(km.shape))
 
@@ -260,8 +329,7 @@ def compare_kernels(dev, genome, sbwt, runs, launches, card: str):
             record("turbo_stream", err, ms, plain_ms, **extra)
         else:
             check(err == 0, f"turbo_stream {mix}: kernel differs from its plain version")
-            say("kernel", name="turbo_stream", max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                card=repr(card), **extra)
+            say("kernel", name="turbo_stream", max_abs_err=err, ms=ms, plain_ms=plain_ms, **extra)
         del codes, lengths
 
     codes_np, lengths_np = spiked_reads(genome, 4096, 11)
@@ -271,7 +339,74 @@ def compare_kernels(dev, genome, sbwt, runs, launches, card: str):
     check(err == 0, "turbo_stream spiked batch: kernel differs from its plain version")
     say("kernel", name="turbo_stream", batch="lowercase_N_short_lengths", reads=len(codes_np),
         max_abs_err=err, hit_fraction=float((got >= 0).float().mean()))
-    return [results[name] for name in KERNELS]
+
+
+def compare_lf_kernels(dev, genome, sbwt, runs, variants, record):
+    """The LF entry points of each variant against their plain versions on
+    the card. K14: the kernel on each whole batch (rate) and on the first
+    PLAIN_READS reads of each mix against its plain version (ms and
+    plain_ms at that shape), and on the spiked batch. The p = 12 table of
+    the variants path against the plain version's. For the compressed
+    variants, K1: kmer_search on the hit98 batch's 1M 30-mers, and
+    precalc_fill at p = 8 against its plain version (and its p = 12 time);
+    compare_kernels holds plain-matrix's K1."""
+    from sbwt_tpu_torch import kernels
+    from sbwt_tpu_torch.models import matrix as tm
+    from sbwt_tpu_torch.ops import search as ts
+
+    ref12 = tm.precalc_fill_plain(sbwt.device_index, GENERIC_P)
+    batches = {}
+    for mix, (codes_np, _) in runs.items():
+        codes = torch.from_numpy(codes_np).to(dev)
+        batches[mix] = (codes, torch.full((len(codes),), READ_LEN, dtype=torch.int32, device=dev))
+    km = batches["hit98"][0][:, :K].contiguous()
+    spiked_np, spiked_len_np = spiked_reads(genome, 4096, 11)
+    spiked = torch.from_numpy(spiked_np).to(dev), torch.from_numpy(spiked_len_np).to(dev)
+    for v, (vs, tbl12) in variants.items():
+        di = vs.device_index
+        err12 = max_abs_err(tbl12, ref12)
+        check(err12 == 0, f"{v}: p = 12 table differs from the plain version (max_abs_err {err12})")
+        name = f"lf_stream[{v}]"
+        for mix, (codes, lengths) in batches.items():
+            full = lambda: ts.streaming_search(di, codes, lengths)
+            ms_full = cuda_ms(full, 3)
+            answers = len(codes) * (READ_LEN - K + 1)
+            sc, sl = codes[:PLAIN_READS], lengths[:PLAIN_READS]
+            sample = lambda: ts.streaming_search(di, sc, sl)
+            got = sample()
+            plain, plain_ms = timed_ms(lambda: ts.streaming_search_plain(di, sc, sl))
+            err = max_abs_err(got, plain)
+            check(torch.equal(got.cpu(), torch.from_numpy(runs[mix][1][:PLAIN_READS])),
+                  f"{name} {mix}: sample differs from K4's answers")
+            extra = dict(variant=v, mix=mix, shape=tuple(sc.shape), full_batch_ms=ms_full,
+                         answers_per_s=answers / (ms_full / 1e3),
+                         plain_answers_per_s=plain.numel() / (plain_ms / 1e3))
+            del got, plain
+            if mix == "hit98":
+                record(name, err, cuda_ms(sample, 3), plain_ms, **extra)
+            else:
+                check(err == 0, f"{name} {mix}: kernel differs from its plain version")
+                say("kernel", name=name, max_abs_err=err, ms=cuda_ms(sample, 3),
+                    plain_ms=plain_ms, **extra)
+        got = ts.streaming_search(di, *spiked)
+        err = max_abs_err(got, ts.streaming_search_plain(di, *spiked))
+        check(err == 0, f"{name} spiked batch: kernel differs from its plain version")
+        say("kernel", name=name, batch="lowercase_N_short_lengths", reads=len(spiked_np),
+            max_abs_err=err, hit_fraction=float((got >= 0).float().mean()))
+        if v == "plain-matrix":
+            continue
+        k_km = lambda: ts.search_batch(di, km)
+        plain, plain_ms = timed_ms(lambda: ts.search_batch_plain(di, km))
+        record(f"kmer_search[{v}]", max_abs_err(k_km(), plain), cuda_ms(k_km, 5), plain_ms,
+               shape=tuple(km.shape))
+        desc = di.kernel_desc(dev)
+        k_pre = lambda: kernels.precalc_fill(v, desc, di.C, di.n_nodes, 8)
+        plain, plain_ms = timed_ms(lambda: tm.precalc_fill_plain(di, 8))
+        err = max_abs_err(k_pre(), plain)
+        ms12 = cuda_ms(lambda: kernels.precalc_fill(v, desc, di.C, di.n_nodes, GENERIC_P), 3)
+        record(f"precalc_fill[{v}]", err, cuda_ms(k_pre, 5), plain_ms, shape=(4**8, 2),
+               p12_ms=ms12, p12_shape=tuple(ref12.shape))
+        del plain
 
 
 def run_cli(device: str) -> None:
@@ -288,23 +423,23 @@ def run_cli(device: str) -> None:
         (tmp / "q.fna").write_text("".join(f">q{j}\n{s}\n" for j, s in enumerate(GOLDEN_QUERIES)))
         (tmp / "q.fq").write_text("".join(
             f"@q{j}\n{s}\n+\n{'I' * len(s)}\n" for j, s in enumerate(GOLDEN_QUERIES)))
-        index = tmp / "index.sbwt"
+        index, rrr = tmp / "index.sbwt", tmp / "rrr-split.sbwt"
         cli = [sys.executable, "-m", "sbwt_tpu_torch"]
         for argv in (
             ["build", "-i", str(tmp / "inputs.txt"), "-o", str(index), "-k", "6",
-             "--add-reverse-complements", "--temp-dir", str(tmp), "--precalc-length", "4",
-             "--device", device],
-            ["search", "-i", str(index), "-q", str(tmp / "q.fna"), "-o", str(tmp / "o1.txt"),
-             "--device", device],
-            ["search", "-i", str(index), "-q", str(tmp / "q.fq"), "-o", str(tmp / "o2.txt"),
-             "--device", device],
+             "--add-reverse-complements", "--temp-dir", str(tmp), "--precalc-length", "4"],
+            ["search", "-i", str(index), "-q", str(tmp / "q.fna"), "-o", str(tmp / "o1.txt")],
+            ["search", "-i", str(index), "-q", str(tmp / "q.fq"), "-o", str(tmp / "o2.txt")],
+            ["build-variant", "-i", str(index), "-o", str(rrr), "--variant", "rrr-split"],
+            ["search", "-i", str(rrr), "-q", str(tmp / "q.fq"), "-o", str(tmp / "o3.txt"),
+             "--engine", "lf"],
         ):
-            proc = subprocess.run(cli + argv, cwd=REPO, env=env, capture_output=True, text=True,
-                                  timeout=600)
+            proc = subprocess.run(cli + argv + ["--device", device], cwd=REPO, env=env,
+                                  capture_output=True, text=True, timeout=600)
             check(proc.returncode == 0, f"CLI {argv[0]} failed:\n{proc.stderr[-2000:]}")
-        for name in ("o1.txt", "o2.txt"):
+        for name in ("o1.txt", "o2.txt", "o3.txt"):
             check((tmp / name).read_text() == GOLDEN, f"CLI output {name} differs from GOLDEN")
-    say("cli", golden="byte-equal", files=2)
+    say("cli", golden="byte-equal", files=3, variants="plain-matrix (turbo), rrr-split (lf)")
 
 
 def main() -> int:
@@ -334,17 +469,31 @@ def main() -> int:
     kernels.reset_launch_counts()
     genome, sbwt, runs = run_main_path(dev)
     torch.cuda.synchronize()
-    launches = dict(kernels.LAUNCHES)
-    say("launches", **launches)
+    launches = {name: kernels.LAUNCHES[name] for name in KERNELS}
+    say("launches", path="main", **launches)
     check(all(launches[name] > 0 for name in KERNELS), f"a kernel of the path never launched: {launches}")
     say("memory", peak_main_path_bytes=torch.cuda.max_memory_allocated(dev))
 
-    results = compare_kernels(dev, genome, sbwt, runs, launches, card)
-    del sbwt, runs
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    variants = run_variants_path(sbwt, runs)
+    torch.cuda.synchronize()
+    lf_launches = {name: kernels.LAUNCHES[name] for name in LF_KERNELS}
+    say("launches", path="variants", seconds=round(time.perf_counter() - t0, 3), **lf_launches)
+    check(all(n > 0 for n in lf_launches.values()),
+          f"an LF kernel of the variants path never launched: {lf_launches}")
+    launches.update(lf_launches)
+    say("memory", peak_bytes=torch.cuda.max_memory_allocated(dev))
+
+    results, record = recorder(launches, card)
+    compare_kernels(dev, genome, sbwt, runs, record)
+    compare_lf_kernels(dev, genome, sbwt, runs, variants, record)
+    del sbwt, runs, variants
     torch.cuda.empty_cache()
     run_cli(str(dev))
 
-    print(json.dumps({"kernels": results}))
+    check(set(results) == set(KERNELS) | set(LF_KERNELS), "a kernel was not compared")
+    print(json.dumps({"kernels": [results[name] for name in {**KERNELS, **LF_KERNELS}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -7,10 +7,14 @@ construction, file formats and query batching are shared with
 ``sbwt_tpu`` through its modules that import no JAX (construct, io,
 native, utils).
 
-Ported so far: the plain-matrix ``build`` -> ``search`` path with the
-precalc table and the turbo successor engine (arity 1, 2 or 3). Kernels:
-csrc/lf_interval.cu (K1), succ_table.cu (K2), seed_bits.cu (K3) and
-turbo_stream.cu (K4), built by nvcc at first use (see kernels/).
+Ported so far: ``build``, ``build-variant`` and ``search`` for all ten
+variants, with the precalc table, the turbo successor engine (arity 1, 2
+or 3, plain-matrix) and the LF streaming engine (every variant). Kernels
+in csrc/, built by nvcc at first use (see kernels/): K1 (precalc fill,
+k-mer search) and K14 (LF streaming) in lf_stream.cuh, templated over the
+rank structures K15-K17 (bv.cuh, wavelet.cuh, subset_rank.cuh) with one
+instance per variant; succ_table.cu (K2), seed_bits.cu (K3) and
+turbo_stream.cu (K4).
 
 Top-level names are lazy, so importing the package loads no index code.
 """

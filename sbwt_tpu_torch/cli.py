@@ -1,11 +1,14 @@
-"""Command-line interface of the port: ``build`` (plain-matrix) and
-``search``, with the flags and output bytes of sbwt_tpu/cli.py.
+"""Command-line interface of the port: ``build``, ``search`` and
+``build-variant``, with the flags and output bytes of sbwt_tpu/cli.py,
+for all ten variants.
 
-Both take ``--device`` (default ``cuda``): on a CUDA device the index and
+Each takes ``--device`` (default ``cuda``): on a CUDA device the index and
 queries run the hand-written kernels; ``--device cpu`` runs their plain
-PyTorch versions. Search runs the turbo successor engine; an index whose
-turbo table cannot be built is an error, because the LF engine is not yet
-ported. ``build-variant`` and ``ascii-export`` are not yet ported.
+PyTorch versions. Search runs the turbo successor engine on a plain-matrix
+index that can have one, and the LF engine otherwise (``--engine lf``, a
+compressed variant under ``auto``, or a table that does not fit). The
+turbo engine on a compressed variant and ``ascii-export`` are not yet
+ported.
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ import torch
 from sbwt_tpu.cli import MAX_KMER_LENGTH, _input_file_list, _readlines
 from sbwt_tpu.utils.logging import LogLevel, set_log_level, write_log
 
-NOT_PORTED_COMMANDS = ("build-variant", "ascii-export")
+NOT_PORTED_COMMANDS = ("ascii-export",)
 
 
 def _device(name: str) -> torch.device:
@@ -39,7 +42,7 @@ def _add_device_flag(p: argparse.ArgumentParser) -> None:
 
 def build_main(argv) -> int:
     p = argparse.ArgumentParser(prog="sbwt-tpu-torch build",
-                                description="Construct a plain-matrix SBWT.")
+                                description="Construct an SBWT variant.")
     p.add_argument("-i", "--in-file", required=True)
     p.add_argument("-o", "--out-file", required=True)
     p.add_argument("-k", "--kmer-length", type=int, required=True)
@@ -60,11 +63,11 @@ def build_main(argv) -> int:
     from sbwt_tpu.io import seqio
 
     from .io.serialize import save
-    from .models.sbwt import SBWT, require_ported_variant
+    from .models.sbwt import SBWT, require_known_variant
 
     if args.verbose:
         set_log_level(LogLevel.MINOR)
-    require_ported_variant(args.variant)
+    require_known_variant(args.variant)
     device = _device(args.device)
     k = args.kmer_length
     if k > MAX_KMER_LENGTH:
@@ -100,6 +103,7 @@ def build_main(argv) -> int:
         n_threads=args.n_threads,
         temp_dir=args.temp_dir,
         input_bases=input_bases,
+        variant=args.variant,
     )
     write_log(f"Built SBWT for {sbwt.number_of_kmers()} distinct k-mers")
     write_log(f"SBWT has {sbwt.number_of_subsets()} subsets")
@@ -123,22 +127,23 @@ def search_main(argv) -> int:
     p.add_argument("-z", "--gzip-output", action="store_true")
     p.add_argument("--engine", choices=["auto", "lf", "turbo", "turbo1", "turbo2", "turbo3"],
                    default="auto",
-                   help="turbo1/2/3: successor table of that arity (16 B, 128 B, "
-                        "1 KiB of device memory per column); turbo/auto: the "
-                        "largest arity that fits free device memory. lf is not "
-                        "yet ported.")
+                   help="lf: the LF rank engine over the variant's own structure; "
+                        "turbo1/2/3: successor table of that arity (16 B, 128 B, "
+                        "1 KiB of device memory per column; plain-matrix only); "
+                        "turbo/auto: the largest arity that fits free device memory, "
+                        "degrading 3 -> 2 -> 1 -> LF. auto on a compressed variant "
+                        "runs LF.")
     _add_device_flag(p)
     args = p.parse_args(argv)
 
     t_start = time.perf_counter()
     set_log_level(LogLevel.MINOR)
-    if args.engine == "lf":
-        raise NotImplementedError("the LF engine is not yet ported to sbwt_tpu_torch")
     device = _device(args.device)
 
     from sbwt_tpu.io.query_runner import run_query_files
 
     from .io.serialize import load
+    from .ops.turbo import TurboUnavailable
 
     multi = args.query_file.endswith(".txt")
     in_files = _readlines(args.query_file) if multi else [args.query_file]
@@ -150,12 +155,23 @@ def search_main(argv) -> int:
 
     sbwt = load(args.index_file, device)
     write_log(f"Loaded the index variant {sbwt.variant}")
-    # auto without streaming support answers each k-mer by full search
-    # (the query runner's non-streaming path); otherwise turbo is required
-    if args.engine != "auto" or sbwt.has_streaming_query_support():
-        arity = {"turbo1": 1, "turbo2": 2, "turbo3": 3}.get(args.engine)
-        chosen = sbwt.enable_turbo(arity=arity)
-        write_log(f"Turbo successor engine enabled (arity {chosen})")
+    # without streaming support the query runner answers each k-mer by full
+    # search, so auto tries no table
+    want_turbo = args.engine.startswith("turbo") or (
+        args.engine == "auto" and sbwt.has_streaming_query_support())
+    if want_turbo and args.engine == "auto" and sbwt.variant != "plain-matrix":
+        write_log(f"Turbo engine on variant {sbwt.variant} is not yet ported; using LF engine")
+    elif want_turbo:
+        # as sbwt_tpu/cli.py:159-173, an index that cannot have a table runs
+        # LF; a failure to build or launch a kernel still ends the run
+        try:
+            chosen = sbwt.enable_turbo(arity={"turbo1": 1, "turbo2": 2, "turbo3": 3}.get(args.engine))
+            if chosen is None:
+                write_log("Turbo table exceeds free device memory; using LF engine")
+            else:
+                write_log(f"Turbo successor engine enabled (arity {chosen})")
+        except TurboUnavailable as e:
+            write_log(f"Turbo engine unavailable ({e}); using LF engine")
     n = run_query_files(sbwt, in_files, out_files, args.gzip_output)
     total = time.perf_counter() - t_start
     if n:
@@ -163,7 +179,41 @@ def search_main(argv) -> int:
     return 0
 
 
-COMMANDS = {"build": build_main, "search": search_main}
+def build_variant_main(argv) -> int:
+    p = argparse.ArgumentParser(prog="sbwt-tpu-torch build-variant",
+                                description="Re-encode a plain-matrix index into another variant.")
+    p.add_argument("-i", "--in-file", required=True)
+    p.add_argument("-o", "--out-file", required=True)
+    p.add_argument("--variant", default="plain-matrix")
+    p.add_argument("--format", choices=["cpp", "native"], default="cpp")
+    _add_device_flag(p)
+    args = p.parse_args(argv)
+
+    from .io.serialize import load, save
+    from .models.sbwt import VARIANT_NAMES
+
+    if args.variant not in VARIANT_NAMES:
+        sys.stderr.write(f"Error: unknown variant: {args.variant}\n")
+        return 1
+    device = _device(args.device)
+    write_log("Reading input.")
+    sbwt = load(args.in_file, device)
+    if sbwt.variant != "plain-matrix":
+        sys.stderr.write("Error: input index is not a plain-matrix SBWT\n")
+        return 1
+    write_log(f"Building variant {args.variant}")
+    sbwt = sbwt.to_variant(args.variant)
+    bytes_written = save(args.out_file, sbwt, args.format)
+    write_log(f"Built variant {args.variant} to file {args.out_file}")
+    write_log(
+        "Space on disk: "
+        f"{bytes_written * 8.0 / sbwt.number_of_subsets()} bits per column, "
+        f"{bytes_written * 8.0 / max(1, sbwt.number_of_kmers())} bits per k-mer"
+    )
+    return 0
+
+
+COMMANDS = {"build": build_main, "search": search_main, "build-variant": build_variant_main}
 
 
 def main(argv=None) -> int:

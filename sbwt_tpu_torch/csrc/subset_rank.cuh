@@ -1,0 +1,222 @@
+// K17: subset rank of the ten variants on the device. Each type has
+//   rank(c, pos)       count of char c in subsets 0..pos-1, pos in [0, n]
+//   rank_pair(c, pos)  (rank(c, pos), rank(c, pos + 1)), pos in [0, n)
+// and is a plain descriptor passed to a kernel by value (mirrored in
+// Python by sbwt_tpu_torch/kernels). Chars are 0..3.
+//
+// Replaces the XLA code of sbwt_tpu/models/subsetrank.py: MatrixRank
+// (:92-104), SplitRank (:179-203), ConcatRank with _select0 /
+// _select0_pair (:309-391) and SubsetWTRank with the _wt4_* helpers
+// (:504-631); PlainMatrix is the fused-row rank of
+// sbwt_tpu/models/matrix.py:40-86 (sbwt_common.cuh).
+//
+// Bound on the H100: the dependent loads of the bit-vector ranks inside
+// (bv.cuh, wavelet.cuh): one for PlainMatrix, one for MatrixRank, X then
+// Y's two levels and Z for SplitRank, a sample and a window row then three
+// levels for ConcatRank, and up to six for SubsetWTRank. rank_pair shares
+// every load between the two positions, except ConcatRank's two tree
+// ranks, whose set starts can be up to 4 symbols apart.
+//
+// ConcatRank's select0 takes the window's high word as z1 >> o for every
+// o. The JAX package zeroes it when o == 0 (subsetrank.py:321, :363),
+// which loses the ninth zero of a fully dense window (ROADMAP Queue 3,
+// F1); it is not ported.
+#pragma once
+
+#include "sbwt_common.cuh"
+#include "wavelet.cuh"
+
+namespace sbwt {
+
+__device__ __forceinline__ int pick4(const int (&a)[5], int c) {
+    return c == 0 ? a[0] : (c == 1 ? a[1] : (c == 2 ? a[2] : a[3]));
+}
+
+// plain-matrix: the fused (word, cum) rows of sbwt_common.cuh
+struct PlainMatrix {
+    const int2* rank_tbl;
+    long long n_words;
+
+    __device__ __forceinline__ int rank(int c, int pos) const {
+        return rank_c(rank_tbl, n_words, c, pos);
+    }
+    __device__ __forceinline__ int2 rank_pair(int c, int pos) const {
+        int bit;
+        const int r = extend_rank(rank_tbl, n_words, c, pos, &bit);
+        return make_int2(r, r + bit);
+    }
+};
+
+// rrr-matrix, mef-matrix: one bit vector over the rows [A | C | G | T]
+template <class BV>
+struct MatrixRank {
+    BV bv;
+    int n;
+    int base[5];  // rank at the start of each char's row
+
+    __device__ __forceinline__ int rank(int c, int pos) const {
+        return bv.rank(c * n + pos) - pick4(base, c);
+    }
+    __device__ __forceinline__ int2 rank_pair(int c, int pos) const {
+        const int2 r = bv.rank_pair(c * n + pos);
+        const int b = pick4(base, c);
+        return make_int2(r.x - b, r.y - b);
+    }
+};
+
+// plain-split, rrr-split, mef-split: X marks columns with != 1 out-edge;
+// Y (plain, sigma 4) holds the unary columns' labels, Z (plain) the other
+// columns' rows, char-major over n_b columns
+template <class XBV>
+struct SplitRank {
+    XBV X;
+    WaveletTree<PlainBV> Y;
+    PlainBV Z;
+    int n_b;
+    int z_base[5];
+
+    __device__ __forceinline__ int rank(int c, int pos) const {
+        const int xr = X.rank(pos);
+        return Y.rank(c, pos - xr) + Z.rank(c * n_b + xr) - pick4(z_base, c);
+    }
+    // X's bit at pos routes the +1 into exactly one of Y or Z
+    __device__ __forceinline__ int2 rank_pair(int c, int pos) const {
+        const int2 x = X.rank_pair(pos);
+        const int2 y = Y.rank_pair(c, pos - x.x);
+        const int2 z = Z.rank_pair(c * n_b + x.x);
+        const int zb = pick4(z_base, c);
+        return make_int2(y.x + z.x - zb, (x.y > x.x ? y.x + z.y : y.y + z.x) - zb);
+    }
+};
+
+// 0-based index of the n-th (1-based) set bit of w, n <= popcount(w)
+__device__ __forceinline__ int nth_set_bit(unsigned w, int n) {
+    int base = 0;
+#pragma unroll
+    for (int shift = 16; shift >= 1; shift >>= 1) {
+        const unsigned low = w & ((1u << shift) - 1u);
+        const int cnt = __popc(low);
+        if (cnt < n) {
+            w >>= shift;
+            n -= cnt;
+            base += shift;
+        } else {
+            w = low;
+        }
+    }
+    return base;
+}
+
+// plain-concat, mef-concat: set members over {$, A, C, G, T} in a sigma-5
+// tree; the zeros of L mark set starts (and the end)
+template <class BV>
+struct ConcatRank {
+    WaveletTree<BV> wt;
+    const int2* l_words;  // (L word w, L word w + 1)
+    const int* samples;   // position of every 8th zero of L
+
+    // The 64 zero-mask bits of L from the sample below zero i, as (lo, hi),
+    // with the sample's position s and i's rank among its 8 zeros.
+    __device__ __forceinline__ void window(int i, int* s, int* rem, unsigned* lo,
+                                           unsigned* hi) const {
+        *s = samples[i >> 3];
+        *rem = i & 7;
+        const int2 row = l_words[*s >> 5];
+        const unsigned o = (unsigned)*s & 31u;
+        const unsigned z0 = ~(unsigned)row.x, z1 = ~(unsigned)row.y;
+        *lo = (z0 >> o) | (o ? z1 << (32u - o) : 0u);
+        *hi = z1 >> o;
+    }
+    __device__ __forceinline__ static int select_in(int s, unsigned lo, unsigned hi, int target) {
+        const int cnt_lo = __popc(lo);
+        return cnt_lo < target ? s + 32 + nth_set_bit(hi, target - cnt_lo)
+                               : s + nth_set_bit(lo, target);
+    }
+    __device__ __forceinline__ int rank(int c, int pos) const {
+        int s, rem;
+        unsigned lo, hi;
+        window(pos, &s, &rem, &lo, &hi);
+        return wt.rank(c + 1, select_in(s, lo, hi, rem + 1));
+    }
+    // zeros pos and pos + 1 come from one window: sets hold <= 4 symbols,
+    // so they lie within 33 bits of the sample
+    __device__ __forceinline__ int2 rank_pair(int c, int pos) const {
+        int s, rem;
+        unsigned lo, hi;
+        window(pos, &s, &rem, &lo, &hi);
+        return make_int2(wt.rank(c + 1, select_in(s, lo, hi, rem + 1)),
+                         wt.rank(c + 1, select_in(s, lo, hi, rem + 2)));
+    }
+};
+
+// plain-subsetwt, rrr-subsetwt (SubsetWT.hh:41-113): acgt over
+// 2 * (A or C) + (G or T); ac over 2 * A + C of the AC-present columns;
+// gt over 2 * G + T of the GT-present columns.
+template <class BV>
+struct SubsetWTRank {
+    WaveletTree<BV> acgt, ac, gt;
+
+    // What the rank of a sigma-4 tree reads: level 0 counts symbols {2, 3};
+    // its children, node ids 1 and 2, sit in level 1. A value copy, so that
+    // picking the ac or the gt tree by char selects registers.
+    struct Tree4 {
+        BV l0, l1;
+        int base_l, rank_l, base_r, rank_r;
+    };
+    __device__ __forceinline__ static Tree4 tree4(const WaveletTree<BV>& t) {
+        return Tree4{t.level[0], t.level[1], t.step[0][1][0], t.step[0][1][1],
+                     t.step[2][1][0], t.step[2][1][1]};
+    }
+
+    // (count of symbol 1, count of symbol 3) before pos, given level 0's
+    // rank r at pos
+    __device__ __forceinline__ static int2 pair_rank(const Tree4& t, int pos, int r) {
+        return make_int2(t.l1.rank(t.base_l + (pos - r)) - t.rank_l,
+                         t.l1.rank(t.base_r + r) - t.rank_r);
+    }
+    // pair_rank at p and at p + padv (padv in {0, 1}), given level 0's
+    // ranks r at p and r + radv at p + padv: (c1, c3, c1', c3')
+    __device__ __forceinline__ static int4 pair_rank_pair(const Tree4& t, int p, int padv, int r,
+                                                          int radv) {
+        const int2 a = t.l1.rank_pair(t.base_l + (p - r));
+        const int2 b = t.l1.rank_pair(t.base_r + r);
+        return make_int4(a.x - t.rank_l, b.x - t.rank_r,
+                         (padv - radv == 1 ? a.y : a.x) - t.rank_l,
+                         (radv == 1 ? b.y : b.x) - t.rank_r);
+    }
+
+    __device__ __forceinline__ int rank(int c, int pos) const {
+        const Tree4 root = tree4(acgt);
+        const int r = root.l0.rank(pos);
+        int x = r;
+        if (c >= 2) {
+            const int2 q = pair_rank(root, pos, r);
+            x = q.x + q.y;
+        }
+        const Tree4 t = c < 2 ? tree4(ac) : tree4(gt);
+        const int r0 = t.l0.rank(x);
+        if ((c & 1) == 0) return r0;  // A or G: level 0 of its tree
+        const int2 q = pair_rank(t, x, r0);
+        return q.x + q.y;
+    }
+
+    __device__ __forceinline__ int2 rank_pair(int c, int pos) const {
+        const Tree4 root = tree4(acgt);
+        const int2 r = root.l0.rank_pair(pos);
+        int x = r.x, xq = r.y;
+        if (c >= 2) {
+            const int4 q = pair_rank_pair(root, pos, 1, r.x, r.y - r.x);
+            x = q.x + q.y;
+            xq = q.z + q.w;
+        }
+        const int xadv = xq - x;
+        const Tree4 t = c < 2 ? tree4(ac) : tree4(gt);
+        const int2 t0 = t.l0.rank_pair(x);
+        const int t_rq = xadv == 1 ? t0.y : t0.x;
+        if ((c & 1) == 0) return make_int2(t0.x, t_rq);
+        const int4 q = pair_rank_pair(t, x, xadv, t0.x, t_rq - t0.x);
+        return make_int2(q.x + q.y, q.z + q.w);
+    }
+};
+
+}  // namespace sbwt

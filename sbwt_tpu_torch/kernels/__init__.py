@@ -21,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -30,22 +31,34 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("lf_interval.cu", "succ_table.cu", "seed_bits.cu", "turbo_stream.cu")
-HEADERS = ("sbwt_common.cuh",)
+SOURCES = ("succ_table.cu", "seed_bits.cu", "turbo_stream.cu",
+           "lf_stream.cu", "lf_split.cu", "lf_concat.cu", "lf_subsetwt.cu")
+HEADERS = ("sbwt_common.cuh", "bv.cuh", "wavelet.cuh", "subset_rank.cuh", "lf_stream.cuh")
 NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+VARIANTS = ("plain-matrix", "rrr-matrix", "mef-matrix", "plain-split", "rrr-split",
+            "mef-split", "plain-concat", "mef-concat", "plain-subsetwt", "rrr-subsetwt")
+# the source file (and C entry point sbwt_lf_<family>) of each variant's instances
+FAMILY = {v: v.split("-")[1] for v in VARIANTS}
+# the LF entry points of lf_stream.cuh: K14, then K1's fill and search
+LF_OPS = ("lf_stream", "precalc_fill", "kmer_search")
+
+
+def lf_counter(op: str, variant: str) -> str:
+    return f"{op}[{variant}]"
+
 
 # Launches per kernel entry point since the last reset_launch_counts().
 LAUNCHES = {
-    "precalc_fill": 0,
-    "kmer_search": 0,
     "succ1": 0,
     "succ_compose": 0,
     "seed_bits": 0,
     "turbo_stream": 0,
+    **{lf_counter(op, v): 0 for op in LF_OPS for v in VARIANTS},
 }
 
 _lib = None
@@ -55,13 +68,65 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _SIGNATURES = {
-    "sbwt_precalc_fill": [_I, _P, _LL, _P, _I, _I, _P, _P],
-    "sbwt_kmer_search": [_I, _P, _LL, _P, _I, _P, _I, _P, _LL, _I, _P, _P],
     "sbwt_succ1": [_I, _P, _LL, _P, _P, _I, _P, _P],
     "sbwt_succ_compose": [_I, _P, _I, _I, _P, _P],
     "sbwt_seed_bits": [_I, _P, _I, _P, _P],
     "sbwt_turbo_stream": [_I, _P, _I, _P, _LL, _P, _P, _I, _P, _P, _LL, _I, _I, _P, _P, _P],
+    # (device, op, variant, rank descriptor*, LFArgs*, stream)
+    **{f"sbwt_lf_{fam}": [_I, _I, _I, _P, _P, _P] for fam in sorted(set(FAMILY.values()))},
+    "sbwt_lf_desc_sizes": [_P],
 }
+
+
+# ---------------------------------------------------------------------------
+# Descriptors of the rank structures, mirroring the device types of
+# csrc/bv.cuh, wavelet.cuh, subset_rank.cuh and lf_stream.cuh field by field.
+# A launch passes one by pointer; the C entry point hands it to the kernel
+# by value. The loader checks every size against the library's.
+# ---------------------------------------------------------------------------
+
+
+def _struct(name: str, fields: list) -> type:
+    return type(name, (ctypes.Structure,), {"_fields_": fields})
+
+
+def c_ints(values) -> ctypes.Array:
+    """A descriptor's fixed-size int array field holding ``values``."""
+    vals = [int(x) for x in values]
+    return (_I * len(vals))(*vals)
+
+
+PlainBVDesc = _struct("PlainBV", [("tbl", _P)])
+RRRDesc = _struct("RRR15", [("meta", _P), ("offs", _P), ("lut", _P), ("base", _P)])
+MEFDesc = _struct("MEF", [("upper", PlainBVDesc), ("lower", PlainBVDesc), ("wl", _I)])
+BV_DESCS = {"plain": PlainBVDesc, "rrr": RRRDesc, "mef": MEFDesc}
+# levels[3]; step[5][3][4] = (node base, node rank, go-right bit, valid); depth
+WT_DESCS = {k: _struct(f"WaveletTree_{k}", [("level", bv * 3), ("step", _I * 60), ("depth", _I)])
+            for k, bv in BV_DESCS.items()}
+MATRIX_DESCS = {k: _struct(f"MatrixRank_{k}", [("bv", BV_DESCS[k]), ("n", _I), ("base", _I * 5)])
+                for k in ("rrr", "mef")}
+SPLIT_DESCS = {k: _struct(f"SplitRank_{k}", [("X", BV_DESCS[k]), ("Y", WT_DESCS["plain"]),
+                                             ("Z", PlainBVDesc), ("n_b", _I), ("z_base", _I * 5)])
+               for k in ("plain", "rrr", "mef")}
+CONCAT_DESCS = {k: _struct(f"ConcatRank_{k}", [("wt", WT_DESCS[k]), ("l_words", _P),
+                                               ("samples", _P)])
+                for k in ("plain", "rrr")}
+SUBSETWT_DESCS = {k: _struct(f"SubsetWTRank_{k}", [("acgt", WT_DESCS[k]), ("ac", WT_DESCS[k]),
+                                                   ("gt", WT_DESCS[k])])
+                  for k in ("plain", "rrr")}
+PlainMatrixDesc = _struct("PlainMatrix", [("rank_tbl", _P), ("n_words", _LL)])
+RANK_DESCS = {
+    "plain-matrix": PlainMatrixDesc,
+    "rrr-matrix": MATRIX_DESCS["rrr"], "mef-matrix": MATRIX_DESCS["mef"],
+    "plain-split": SPLIT_DESCS["plain"], "rrr-split": SPLIT_DESCS["rrr"],
+    "mef-split": SPLIT_DESCS["mef"],
+    "plain-concat": CONCAT_DESCS["plain"], "mef-concat": CONCAT_DESCS["rrr"],
+    "plain-subsetwt": SUBSETWT_DESCS["plain"], "rrr-subsetwt": SUBSETWT_DESCS["rrr"],
+}
+LFArgs = _struct("LFArgs", [
+    ("sgs_tbl", _P), ("C", _P), ("precalc", _P), ("codes", _P), ("lengths", _P), ("out", _P),
+    ("B", _LL), ("L", _I), ("k", _I), ("p", _I), ("n_nodes", _I),
+])
 
 
 def reset_launch_counts() -> None:
@@ -87,25 +152,34 @@ def library_path() -> Path:
 
 def build() -> tuple[Path, float]:
     """Compile the kernels unless the current library exists; returns
-    (library path, seconds spent compiling). The compiler's output
-    (register and spill counts from ptxas) is kept beside the library as
+    (library path, seconds spent compiling). One nvcc per source runs in
+    parallel, then one links the objects. The compilers' output (register
+    and spill counts from ptxas) is kept beside the library as
     ``<name>.log``. Raises with nvcc's stderr if the build fails."""
     out = library_path()
     if out.exists():
         return out, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
-    return out, seconds
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{Path(s).stem}.o" for s in SOURCES]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(o),
+                                   str(CSRC / s)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(SOURCES, objs)]
+        logs = [(s, p.communicate()[0], p.returncode) for s, p in zip(SOURCES, procs)]
+        failed = [f"{s} ({rc}):\n{log}" for s, log, rc in logs if rc != 0]
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        tmp_lib = Path(tmp) / out.name
+        link = subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                               "-o", str(tmp_lib), *map(str, objs)], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+        out.with_suffix(".log").write_text("".join(f"== {s}\n{log}" for s, log, _ in logs))
+        os.replace(tmp_lib, out)  # atomic: a concurrent loader sees all or nothing
+    return out, time.perf_counter() - t0
 
 
 def _library():
@@ -118,8 +192,20 @@ def _library():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+            _check_desc_sizes(lib)
             _lib = lib
         return _lib
+
+
+def _check_desc_sizes(lib) -> None:
+    """Raise unless every descriptor has the size the library compiled."""
+    types = [RANK_DESCS[v] for v in VARIANTS] + [LFArgs]
+    sizes = (ctypes.c_longlong * len(types))()
+    lib.sbwt_lf_desc_sizes(sizes)
+    for t, size in zip(types, sizes):
+        if ctypes.sizeof(t) != size:
+            raise RuntimeError(f"descriptor {t.__name__}: {ctypes.sizeof(t)} bytes in Python, "
+                               f"{size} in the library")
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, device: torch.device,
@@ -150,37 +236,6 @@ def _launch(entry: str, counter: str, device: torch.device, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{entry}: CUDA launch failed with cudaError {err}")
     LAUNCHES[counter] += 1
-
-
-def precalc_fill(rank_tbl, n_words: int, C, n_nodes: int, p: int) -> torch.Tensor:
-    """K1 (lf_interval.cu): int32 [4^p, 2] intervals of all p-mers."""
-    dev = _cuda_device(rank_tbl)
-    out = torch.empty((4**p, 2), dtype=torch.int32, device=dev)
-    _launch(
-        "sbwt_precalc_fill", "precalc_fill", dev,
-        _check(rank_tbl, "rank_tbl", torch.int32, dev, (4 * n_words, 2), 8), n_words,
-        _check(C, "C", torch.int32, dev, (4,)), n_nodes, p,
-        _check(out, "out", torch.int32, dev, align=8),
-    )
-    return out
-
-
-def kmer_search(rank_tbl, n_words: int, C, n_nodes: int, precalc, p: int, codes) -> torch.Tensor:
-    """K1 (lf_interval.cu): colex rank or -1 of each int8 k-mer row [B, k]."""
-    dev = _cuda_device(codes)
-    B, k = codes.shape
-    out = torch.empty(B, dtype=torch.int32, device=dev)
-    if B == 0:
-        return out
-    _launch(
-        "sbwt_kmer_search", "kmer_search", dev,
-        _check(rank_tbl, "rank_tbl", torch.int32, dev, (4 * n_words, 2), 8), n_words,
-        _check(C, "C", torch.int32, dev, (4,)), n_nodes,
-        _check(precalc, "precalc", torch.int32, dev, (max(1, 4**p), 2), 8), p,
-        _check(codes, "codes", torch.int8, dev, align=1), B, k,
-        _check(out, "out", torch.int32, dev),
-    )
-    return out
 
 
 def succ1(rank_tbl, n_words: int, sgs_tbl, C, n_nodes: int) -> torch.Tensor:
@@ -245,4 +300,80 @@ def turbo_stream(tbl, arity: int, rank_tbl, n_words: int, C, precalc, p: int,
         _check(lengths, "lengths", torch.int32, dev, (B,)),
         _check(out, "out", torch.int32, dev),
     )
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K14 and K1: LF engines over any variant's ranks (csrc/lf_stream.cuh; one
+# instance per variant in lf_<family>.cu)
+# ---------------------------------------------------------------------------
+
+
+def ptr(t: torch.Tensor, name: str, device: torch.device, align: int = 4) -> int:
+    """Checked device pointer of an int32 tensor that a descriptor carries."""
+    return _check(t, name, torch.int32, device, align=align)
+
+
+def _lf_launch(op: str, variant: str, rank_desc, device: torch.device, **fields) -> None:
+    if not isinstance(rank_desc, RANK_DESCS[variant]):
+        raise TypeError(f"{variant}: descriptor {type(rank_desc).__name__}, "
+                        f"expected {RANK_DESCS[variant].__name__}")
+    args = LFArgs(**fields)
+    entry = f"sbwt_lf_{FAMILY[variant]}"
+    fn = getattr(_library(), entry)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = fn(device.index, LF_OPS.index(op), VARIANTS.index(variant), ctypes.byref(rank_desc),
+             ctypes.byref(args), stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} ({op}, {variant}): CUDA launch failed with cudaError {err}")
+    LAUNCHES[lf_counter(op, variant)] += 1
+
+
+def lf_stream(variant: str, rank_desc, sgs_tbl, C, precalc, p: int, k: int, n_nodes: int,
+              codes, lengths) -> torch.Tensor:
+    """K14 (lf_stream.cuh): int32 [B, L - k + 1] LF streaming answers of the
+    int8 codes [B, L] with valid lengths int32 [B]."""
+    dev = _cuda_device(codes)
+    B, L = codes.shape
+    out = torch.empty((B, L - k + 1), dtype=torch.int32, device=dev)
+    if B == 0:
+        return out
+    _lf_launch(
+        "lf_stream", variant, rank_desc, dev,
+        sgs_tbl=_check(sgs_tbl, "sgs_tbl", torch.int32, dev, align=8),
+        C=_check(C, "C", torch.int32, dev, (4,)),
+        precalc=_check(precalc, "precalc", torch.int32, dev, (max(1, 4**p), 2), 8),
+        codes=_check(codes, "codes", torch.int8, dev, align=1),
+        lengths=_check(lengths, "lengths", torch.int32, dev, (B,)),
+        out=_check(out, "out", torch.int32, dev), B=B, L=L, k=k, p=p, n_nodes=n_nodes,
+    )
+    return out
+
+
+def precalc_fill(variant: str, rank_desc, C, n_nodes: int, p: int) -> torch.Tensor:
+    """K1 (lf_stream.cuh): int32 [4^p, 2] intervals of all p-mers over the
+    variant's ranks, (-1, -1) when empty."""
+    dev = _cuda_device(C)
+    out = torch.empty((4**p, 2), dtype=torch.int32, device=dev)
+    _lf_launch("precalc_fill", variant, rank_desc, dev,
+               C=_check(C, "C", torch.int32, dev, (4,)),
+               out=_check(out, "out", torch.int32, dev, align=8),
+               B=4**p, p=p, n_nodes=n_nodes)
+    return out
+
+
+def kmer_search(variant: str, rank_desc, C, n_nodes: int, precalc, p: int,
+                codes) -> torch.Tensor:
+    """K1 (lf_stream.cuh): colex rank or -1 of each int8 k-mer row [B, k]
+    over the variant's ranks."""
+    dev = _cuda_device(codes)
+    B, k = codes.shape
+    out = torch.empty(B, dtype=torch.int32, device=dev)
+    if B == 0:
+        return out
+    _lf_launch("kmer_search", variant, rank_desc, dev,
+               C=_check(C, "C", torch.int32, dev, (4,)),
+               precalc=_check(precalc, "precalc", torch.int32, dev, (max(1, 4**p), 2), 8),
+               codes=_check(codes, "codes", torch.int8, dev, align=1),
+               out=_check(out, "out", torch.int32, dev), B=B, k=k, p=p, n_nodes=n_nodes)
     return out

@@ -30,6 +30,9 @@ class MatrixIndex(nn.Module):
     """Device representation of the plain-matrix SBWT (narrow engine:
     n < 2^31 columns, int32 positions)."""
 
+    variant = "plain-matrix"
+    max_precalc_k = MAX_PRECALC_K
+
     def __init__(self, rank_tbl, sgs_tbl, C, precalc, *, n_nodes: int, n_kmers: int,
                  k: int, precalc_k: int, n_words: int, has_streaming: bool):
         super().__init__()
@@ -59,17 +62,30 @@ class MatrixIndex(nn.Module):
         return bv.rank_get(self.rank_tbl, pos, row0=c * self.n_words)
 
     def sg_start(self, col):
-        """Greatest marked column <= col (SBWT.hh:563): the mark is within 3
-        columns, inside the (word w, word w - 1) row read as one 64-bit
-        window whose bit 32 + o is bit o of word w; int64."""
-        col = torch.as_tensor(col, device=self.device).long()
-        row = self.sgs_tbl[col >> 5]
-        win = (bv.word_u32(row[..., 0]) << 32) | bv.word_u32(row[..., 1])
-        j = 32 + (col & 31)
-        delta = torch.full_like(col, 3)
-        for d in (2, 1, 0):
-            delta = torch.where(((win >> (j - d)) & 1) == 1, d, delta)
-        return col - delta
+        return sg_start(self.sgs_tbl, col)
+
+    def kernel_desc(self, dev):
+        """The plain-matrix rank descriptor of the LF kernels (K1, K14)."""
+        return kernels.PlainMatrixDesc(kernels.ptr(self.rank_tbl, "rank_tbl", dev, 8),
+                                       self.n_words)
+
+    def size_in_bytes(self) -> int:
+        """Bytes of the rank structure: the fused rank table."""
+        return self.rank_tbl.numel() * 4
+
+
+def sg_start(sgs_tbl, col):
+    """Greatest marked column <= col (SBWT.hh:563): the mark is within 3
+    columns, inside the (word w, word w - 1) row read as one 64-bit window
+    whose bit 32 + o is bit o of word w; int64."""
+    col = torch.as_tensor(col, device=sgs_tbl.device).long()
+    row = sgs_tbl[col >> 5]
+    win = (bv.word_u32(row[..., 0]) << 32) | bv.word_u32(row[..., 1])
+    j = 32 + (col & 31)
+    delta = torch.full_like(col, 3)
+    for d in (2, 1, 0):
+        delta = torch.where(((win >> (j - d)) & 1) == 1, d, delta)
+    return col - delta
 
 
 def from_numpy_state(state: dict, device) -> MatrixIndex:
@@ -160,7 +176,7 @@ def build_device_index(built, device, precalc_k: int = 0) -> MatrixIndex:
                             built.n_kmers, device, precalc_k)
 
 
-def precalc_fill_plain(index: MatrixIndex, p: int, chunk: int = 1 << 22) -> torch.Tensor:
+def precalc_fill_plain(index, p: int, chunk: int = 1 << 22) -> torch.Tensor:
     """Plain version of K1's precalc fill: int32 [4^p, 2] intervals of all
     p-mers, lane i spelling chars (i >> 2j) & 3, (-1, -1) when empty."""
     n_entries = 4**p
@@ -176,20 +192,25 @@ def precalc_fill_plain(index: MatrixIndex, p: int, chunk: int = 1 << 22) -> torc
     return out
 
 
-def with_precalc(index: MatrixIndex, precalc_k: int) -> MatrixIndex:
+def with_precalc(index, precalc_k: int):
     """Fill the table of the SBWT intervals of all 4^p strings
-    (SBWT.hh:617-645), indexed colex-reversed: idx = sum_i code[i] << 2i.
-    On a CUDA index this launches K1; on a CPU index it runs the plain
-    version. Updates ``index`` in place and returns it."""
+    (SBWT.hh:617-645), indexed colex-reversed: idx = sum_i code[i] << 2i,
+    over the ranks of any variant's index (a MatrixIndex or a
+    GenericIndex). On a CUDA index this launches the variant's K1 fill; on
+    a CPU index it runs the plain version. Updates ``index`` in place and
+    returns it."""
     p = int(precalc_k)
-    if p > MAX_PRECALC_K:
-        raise ValueError("precalc_k > 13 not supported (table would exceed 512 MiB)")
+    cap = index.max_precalc_k
+    if p > cap:
+        raise ValueError(f"precalc_k > {cap} not supported "
+                         f"(table would exceed {8 << (2 * cap - 20)} MiB)")
     if p > index.k:
         raise ValueError(f"precalc_k {p} > k {index.k}")
     if p == 0:
         tbl = torch.zeros((1, 2), dtype=torch.int32, device=index.device)
     elif index.device.type == "cuda":
-        tbl = kernels.precalc_fill(index.rank_tbl, index.n_words, index.C, index.n_nodes, p)
+        tbl = kernels.precalc_fill(index.variant, index.kernel_desc(index.device), index.C,
+                                   index.n_nodes, p)
     else:
         tbl = precalc_fill_plain(index, p)
     index.precalc = tbl

@@ -1,15 +1,18 @@
-"""High-level SBWT API of the port: the plain-matrix index object.
+"""High-level SBWT API of the port: the index object of all ten variants.
 
-The plain-matrix surface of sbwt_tpu/models/sbwt.py in PyTorch. Host
-construction is shared with the JAX package (sbwt_tpu/construct, which
-imports no JAX); the index tables live on an explicit ``device``. On a
-CUDA device every query runs a hand-written kernel; on the CPU the plain
-PyTorch versions run. The ``search_batch`` / ``streaming_search_batch`` /
-``has_streaming_query_support`` / ``k`` surface is the one the shared
-query runner (sbwt_tpu/io/query_runner.py) drives.
+The surface of sbwt_tpu/models/sbwt.py in PyTorch. Host construction is
+shared with the JAX package (sbwt_tpu/construct, which imports no JAX);
+the index tables live on an explicit ``device``. ``variant`` picks the
+subset-rank structure: plain-matrix keeps the fused-row ``MatrixIndex``,
+the nine compressed variants a ``GenericIndex`` over their own structure.
+On a CUDA device every query runs a hand-written kernel; on the CPU the
+plain PyTorch versions run. The ``search_batch`` /
+``streaming_search_batch`` / ``has_streaming_query_support`` / ``k``
+surface is the one the shared query runner (sbwt_tpu/io/query_runner.py)
+drives.
 
-Streaming search runs on the turbo successor engine only: call
-``enable_turbo`` first. The LF streaming engine is not yet ported.
+Streaming search runs the turbo successor engine once ``enable_turbo``
+has built its table (plain-matrix only), and the LF engine otherwise.
 """
 from __future__ import annotations
 
@@ -18,31 +21,20 @@ import torch
 
 from sbwt_tpu.utils.dna import encode_query
 
+from .. import kernels
 from ..ops import search as engines
-from ..ops.turbo import build_turbo, turbo_streaming_search
+from ..ops.turbo import TurboUnavailable, build_turbo, turbo_streaming_search
 from ..utils.memory import device_free_bytes, select_turbo_arity
-from .matrix import MatrixIndex, from_host_arrays, from_packed_rows, with_precalc
+from .matrix import from_host_arrays, from_packed_rows, with_precalc
+from .variants import build_generic_index
 
-VARIANT_NAMES = [
-    "plain-matrix",
-    "rrr-matrix",
-    "mef-matrix",
-    "plain-split",
-    "rrr-split",
-    "mef-split",
-    "plain-concat",
-    "mef-concat",
-    "plain-subsetwt",
-    "rrr-subsetwt",
-]
-PORTED_VARIANTS = ("plain-matrix",)
+# the reference's ten variants, in the order the LF kernels number them
+VARIANT_NAMES = list(kernels.VARIANTS)
 
 
-def require_ported_variant(variant: str) -> None:
+def require_known_variant(variant: str) -> None:
     if variant not in VARIANT_NAMES:
         raise ValueError(f"unknown variant: {variant}")
-    if variant not in PORTED_VARIANTS:
-        raise NotImplementedError(f"variant {variant} is not yet ported to sbwt_tpu_torch")
 
 
 def _as_int8_tensor(codes, device) -> torch.Tensor:
@@ -50,15 +42,16 @@ def _as_int8_tensor(codes, device) -> torch.Tensor:
 
 
 class SBWT:
-    """Plain-matrix SBWT index with its tables on a torch device."""
+    """SBWT index of any variant with its tables on a torch device."""
 
-    variant = "plain-matrix"
-
-    def __init__(self, device_index: MatrixIndex, bits_packed: np.ndarray, n_cols: int,
-                 sgs_packed: np.ndarray | None):
-        """Wrap a built index. The host keeps the rows byte-packed
-        (little bit order, [4, ceil(n/8)]) for serialization."""
+    def __init__(self, device_index, bits_packed: np.ndarray, n_cols: int,
+                 sgs_packed: np.ndarray | None, variant: str = "plain-matrix"):
+        """Wrap a built index (a MatrixIndex, or a GenericIndex of
+        ``variant``). The host keeps the rows byte-packed (little bit
+        order, [4, ceil(n/8)]) for serialization and re-encoding."""
+        require_known_variant(variant)
         self.device_index = device_index
+        self.variant = variant
         self._n_cols = int(n_cols)
         self._bits_packed = np.asarray(bits_packed, dtype=np.uint8)
         if sgs_packed is None:
@@ -93,16 +86,37 @@ class SBWT:
         return cls(index, np.ascontiguousarray(bits_packed, dtype=np.uint8), n, sgs_packed)
 
     @classmethod
-    def from_built(cls, built, device, precalc_k: int = 0) -> "SBWT":
-        """Index from a host BuiltSBWT (sbwt_tpu/construct/inmemory.py)."""
+    def from_built(cls, built, device, precalc_k: int = 0,
+                   variant: str = "plain-matrix") -> "SBWT":
+        """Index from a host BuiltSBWT (sbwt_tpu/construct/inmemory.py). A
+        compressed variant fills its precalc table over its own ranks."""
         bits = np.asarray(built.bits, dtype=bool)
         sgs = np.asarray(built.suffix_group_starts, dtype=bool)
-        index = from_host_arrays(bits, sgs, built.k, built.n_kmers, device, precalc_k)
+        return cls.from_bits(bits, sgs if len(sgs) else None, built.k, built.n_kmers, device,
+                             precalc_k, variant)
+
+    @classmethod
+    def from_bits(cls, bits: np.ndarray, sgs: np.ndarray | None, k: int, n_kmers: int, device,
+                  precalc_k: int = 0, variant: str = "plain-matrix",
+                  precalc_table=None, struct=None) -> "SBWT":
+        """Index of ``variant`` from the bool rows [4, n] and the suffix-group
+        starts (None without streaming support); ``precalc_table`` (a tensor
+        or an array) is carried over instead of filled, and ``struct`` is a
+        compressed variant's structure when it was loaded already."""
+        require_known_variant(variant)
+        if variant == "plain-matrix":
+            if precalc_table is not None:
+                precalc_table = torch.as_tensor(precalc_table).cpu().numpy()
+            index = from_host_arrays(bits, sgs, k, n_kmers, device, precalc_k, precalc_table)
+        else:
+            index = build_generic_index(variant, bits, sgs, k, n_kmers, device, precalc_k,
+                                        precalc_table, struct)
         return cls(
             index,
             np.packbits(bits, axis=1, bitorder="little"),
             bits.shape[1],
-            np.packbits(sgs, bitorder="little") if len(sgs) else None,
+            np.packbits(sgs, bitorder="little") if sgs is not None else None,
+            variant,
         )
 
     @classmethod
@@ -116,7 +130,7 @@ class SBWT:
         'memory', 'external', or 'auto' (external when the k-mer spill would
         exceed half of ram_bytes). A generator of sequences needs
         ``input_bases`` for 'auto'."""
-        require_ported_variant(variant)
+        require_known_variant(variant)
         streamed = not hasattr(seqs, "__len__")
         if method == "auto":
             from sbwt_tpu.utils import kmers_wide
@@ -143,9 +157,21 @@ class SBWT:
                 add_reverse_complements=add_reverse_complements,
             )
         if hasattr(built, "bits_packed"):  # the streaming build emits packed rows
-            return cls.from_packed(built.bits_packed, built.n_cols, built.sgs_packed,
-                                   built.k, built.n_kmers, device, precalc_k)
-        return cls.from_built(built, device, precalc_k)
+            plain = cls.from_packed(built.bits_packed, built.n_cols, built.sgs_packed,
+                                    built.k, built.n_kmers, device, precalc_k)
+            return plain if variant == "plain-matrix" else plain.to_variant(variant)
+        return cls.from_built(built, device, precalc_k, variant)
+
+    def to_variant(self, variant: str) -> "SBWT":
+        """Re-encode into another variant on the same device, carrying k,
+        n_kmers and the precalc table over (the build-variant path,
+        src/CLI/sbwt_build_from_plain_matrix.cpp)."""
+        di = self.device_index
+        return SBWT.from_bits(
+            self.bits, self.suffix_group_starts if self.has_streaming_query_support() else None,
+            self.k, self.number_of_kmers(), self.device, di.precalc_k, variant,
+            precalc_table=di.precalc if di.precalc_k > 0 else None,
+        )
 
     def to(self, device) -> "SBWT":
         """Move the index (and the turbo tables, if built) to ``device``."""
@@ -206,7 +232,9 @@ class SBWT:
         return self.suffix_group_starts
 
     def structure_size_in_bytes(self) -> int:
-        return self.device_index.rank_tbl.numel() * 4
+        """Bytes of the subset-rank structure (RRR's shared pattern LUT not
+        counted), as the JAX package reports them."""
+        return self.device_index.size_in_bytes()
 
     # ---- queries ------------------------------------------------------
     def do_kmer_prefix_precalc(self, p: int) -> None:
@@ -225,11 +253,23 @@ class SBWT:
             raise ValueError(f"query shorter than k={self.k}")
         return int(self.search_batch(codes[None, :])[0])
 
-    def enable_turbo(self, arity: int | None = None, free_bytes: int | None = None) -> int:
+    def enable_turbo(self, arity: int | None = None, free_bytes: int | None = None) -> int | None:
         """Build the successor turbo table on the index's device and use it
         for streaming search. arity=None picks the largest of 3, 2, 1 whose
         table fits half of the free device memory (free_bytes overrides the
-        measurement). Returns the arity."""
+        measurement) and returns None, leaving the LF engine in use, when
+        none fits. Returns the arity.
+
+        Raises TurboUnavailable when the index cannot have a table (no
+        streaming support, or an arity past int32 row indexing), and
+        NotImplementedError on a compressed variant."""
+        if not self.has_streaming_query_support():
+            raise TurboUnavailable("turbo engine requires streaming support (suffix group marks)")
+        if self.variant != "plain-matrix":
+            raise NotImplementedError(
+                f"the turbo engine on variant {self.variant} is not yet ported to sbwt_tpu_torch "
+                "(use --engine lf)"
+            )
         if self.device_index.precalc_k <= 0:
             # the reference's default prefix length (sbwt_build.cpp -p 8)
             self.do_kmer_prefix_precalc(min(self.k, 8))
@@ -239,27 +279,26 @@ class SBWT:
             arity = select_turbo_arity(self.number_of_subsets(), free_bytes,
                                        self.device_index.precalc_k)
             if arity is None:
-                raise RuntimeError("turbo table does not fit; the LF engine is not yet ported")
+                self._turbo = None
+                return None
         self._turbo = build_turbo(self.device_index, arity=arity)
         return arity
 
     def streaming_search_batch(self, codes: np.ndarray, lengths: np.ndarray | None = None
                                ) -> np.ndarray:
-        """Batched streaming search; codes [B, L] padded with -1."""
+        """Batched streaming search; codes [B, L] padded with -1. Runs the
+        turbo engine when its table is built, else the LF engine."""
         if not self.has_streaming_query_support():
             raise RuntimeError("streaming search support not built")
-        if self._turbo is None:
-            raise RuntimeError(
-                "streaming search needs the turbo engine (enable_turbo); "
-                "the LF streaming engine is not yet ported"
-            )
         B, L = codes.shape
         if lengths is None:
             lengths = np.full(B, L, dtype=np.int32)
-        out = turbo_streaming_search(
-            self._turbo, self.device_index, _as_int8_tensor(codes, self.device),
-            torch.from_numpy(np.asarray(lengths, dtype=np.int32)).to(self.device),
-        )
+        codes_t = _as_int8_tensor(codes, self.device)
+        lengths_t = torch.from_numpy(np.asarray(lengths, dtype=np.int32)).to(self.device)
+        if self._turbo is None:
+            out = engines.streaming_search(self.device_index, codes_t, lengths_t)
+        else:
+            out = turbo_streaming_search(self._turbo, self.device_index, codes_t, lengths_t)
         return out.cpu().numpy()
 
     def streaming_search(self, text: str) -> list[int]:

@@ -1,0 +1,513 @@
+"""Subset-rank structures of the nine compressed variants.
+
+The port of sbwt_tpu/models/subsetrank.py. Each structure answers
+``rank(c, pos)``, the count of character c in subsets 0..pos-1
+(SubsetMatrixRank.hh:30-37), and ``rank_pair(c, pos)`` =
+(rank(c, pos), rank(c, pos + 1)) at about the cost of one rank:
+
+* ``MatrixRank``   — the four rows concatenated into one bit vector.
+* ``SplitRank``    — X marks columns with != 1 out-edge; unary labels go
+  to a plain 4-symbol wavelet tree Y, the other columns' rows to plain Z.
+* ``ConcatRank``   — all set members over {$, A, C, G, T} in a 5-symbol
+  wavelet tree; set starts are the zeros of L, found by select0 from a
+  sample of every 8th zero and a 64-bit window.
+* ``SubsetWTRank`` — three 4-symbol wavelet trees (ACGT, AC, GT).
+
+Host builders are numpy and ``payload()`` is byte-equal to the JAX one.
+``rank`` and ``rank_pair`` are the plain PyTorch versions of the device
+types in csrc/subset_rank.cuh (K17).
+
+ConcatRank's select0 takes the high window word as ``z1 >> o`` for every
+o; the JAX package zeroes it when o == 0, which loses the ninth zero of a
+fully dense window (ROADMAP Queue 3, F1).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from .. import kernels
+from ..ops.bv import BV_CLASSES, as_int32
+from ..ops.bitvector import popcount32
+from ..ops.wavelet import WaveletTree
+
+_LOW32 = 0xFFFFFFFF
+
+
+def _pack_width_u32(vals: np.ndarray, width: int) -> np.ndarray:
+    """Pack width-bit values into a little-endian uint32 word stream."""
+    bits = ((vals[:, None] >> np.arange(width, dtype=np.int64)) & 1).astype(np.uint8).ravel()
+    bits = np.concatenate([bits, np.zeros((-len(bits)) % 32, dtype=np.uint8)])
+    return np.packbits(bits, bitorder="little").view(np.uint32).copy()
+
+
+def _unpack_width_u32(words: np.ndarray, width: int, count: int) -> np.ndarray:
+    bits = np.unpackbits(np.ascontiguousarray(words, dtype=np.uint32).view(np.uint8),
+                         bitorder="little")[: count * width].reshape(count, width)
+    return (bits.astype(np.int64) << np.arange(width, dtype=np.int64)).sum(axis=1)
+
+
+def _row_bases(bits: np.ndarray) -> np.ndarray:
+    """int32 [5]: the rank at the start of each char's block of the rows."""
+    base = np.zeros(5, dtype=np.int32)
+    base[1:] = np.cumsum(bits.sum(axis=1, dtype=np.int64))
+    return base
+
+
+def _concat_rows_build(bits: np.ndarray, kind: str, device):
+    """One bit vector over the char-major concatenated rows, and the bases."""
+    return BV_CLASSES[kind].build(np.concatenate([bits[c] for c in range(4)]), device), \
+        _row_bases(bits)
+
+
+def _sub(p: dict, prefix: str) -> dict:
+    return {k[len(prefix):]: v for k, v in p.items() if k.startswith(prefix)}
+
+
+def _device_of(module: nn.Module) -> torch.device:
+    return next(module.buffers()).device
+
+
+# ---------------------------------------------------------------------------
+# Matrix
+# ---------------------------------------------------------------------------
+
+
+class MatrixRank(nn.Module):
+    """bv over [A | C | G | T] rows (length 4n); base int32 [5]."""
+
+    def __init__(self, bv, base: np.ndarray, n: int, kind: str):
+        super().__init__()
+        self.bv = bv
+        self._base = np.asarray(base, dtype=np.int32)
+        self.register_buffer("base", torch.as_tensor(self._base.astype(np.int64),
+                                                     device=_device_of(bv)))
+        self.n, self.kind = int(n), kind
+
+    @classmethod
+    def from_bits(cls, bits: np.ndarray, kind: str, device="cpu") -> "MatrixRank":
+        bv, base = _concat_rows_build(bits, kind, device)
+        return cls(bv, base, bits.shape[1], kind)
+
+    def rank(self, c, pos):
+        c = torch.as_tensor(c, device=self.base.device).long()
+        return self.bv.rank(c * self.n + torch.as_tensor(pos, device=c.device).long()) - self.base[c]
+
+    def rank_pair(self, c, pos):
+        c = torch.as_tensor(c, device=self.base.device).long()
+        r1, r2 = self.bv.rank_pair(c * self.n + torch.as_tensor(pos, device=c.device).long())
+        return r1 - self.base[c], r2 - self.base[c]
+
+    def to_bits(self) -> np.ndarray:
+        return self.bv.to_bools().reshape(4, self.n)
+
+    def payload(self) -> dict:
+        out = {"n": np.int64(self.n), "base": self._base.copy()}
+        out.update({f"bv_{k}": v for k, v in self.bv.payload().items()})
+        return out
+
+    @classmethod
+    def from_payload(cls, p: dict, kind: str, device="cpu") -> "MatrixRank":
+        bv = BV_CLASSES[kind].from_payload(_sub(p, "bv_"), device)
+        n = int(p["n"])
+        # payloads from before the base array was stored pay one decode
+        base = p["base"] if "base" in p else _row_bases(bv.to_bools().reshape(4, n))
+        return cls(bv, base, n, kind)
+
+    def size_in_bytes(self) -> int:
+        return self.bv.size_in_bytes()
+
+    def desc(self, dev):
+        return kernels.MATRIX_DESCS[self.kind](self.bv.desc(dev), self.n, kernels.c_ints(self._base))
+
+
+# ---------------------------------------------------------------------------
+# Split
+# ---------------------------------------------------------------------------
+
+
+class SplitRank(nn.Module):
+    """X over n (1 = column with != 1 out-edge); Y a plain sigma-4 tree over
+    the unary columns' labels; Z plain over the 4 * n_b rows of the others."""
+
+    def __init__(self, X, Y: WaveletTree, Z, z_base: np.ndarray, n: int, n_b: int,
+                 x_kind: str, z_kind: str = "plain"):
+        super().__init__()
+        if z_kind != "plain" or Y.bv_kind != "plain":
+            raise ValueError("split structures keep Y and Z plain")
+        self.X, self.Y, self.Z = X, Y, Z
+        self._z_base = np.asarray(z_base, dtype=np.int32)
+        self.register_buffer("z_base", torch.as_tensor(self._z_base.astype(np.int64),
+                                                       device=_device_of(X)))
+        self.n, self.n_b, self.x_kind, self.z_kind = int(n), int(n_b), x_kind, z_kind
+
+    @classmethod
+    def from_bits(cls, bits: np.ndarray, x_kind: str, z_kind: str = "plain",
+                  device="cpu") -> "SplitRank":
+        unary = bits.sum(axis=0) == 1
+        x_bools = ~unary
+        y_syms = (np.argmax(bits[:, unary], axis=0) if unary.any()
+                  else np.empty(0, dtype=np.int64))
+        Z, z_base = _concat_rows_build(bits[:, x_bools], z_kind, device)
+        return cls(BV_CLASSES[x_kind].build(x_bools, device),
+                   WaveletTree.build(y_syms, 4, "plain", device), Z, z_base,
+                   bits.shape[1], int(x_bools.sum()), x_kind, z_kind)
+
+    def rank(self, c, pos):
+        c = torch.as_tensor(c, device=self.z_base.device).long()
+        pos = torch.as_tensor(pos, device=c.device).long()
+        xr = self.X.rank(pos)
+        return self.Y.rank(c, pos - xr) + self.Z.rank(c * self.n_b + xr) - self.z_base[c]
+
+    def rank_pair(self, c, pos):
+        """X's bit at pos routes the +1 into exactly one of Y (unary) or Z
+        (branching), so each side's rank_pair serves both positions."""
+        c = torch.as_tensor(c, device=self.z_base.device).long()
+        pos = torch.as_tensor(pos, device=c.device).long()
+        xr1, xr2 = self.X.rank_pair(pos)
+        y1, y2 = self.Y.rank_pair(c, pos - xr1)
+        z1, z2 = self.Z.rank_pair(c * self.n_b + xr1)
+        zb = self.z_base[c]
+        return y1 + z1 - zb, torch.where(xr2 > xr1, y1 + z2, y2 + z1) - zb
+
+    def to_bits(self) -> np.ndarray:
+        x_bools = self.X.to_bools()
+        bits = np.zeros((4, self.n), dtype=bool)
+        bits[self.Y.to_symbols(), np.flatnonzero(~x_bools)] = True
+        bits[:, np.flatnonzero(x_bools)] = self.Z.to_bools().reshape(4, self.n_b)
+        return bits
+
+    def payload(self) -> dict:
+        out = {"n": np.int64(self.n), "n_b": np.int64(self.n_b), "z_base": self._z_base.copy()}
+        for name, part in (("X", self.X), ("Y", self.Y), ("Z", self.Z)):
+            out.update({f"{name}_{k}": v for k, v in part.payload().items()})
+        return out
+
+    @classmethod
+    def from_payload(cls, p: dict, x_kind: str, z_kind: str = "plain",
+                     device="cpu") -> "SplitRank":
+        X = BV_CLASSES[x_kind].from_payload(_sub(p, "X_"), device)
+        Y = WaveletTree.from_payload(_sub(p, "Y_"), "plain", device)
+        Z = BV_CLASSES[z_kind].from_payload(_sub(p, "Z_"), device)
+        n_b = int(p["n_b"])
+        z_base = p["z_base"] if "z_base" in p else _row_bases(Z.to_bools().reshape(4, n_b))
+        return cls(X, Y, Z, z_base, int(p["n"]), n_b, x_kind, z_kind)
+
+    def size_in_bytes(self) -> int:
+        return self.X.size_in_bytes() + self.Y.size_in_bytes() + self.Z.size_in_bytes()
+
+    def desc(self, dev):
+        return kernels.SPLIT_DESCS[self.x_kind](self.X.desc(dev), self.Y.desc(dev),
+                                                self.Z.desc(dev), self.n_b,
+                                                kernels.c_ints(self._z_base))
+
+
+# ---------------------------------------------------------------------------
+# Concat
+# ---------------------------------------------------------------------------
+
+
+def _nth_set_bit(word, target):
+    """0-based index of the target-th (1-based) set bit of 32-bit words, by
+    a binary search on prefix popcounts; int64 lanes."""
+    base = torch.zeros_like(word)
+    for shift in (16, 8, 4, 2, 1):
+        low = word & ((1 << shift) - 1)
+        cnt = popcount32(low)
+        go_hi = cnt < target
+        word = torch.where(go_hi, word >> shift, low)
+        target = torch.where(go_hi, target - cnt, target)
+        base = base + torch.where(go_hi, shift, 0)
+    return base
+
+
+class ConcatRank(nn.Module):
+    """wt over symbols 0 = '$', 1..4 = A, C, G, T; l_words int32 [W, 2]
+    (word w, word w + 1) of L; samples int32: every 8th zero of L."""
+
+    def __init__(self, wt: WaveletTree, l_words: np.ndarray, samples: np.ndarray, n: int,
+                 wt_kind: str):
+        super().__init__()
+        self.wt = wt
+        dev = _device_of(wt)
+        self.register_buffer("l_words", as_int32(l_words, dev))
+        self.register_buffer("samples", as_int32(samples, dev))
+        self.n, self.wt_kind = int(n), wt_kind
+
+    @classmethod
+    def from_bits(cls, bits: np.ndarray, wt_kind: str, device="cpu") -> "ConcatRank":
+        n = bits.shape[1]
+        sizes_eff = np.maximum(bits.sum(axis=0), 1)  # an empty set emits '$'
+        total = int(sizes_eff.sum())
+        starts = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum(sizes_eff, out=starts[1:])
+        syms = np.zeros(total, dtype=np.int64)
+        offs = starts[:-1].copy()
+        for c in range(4):
+            idx = np.flatnonzero(bits[c])
+            syms[offs[idx]] = c + 1
+            offs[idx] += 1
+        # L: 0 at each set start, 1 elsewhere, then an end sentinel 0
+        L = np.ones(total + 1, dtype=bool)
+        L[starts[:-1]] = False
+        L[total] = False
+        l_words, samples = cls._scan_structs(L, total)
+        return cls(WaveletTree.build(syms, 5, wt_kind, device), l_words, samples, n, wt_kind)
+
+    def _window(self, i):
+        """(sample s, rem, the 64 zero-mask bits of L from s as lo, hi)."""
+        s = self.samples[i >> 3].long()
+        row = self.l_words[s >> 5].long()
+        o = s & 31
+        z0, z1 = ~row[..., 0] & _LOW32, ~row[..., 1] & _LOW32
+        lo = (z0 >> o) | torch.where(o > 0, (z1 << (32 - o)) & _LOW32, 0)
+        return s, i & 7, lo, z1 >> o
+
+    def _select(self, s, lo, hi, target):
+        cnt_lo = popcount32(lo)
+        use_hi = cnt_lo < target
+        word = torch.where(use_hi, hi, lo)
+        t = torch.where(use_hi, target - cnt_lo, target)
+        return s + torch.where(use_hi, 32, 0) + _nth_set_bit(word, t)
+
+    def select0(self, i):
+        """Position of the zero of L with 0-based index i."""
+        i = torch.as_tensor(i, device=self.samples.device).long()
+        s, rem, lo, hi = self._window(i)
+        return self._select(s, lo, hi, rem + 1)
+
+    def select0_pair(self, i):
+        """Positions of zeros i and i + 1 from one window: sets hold <= 4
+        symbols, so zeros rem .. rem + 1 of the sample lie within 33 bits."""
+        i = torch.as_tensor(i, device=self.samples.device).long()
+        s, rem, lo, hi = self._window(i)
+        return self._select(s, lo, hi, rem + 1), self._select(s, lo, hi, rem + 2)
+
+    def rank(self, c, pos):
+        c = torch.as_tensor(c, device=self.samples.device).long()
+        return self.wt.rank(c + 1, self.select0(pos))
+
+    def rank_pair(self, c, pos):
+        c = torch.as_tensor(c, device=self.samples.device).long()
+        s1, s2 = self.select0_pair(pos)
+        return self.wt.rank(c + 1, s1), self.wt.rank(c + 1, s2)
+
+    def to_bits(self) -> np.ndarray:
+        syms = self.wt.to_symbols()
+        words = np.ascontiguousarray(self.l_words[:, 0].cpu().numpy()).view(np.uint32)
+        L = np.unpackbits(words.view(np.uint8), bitorder="little")[: len(syms) + 1].astype(bool)
+        col = np.zeros(len(syms), dtype=np.int64)
+        col[np.flatnonzero(~L)[:-1]] = 1  # set starts, without the end sentinel
+        col = np.cumsum(col) - 1
+        bits = np.zeros((4, self.n), dtype=bool)
+        nz = syms > 0
+        bits[syms[nz] - 1, col[nz]] = True
+        return bits
+
+    def payload(self) -> dict:
+        out = {"n": np.int64(self.n)}
+        if self.wt_kind == "rrr":
+            # mef-concat stores L as Elias-Fano over its zeros (the
+            # sd_vector of variants.hh:43-49); the scan structures are
+            # rebuilt on load
+            words = np.ascontiguousarray(self.l_words[:, 0].cpu().numpy()).view(np.uint32)
+            total = self.wt.n
+            L = np.unpackbits(words.view(np.uint8), bitorder="little")[: total + 1].astype(bool)
+            zeros = np.flatnonzero(~L).astype(np.int64)
+            m = len(zeros)
+            wl = max(0, int(np.floor(np.log2(max(1, (total + 1) // m))))) if m else 0
+            upper_len = m + ((total + 1) >> wl) + 1
+            upper = np.zeros(upper_len, dtype=bool)
+            upper[(zeros >> wl) + np.arange(m)] = True
+            out["L_ef_upper"] = np.packbits(upper, bitorder="little")
+            out["L_ef_low"] = (np.zeros(0, dtype=np.uint32) if wl == 0
+                               else _pack_width_u32(zeros & ((1 << wl) - 1), wl))
+            out["L_ef_meta"] = np.array([wl, m, total, upper_len], dtype=np.int64)
+        else:
+            out["l_words"] = self.l_words[:, 0].cpu().numpy()  # column 1 is derived
+            out["samples"] = self.samples.cpu().numpy()
+        out.update({f"wt_{k}": v for k, v in self.wt.payload().items()})
+        return out
+
+    @classmethod
+    def from_payload(cls, p: dict, wt_kind: str, device="cpu") -> "ConcatRank":
+        wt = WaveletTree.from_payload(_sub(p, "wt_"), wt_kind, device)
+        if "L_ef_meta" in p:
+            wl, m, total, upper_len = (int(x) for x in np.asarray(p["L_ef_meta"]))
+            upper = np.unpackbits(np.asarray(p["L_ef_upper"], dtype=np.uint8),
+                                  bitorder="little")[:upper_len].astype(bool)
+            low = (np.zeros(m, dtype=np.int64) if wl == 0
+                   else _unpack_width_u32(np.asarray(p["L_ef_low"]), wl, m))
+            L = np.ones(total + 1, dtype=bool)
+            L[((np.flatnonzero(upper) - np.arange(m)) << wl) | low] = False
+            l_words, samples = cls._scan_structs(L, total)
+        else:
+            w0 = np.asarray(p["l_words"], dtype=np.int32)
+            l_words = np.zeros((len(w0), 2), dtype=np.int32)
+            l_words[:, 0] = w0
+            l_words[:-1, 1] = w0[1:]
+            samples = np.asarray(p["samples"], dtype=np.int32)
+        return cls(wt, l_words, samples, int(p["n"]), wt_kind)
+
+    @staticmethod
+    def _scan_structs(L: np.ndarray, total: int):
+        """The window rows and select0 samples of L."""
+        W = total // 32 + 2
+        padded = np.zeros(W * 32, dtype=bool)
+        padded[: total + 1] = L
+        words = np.packbits(padded.reshape(W, 32), axis=1, bitorder="little").view(np.uint32).ravel()
+        l_words = np.zeros((W, 2), dtype=np.int32)
+        l_words[:, 0] = words.view(np.int32)
+        l_words[:-1, 1] = words[1:].view(np.int32)
+        return l_words, np.flatnonzero(~L)[::8].astype(np.int32)
+
+    def size_in_bytes(self) -> int:
+        return self.wt.size_in_bytes() + (self.l_words.shape[0] + self.samples.numel()) * 4
+
+    def desc(self, dev):
+        return kernels.CONCAT_DESCS[self.wt_kind](
+            self.wt.desc(dev), kernels.ptr(self.l_words, "concat.l_words", dev, 8),
+            kernels.ptr(self.samples, "concat.samples", dev))
+
+
+# ---------------------------------------------------------------------------
+# Subset wavelet tree
+# ---------------------------------------------------------------------------
+
+
+def _wt4_children(wt: WaveletTree):
+    """(base, rank) of the left and right children (node ids 1, 2)."""
+    return wt.node_base[1], wt.node_rank[1], wt.node_base[2], wt.node_rank[2]
+
+
+def _wt4_pair_rank(wt: WaveletTree, pos, root_r1):
+    """(count of symbol 1, count of symbol 3) before pos, given root rank1."""
+    base_l, rank_l, base_r, rank_r = _wt4_children(wt)
+    lvl1 = wt.levels[1]
+    return lvl1.rank(base_l + (pos - root_r1)) - rank_l, lvl1.rank(base_r + root_r1) - rank_r
+
+
+def _wt4_pair_rank_pair(wt: WaveletTree, p, padv, r, radv):
+    """_wt4_pair_rank at p and at p + padv (padv in {0, 1}), given the root
+    ranks r and r + radv: (c1, c3, c1 at p + padv, c3 at p + padv)."""
+    base_l, rank_l, base_r, rank_r = _wt4_children(wt)
+    lvl1 = wt.levels[1]
+    ca, cb = lvl1.rank_pair(base_l + (p - r))
+    da, db = lvl1.rank_pair(base_r + r)
+    return (ca - rank_l, da - rank_r,
+            torch.where(padv - radv == 1, cb, ca) - rank_l, torch.where(radv == 1, db, da) - rank_r)
+
+
+class SubsetWTRank(nn.Module):
+    """acgt over 2 * (A or C) + (G or T); ac over 2 * A + C on the AC-present
+    columns; gt over 2 * G + T on the GT-present columns."""
+
+    def __init__(self, acgt: WaveletTree, ac: WaveletTree, gt: WaveletTree, n: int, kind: str):
+        super().__init__()
+        self.acgt, self.ac, self.gt = acgt, ac, gt
+        self.n, self.kind = int(n), kind
+
+    @classmethod
+    def from_bits(cls, bits: np.ndarray, kind: str, device="cpu") -> "SubsetWTRank":
+        A, C, G, T = (bits[i] for i in range(4))
+        acp, gtp = A | C, G | T
+        return cls(WaveletTree.build(2 * acp.astype(np.int64) + gtp, 4, kind, device),
+                   WaveletTree.build(2 * A[acp].astype(np.int64) + C[acp], 4, kind, device),
+                   WaveletTree.build(2 * G[gtp].astype(np.int64) + T[gtp], 4, kind, device),
+                   bits.shape[1], kind)
+
+    def rank(self, c, pos):
+        """SubsetWT::rank (SubsetWT.hh:94-113) over mixed chars."""
+        c, pos = torch.broadcast_tensors(torch.as_tensor(c, device=self.acgt.node_base.device).long(),
+                                         torch.as_tensor(pos, device=self.acgt.node_base.device).long())
+        is_ac = c < 2
+        root_r1 = self.acgt.levels[0].rank(pos)
+        c1, c3 = _wt4_pair_rank(self.acgt, pos, root_r1)
+        x = torch.where(is_ac, root_r1, c1 + c3)
+        acx, gtx = torch.where(is_ac, x, 0), torch.where(is_ac, 0, x)
+        ac_root, gt_root = self.ac.levels[0].rank(acx), self.gt.levels[0].rank(gtx)
+        ac1, ac3 = _wt4_pair_rank(self.ac, acx, ac_root)
+        gt1, gt3 = _wt4_pair_rank(self.gt, gtx, gt_root)
+        return torch.where(c == 0, ac_root, torch.where(c == 1, ac1 + ac3,
+                           torch.where(c == 2, gt_root, gt1 + gt3)))
+
+    def rank_pair(self, c, pos):
+        """Every tree argument at pos + 1 is the one at pos or its +1
+        neighbour, so each level answers both positions from one rank_pair."""
+        c, pos = torch.broadcast_tensors(torch.as_tensor(c, device=self.acgt.node_base.device).long(),
+                                         torch.as_tensor(pos, device=self.acgt.node_base.device).long())
+        is_ac = c < 2
+        r0a, r0b = self.acgt.levels[0].rank_pair(pos)
+        c1, c3, c1q, c3q = _wt4_pair_rank_pair(self.acgt, pos, torch.ones_like(pos), r0a, r0b - r0a)
+        x = torch.where(is_ac, r0a, c1 + c3)
+        xadv = torch.where(is_ac, r0b, c1q + c3q) - x
+        zero = torch.zeros_like(pos)
+        acx, acadv = torch.where(is_ac, x, 0), torch.where(is_ac, xadv, zero)
+        gtx, gtadv = torch.where(is_ac, 0, x), torch.where(is_ac, zero, xadv)
+        ac0a, ac0b = self.ac.levels[0].rank_pair(acx)
+        ac_rq = torch.where(acadv == 1, ac0b, ac0a)
+        gt0a, gt0b = self.gt.levels[0].rank_pair(gtx)
+        gt_rq = torch.where(gtadv == 1, gt0b, gt0a)
+        ac1, ac3, ac1q, ac3q = _wt4_pair_rank_pair(self.ac, acx, acadv, ac0a, ac_rq - ac0a)
+        gt1, gt3, gt1q, gt3q = _wt4_pair_rank_pair(self.gt, gtx, gtadv, gt0a, gt_rq - gt0a)
+        r1 = torch.where(c == 0, ac0a, torch.where(c == 1, ac1 + ac3,
+                         torch.where(c == 2, gt0a, gt1 + gt3)))
+        r2 = torch.where(c == 0, ac_rq, torch.where(c == 1, ac1q + ac3q,
+                         torch.where(c == 2, gt_rq, gt1q + gt3q)))
+        return r1, r2
+
+    def to_bits(self) -> np.ndarray:
+        acgt = self.acgt.to_symbols()
+        acp, gtp = acgt >= 2, (acgt & 1) == 1
+        ac, gt = self.ac.to_symbols(), self.gt.to_symbols()
+        bits = np.zeros((4, self.n), dtype=bool)
+        bits[0, acp], bits[1, acp] = ac >= 2, (ac & 1) == 1
+        bits[2, gtp], bits[3, gtp] = gt >= 2, (gt & 1) == 1
+        return bits
+
+    def payload(self) -> dict:
+        out = {"n": np.int64(self.n)}
+        for name in ("acgt", "ac", "gt"):
+            out.update({f"{name}_{k}": v for k, v in getattr(self, name).payload().items()})
+        return out
+
+    @classmethod
+    def from_payload(cls, p: dict, kind: str, device="cpu") -> "SubsetWTRank":
+        acgt, ac, gt = (WaveletTree.from_payload(_sub(p, f"{name}_"), kind, device)
+                        for name in ("acgt", "ac", "gt"))
+        return cls(acgt, ac, gt, int(p["n"]), kind)
+
+    def size_in_bytes(self) -> int:
+        return self.acgt.size_in_bytes() + self.ac.size_in_bytes() + self.gt.size_in_bytes()
+
+    def desc(self, dev):
+        return kernels.SUBSETWT_DESCS[self.kind](self.acgt.desc(dev), self.ac.desc(dev),
+                                                 self.gt.desc(dev))
+
+
+# ---------------------------------------------------------------------------
+# Variant registry (variants.hh:19-63)
+# ---------------------------------------------------------------------------
+
+VARIANT_STRUCTS = {
+    "rrr-matrix": (MatrixRank, {"kind": "rrr"}),
+    "mef-matrix": (MatrixRank, {"kind": "mef"}),
+    "plain-split": (SplitRank, {"x_kind": "plain", "z_kind": "plain"}),
+    "rrr-split": (SplitRank, {"x_kind": "rrr", "z_kind": "plain"}),
+    "mef-split": (SplitRank, {"x_kind": "mef", "z_kind": "plain"}),
+    "plain-concat": (ConcatRank, {"wt_kind": "plain"}),
+    "mef-concat": (ConcatRank, {"wt_kind": "rrr"}),  # the reference's wt over rrr vectors
+    "plain-subsetwt": (SubsetWTRank, {"kind": "plain"}),
+    "rrr-subsetwt": (SubsetWTRank, {"kind": "rrr"}),
+}
+
+
+def build_struct(variant: str, bits: np.ndarray, device="cpu"):
+    cls, kw = VARIANT_STRUCTS[variant]
+    return cls.from_bits(bits, **kw, device=device)
+
+
+def struct_from_payload(variant: str, payload: dict, device="cpu"):
+    cls, kw = VARIANT_STRUCTS[variant]
+    return cls.from_payload(payload, **kw, device=device)

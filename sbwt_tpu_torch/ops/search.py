@@ -1,10 +1,14 @@
-"""Batched LF search on the plain-matrix index.
+"""Batched LF search over any variant's index.
 
-The port of the LF core of sbwt_tpu/ops/search.py (``lf_step``,
-``update_interval_batch``, ``search_batch``, ``extend_from_column``,
-``forward_batch``) as plain PyTorch over int64 lanes. ``search_batch`` on a
-CUDA index launches kernel K1 (csrc/lf_interval.cu) instead; the plain
-version serves CPU tensors and is what the kernel is checked against.
+The port of sbwt_tpu/ops/search.py (``lf_step``, ``update_interval_batch``,
+``search_batch``, ``extend_from_column``, ``forward_batch``,
+``streaming_chain`` and ``streaming_search``) as plain PyTorch over int64
+lanes, written against the rank interface (``rank_c``, ``extend_rank``,
+``sg_start``) that the plain-matrix ``MatrixIndex`` and the compressed
+variants' ``GenericIndex`` share. On a CUDA index, ``search_batch``
+launches K1 and ``streaming_search`` K14, each the instance of the
+index's variant (csrc/lf_stream.cuh); the plain versions serve CPU tensors and are what the kernels are
+checked against.
 """
 from __future__ import annotations
 
@@ -63,14 +67,14 @@ def search_batch_plain(index, codes):
 def search_batch(index, codes):
     """Vectorized SBWT::search over k-mer rows codes [B, k]: the colex rank
     of each, or -1 if absent or holding a char other than uppercase ACGT.
-    A CUDA batch must be int8 and launches K1."""
+    A CUDA batch must be int8 and launches the variant's K1 search."""
     B, k = codes.shape
     if k != index.k:
         raise ValueError(f"query length {k} != index k {index.k}")
-    if codes.device.type == "cuda":
-        return kernels.kmer_search(index.rank_tbl, index.n_words, index.C, index.n_nodes,
-                                   index.precalc, index.precalc_k, codes)
-    return search_batch_plain(index, codes)
+    if codes.device.type != "cuda":
+        return search_batch_plain(index, codes)
+    return kernels.kmer_search(index.variant, index.kernel_desc(codes.device), index.C,
+                               index.n_nodes, index.precalc, index.precalc_k, codes)
 
 
 def extend_from_column(index, col, c):
@@ -82,3 +86,57 @@ def extend_from_column(index, col, c):
 def forward_batch(index, nodes, c):
     """Vectorized SBWT::forward (SBWT.hh:369-381)."""
     return extend_from_column(index, nodes, c)
+
+
+def streaming_search_plain(index, codes, lengths, chunk: int = 1 << 20):
+    """Plain version of K14: the chain, then the patch.
+
+    The chain answers position 0 by full search and extends each later
+    position from the previous answer by one out-edge (lowercase extends as
+    its base), until the lane's first -1. Every later position is answered
+    by a full search of its window, where only 0..3 are valid. The JAX
+    engine splits that patch into a seed-only stage and a full search of
+    the survivors; the full search checks the seed itself, so one stage
+    gives the same answers."""
+    B, L = codes.shape
+    k = index.k
+    P = L - k + 1
+    codes = codes.long()
+    col = search_batch_plain(index, codes[:, :k]).long()
+    cols = [col]
+    for i in range(1, P):
+        ct = codes[:, i + k - 1]
+        nxt = extend_from_column(index, col.clamp(min=0), ct.clamp(min=0) & 3)
+        col = torch.where((col >= 0) & (ct >= 0), nxt, -1)
+        cols.append(col)
+    ans = torch.stack(cols, dim=1)
+    pos_ok = torch.arange(P, device=codes.device)[None, :] <= (lengths.long()[:, None] - k)
+    unresolved = torch.zeros_like(pos_ok)
+    unresolved[:, 1:] = ans[:, :-1] == -1
+    lane, pos = (unresolved & pos_ok).nonzero(as_tuple=True)
+    window = torch.arange(k, device=codes.device)
+    for s in range(0, len(lane), chunk):
+        ln, ps = lane[s : s + chunk], pos[s : s + chunk]
+        ans[ln, ps] = search_batch_plain(index, codes[ln[:, None], ps[:, None] + window]).long()
+    return torch.where(pos_ok, ans, -1).int()
+
+
+def streaming_search(index, codes, lengths=None):
+    """Exact LF streaming search of codes [B, L] (padded with -1; ACGT =
+    0..3, acgt = 4..7, other = -1) with valid lengths [B]: int32
+    [B, L - k + 1], equal at every position to the JAX engine's
+    streaming_search (SBWT.hh:545-581); positions past a read's length
+    are -1. The index needs streaming support. CUDA codes must be int8,
+    are read in place, and launch K14."""
+    B, L = codes.shape
+    if L < index.k:
+        raise ValueError(f"read length {L} < k = {index.k}")
+    if not index.has_streaming:
+        raise ValueError("streaming search needs streaming support (suffix group marks)")
+    if lengths is None:
+        lengths = torch.full((B,), L, dtype=torch.int32, device=codes.device)
+    if codes.device.type != "cuda":
+        return streaming_search_plain(index, codes, lengths)
+    return kernels.lf_stream(index.variant, index.kernel_desc(codes.device), index.sgs_tbl,
+                             index.C, index.precalc, index.precalc_k, index.k, index.n_nodes,
+                             codes, lengths.to(device=codes.device, dtype=torch.int32))

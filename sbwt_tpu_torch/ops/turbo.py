@@ -59,12 +59,17 @@ def turbo_from_numpy_state(state: dict, device) -> TurboIndex:
     )
 
 
+class TurboUnavailable(ValueError):
+    """The index cannot have a turbo table: no streaming support, or an
+    arity whose rows overflow int32 indexing. The LF engine answers instead."""
+
+
 def check_turbo_index_range(n_nodes: int, arity: int, what: str = "turbo table"):
-    """Raise unless every flat row index col * 4^arity + sub of an arity>=2
-    table fits int32 (2^27 columns at arity 2, 2^25 at arity 3), as the JAX
-    engine does; past it use arity 1."""
+    """Raise TurboUnavailable unless every flat row index col * 4^arity +
+    sub of an arity>=2 table fits int32 (2^27 columns at arity 2, 2^25 at
+    arity 3), as the JAX engine does; past it use arity 1."""
     if arity >= 2 and n_nodes * (4**arity) >= 2**31:
-        raise ValueError(
+        raise TurboUnavailable(
             f"{what}: n_nodes={n_nodes} * 4^{arity} exceeds int32 row indexing "
             f"(limit {2**31 // 4**arity} columns at arity {arity}); use arity 1"
         )
@@ -130,7 +135,7 @@ def build_turbo(index, arity: int = 2) -> TurboIndex:
     """Build the successor table (K2) and seed bits (K3) of a plain-matrix
     index. Memory per column: 16 B (arity 1), 128 B (2), 1 KiB (3)."""
     if not index.has_streaming:
-        raise ValueError("turbo engine requires streaming support (suffix group marks)")
+        raise TurboUnavailable("turbo engine requires streaming support (suffix group marks)")
     if index.precalc_k <= 0:
         # the singleton-seed fast path is the whole engine
         raise ValueError("turbo engine requires a precalc table (precalc_k > 0)")

@@ -2,8 +2,9 @@
 
 The port runs with ``--device cpu`` (the kernels' plain versions). Its
 search output must give the reference golden bytes of tests/test_cli.py,
-equal the JAX CLI's output on a random corpus, and come out the same from
-index files written by either CLI in either format.
+equal the JAX CLI's output on a random corpus for every engine and all
+ten variants, and come out the same from index files written by either
+CLI in either format.
 """
 import gzip
 
@@ -13,6 +14,8 @@ import pytest
 from sbwt_tpu.cli import main as jax_cli
 from sbwt_tpu.io.seqio import SequenceWriter
 from sbwt_tpu_torch.cli import main as port_cli
+from sbwt_tpu_torch.models.sbwt import VARIANT_NAMES as VARIANTS
+import torch_state  # noqa: F401  (one torch thread per test worker)
 
 # the reference's end_to_end_build_and_query fixture (tests/test_cli.py)
 SEQS1 = ["ACTAGTGTAGCTACAAA", "ATGTGCTGATGCTAGCATTTTTTT"]
@@ -96,7 +99,7 @@ def corpus(tmp_path_factory):
     return tmp, genome, queries, jax_index, jax_out.read_bytes()
 
 
-@pytest.mark.parametrize("engine", ["auto", "turbo1", "turbo2", "turbo3"])
+@pytest.mark.parametrize("engine", ["auto", "turbo1", "turbo2", "turbo3", "lf"])
 def test_search_matches_jax_cli(corpus, engine):
     tmp, genome, queries, _, jax_bytes = corpus
     index = tmp / "port.sbwt"
@@ -129,9 +132,7 @@ def test_index_without_streaming_support(corpus):
     """auto on an index without suffix-group marks answers each k-mer by
     full search (K1's plain version here), as the JAX CLI does."""
     tmp, genome, queries, _, jax_bytes = corpus
-    index = tmp / "nostream.sbwt"
-    assert port_cli(["build", "-i", str(genome), "-o", str(index), "-k", "31", "-p", "10",
-                     "--no-streaming-support", "--temp-dir", str(tmp), *CPU]) == 0
+    index = _nostream_index(corpus)
     out = tmp / "nostream_out.txt"
     assert port_cli(["search", "-i", str(index), "-q", str(queries), "-o", str(out), *CPU]) == 0
     ref = tmp / "nostream_jax.txt"
@@ -139,17 +140,136 @@ def test_index_without_streaming_support(corpus):
     assert out.read_bytes() == ref.read_bytes()
 
 
+def _nostream_index(corpus):
+    tmp, genome = corpus[0], corpus[1]
+    index = tmp / "nostream.sbwt"
+    if not index.exists():
+        assert port_cli(["build", "-i", str(genome), "-o", str(index), "-k", "31", "-p", "10",
+                         "--no-streaming-support", "--temp-dir", str(tmp), *CPU]) == 0
+    return index
+
+
+@pytest.mark.parametrize("engine", ["turbo3", "lf"])
+def test_turbo_without_streaming_support_runs_lf(corpus, capsys, engine):
+    """F5: a turbo engine that the index cannot have falls back as in the
+    JAX CLI (sbwt_tpu/cli.py:159-173): exit 0 and the JAX CLI's bytes."""
+    tmp, _, queries, _, _ = corpus
+    index = _nostream_index(corpus)
+    out, ref = tmp / f"f5_{engine}.txt", tmp / f"f5_{engine}_jax.txt"
+    assert port_cli(["search", "-i", str(index), "-q", str(queries), "-o", str(out),
+                     "--engine", engine, *CPU]) == 0
+    if engine == "turbo3":
+        assert "Turbo engine unavailable (turbo engine requires streaming support" in \
+            capsys.readouterr().err
+    assert jax_cli(["search", "-i", str(index), "-q", str(queries), "-o", str(ref),
+                    "--engine", engine]) == 0
+    assert out.read_bytes() == ref.read_bytes()
+
+
+def test_kernel_failure_under_turbo_still_exits_1(corpus, capsys, monkeypatch):
+    """Only the turbo preconditions fall back: a kernel that cannot be built
+    or launched ends the run."""
+    from sbwt_tpu_torch.models import sbwt as facade
+
+    def broken(*args, **kwargs):
+        raise RuntimeError("nvcc not found on PATH")
+
+    monkeypatch.setattr(facade, "build_turbo", broken)
+    tmp, _, queries, jax_index, _ = corpus
+    assert port_cli(["search", "-i", str(jax_index), "-q", str(queries), "-o", str(tmp / "z.txt"),
+                     "--engine", "turbo2", *CPU]) == 1
+    assert "Error: nvcc not found on PATH" in capsys.readouterr().err
+
+
+def test_auto_without_room_for_a_table_runs_lf(corpus, monkeypatch, capsys):
+    from sbwt_tpu_torch.models import sbwt as facade
+
+    monkeypatch.setattr(facade, "device_free_bytes", lambda device: 1 << 10)
+    tmp, _, queries, jax_index, jax_bytes = corpus
+    out = tmp / "no_room.txt"
+    assert port_cli(["search", "-i", str(jax_index), "-q", str(queries), "-o", str(out), *CPU]) == 0
+    assert "Turbo table exceeds free device memory; using LF engine" in capsys.readouterr().err
+    assert out.read_bytes() == jax_bytes
+
+
+@pytest.fixture(scope="module")
+def variant_files(corpus):
+    """variant -> (port build-variant file, JAX build-variant file) of the
+    JAX CLI's plain index."""
+    tmp, _, _, jax_index, _ = corpus
+    files = {}
+    for v in VARIANTS[1:]:
+        port_file, jax_file = tmp / f"port_{v}.sbwt", tmp / f"jax_{v}.sbwt"
+        assert port_cli(["build-variant", "-i", str(jax_index), "-o", str(port_file),
+                         "--variant", v, *CPU]) == 0
+        assert jax_cli(["build-variant", "-i", str(jax_index), "-o", str(jax_file),
+                        "--variant", v]) == 0
+        files[v] = (port_file, jax_file)
+    files["plain-matrix"] = (jax_index, jax_index)
+    return files
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_build_variant_then_lf_matches_jax(corpus, variant_files, variant):
+    """The port's file equals the JAX CLI's, and the port's LF answers on it
+    equal the JAX CLI's answers, which do not depend on the variant
+    (tests/test_variants.py)."""
+    tmp, _, queries, _, jax_bytes = corpus
+    port_file, jax_file = variant_files[variant]
+    assert port_file.read_bytes() == jax_file.read_bytes()
+    out = tmp / f"lf_{variant}.txt"
+    assert port_cli(["search", "-i", str(port_file), "-q", str(queries), "-o", str(out),
+                     "--engine", "lf", *CPU]) == 0
+    assert out.read_bytes() == jax_bytes
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_golden_bytes_on_every_variant(golden_index, tmp_path, variant):
+    index = tmp_path / "v.sbwt"
+    assert port_cli(["build-variant", "-i", str(golden_index), "-o", str(index),
+                     "--variant", variant, *CPU]) == 0
+    q = _write(tmp_path / "q.fq", QUERIES)
+    for engine in ("lf", "auto"):
+        out = tmp_path / f"o_{engine}.txt"
+        assert port_cli(["search", "-i", str(index), "-q", str(q), "-o", str(out),
+                         "--engine", engine, *CPU]) == 0
+        assert out.read_text() == GOLDEN
+
+
+@pytest.mark.parametrize("variant,fmt", [("mef-split", "cpp"), ("rrr-subsetwt", "native")])
+def test_build_with_variant_matches_jax(corpus, variant, fmt, capsys):
+    """build --variant fills the precalc table over the variant's own ranks
+    (K1's variant instance); auto then runs LF and says so."""
+    tmp, genome, queries, _, jax_bytes = corpus
+    common = ["-i", str(genome), "-k", "31", "-p", "5", "--temp-dir", str(tmp),
+              "--variant", variant, "--format", fmt]
+    port_file, jax_file = tmp / f"built_{variant}.sbwt", tmp / f"built_{variant}_jax.sbwt"
+    assert port_cli(["build", "-o", str(port_file), *common, *CPU]) == 0
+    assert jax_cli(["build", "-o", str(jax_file), *common]) == 0
+    assert port_file.read_bytes() == jax_file.read_bytes()
+    out = tmp / f"built_{variant}.txt"
+    capsys.readouterr()
+    assert port_cli(["search", "-i", str(port_file), "-q", str(queries), "-o", str(out), *CPU]) == 0
+    assert f"Turbo engine on variant {variant} is not yet ported; using LF engine" in \
+        capsys.readouterr().err
+    assert out.read_bytes() == jax_bytes
+
+
 @pytest.mark.parametrize("argv,message", [
-    (["search", "--engine", "lf"], "LF engine is not yet ported"),
-    (["build", "--variant", "rrr-matrix"], "not yet ported"),
+    (["search", "--engine", "turbo3"], "not yet ported"),
     (["build", "--variant", "nope"], "unknown variant"),
-    (["build-variant"], "not yet ported"),
+    (["build-variant", "--variant", "nope"], "unknown variant"),
+    (["build-variant", "--variant", "rrr-split"], "not a plain-matrix"),
     (["ascii-export"], "not yet ported"),
-], ids=["lf", "variant", "unknown-variant", "build-variant", "ascii-export"])
-def test_not_ported_paths_exit_1(corpus, capsys, argv, message):
+], ids=["turbo-on-variant", "unknown-variant", "build-variant-unknown", "build-variant-input",
+        "ascii-export"])
+def test_not_ported_paths_exit_1(corpus, variant_files, capsys, argv, message):
     tmp, genome, queries, jax_index, _ = corpus
-    files = {"search": ["-i", str(jax_index), "-q", str(queries), "-o", str(tmp / "x.txt")],
-             "build": ["-i", str(genome), "-o", str(tmp / "x.sbwt"), "-k", "31"]}
+    compressed = str(variant_files["mef-concat"][0])
+    files = {"search": ["-i", compressed, "-q", str(queries), "-o", str(tmp / "x.txt")],
+             "build": ["-i", str(genome), "-o", str(tmp / "x.sbwt"), "-k", "31"],
+             "build-variant": ["-i", compressed if "rrr-split" in argv else str(jax_index),
+                               "-o", str(tmp / "y.sbwt")]}
     assert port_cli(argv[:1] + files.get(argv[0], []) + argv[1:] + CPU) == 1
     assert message in capsys.readouterr().err
 

@@ -12,7 +12,7 @@ import torch
 from sbwt_tpu.utils.dna import encode_query
 from sbwt_tpu_torch import kernels
 from sbwt_tpu_torch.models import matrix as tm
-from sbwt_tpu_torch.models.sbwt import SBWT
+from sbwt_tpu_torch.models.sbwt import SBWT, VARIANT_NAMES
 from sbwt_tpu_torch.ops import search as ts
 from sbwt_tpu_torch.ops import turbo as tt
 
@@ -49,7 +49,7 @@ def test_kernels_equal_plain_versions(cuda, k, p):
     g = "".join(rng.choice(list("ACGT"), size=5000))
     sb = SBWT.build([g], k, cuda)
     di = sb.device_index
-    pre = kernels.precalc_fill(di.rank_tbl, di.n_words, di.C, di.n_nodes, p)
+    pre = kernels.precalc_fill("plain-matrix", di.kernel_desc(cuda), di.C, di.n_nodes, p)
     assert torch.equal(pre, tm.precalc_fill_plain(di, p))
     tm.with_precalc(di, p)
     codes, lengths = _reads(g, rng, 2048, k + 60, k)
@@ -65,3 +65,24 @@ def test_kernels_equal_plain_versions(cuda, k, p):
         got = tt.turbo_streaming_search(turbo, di, c, n)
         torch.cuda.synchronize()
         assert torch.equal(got, tt.turbo_streaming_search_plain(turbo, di, c, n))
+
+
+@pytest.mark.parametrize("variant", VARIANT_NAMES)
+@pytest.mark.parametrize("k,p", [(14, 6), (9, 9), (12, 0)])
+def test_lf_kernels_equal_plain_versions(cuda, variant, k, p):
+    """The variant's K14 and K1 instances against their plain versions."""
+    rng = np.random.default_rng(100 + k + p)
+    g = "".join(rng.choice(list("ACGT"), size=4000))
+    sb = SBWT.build([g], k, cuda, precalc_k=p).to_variant(variant)
+    di = sb.device_index
+    codes, lengths = _reads(g, rng, 1024, k + 40, k)
+    c, n = torch.from_numpy(codes).to(cuda), torch.from_numpy(lengths).to(cuda)
+    got = ts.streaming_search(di, c, n)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ts.streaming_search_plain(di, c, n))
+    km = c[:, :k].contiguous()
+    assert torch.equal(ts.search_batch(di, km), ts.search_batch_plain(di, km))
+    q = min(k, 5)
+    ref = tm.precalc_fill_plain(di, q)
+    tm.with_precalc(di, q)
+    assert torch.equal(di.precalc, ref)

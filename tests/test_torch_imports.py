@@ -2,11 +2,14 @@
 
 A fresh interpreter imports every module of sbwt_tpu_torch and runs the
 CPU slice (build, precalc, turbo tables, streaming and k-mer search, file
-round trip); afterwards no ``jax`` module may be loaded and every kernel
-launch counter must still be 0. The kernel loader's sources must exist,
-and a wrapper handed CPU tensors must refuse them rather than fall back.
+round trip) and a variant slice (build --variant, re-encoding, the LF
+engine, the variant's own precalc fill, its files); afterwards no ``jax``
+module may be loaded and every kernel launch counter must still be 0. The
+kernel loader's sources must exist, and a wrapper handed CPU tensors must
+refuse them rather than fall back.
 """
 import json
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -46,6 +49,16 @@ with tempfile.TemporaryDirectory() as d:
     again = load(d + "/i.sbwt", "cpu")
     again.enable_turbo(1)
     same = bool((again.streaming_search_batch(codes) == ans).all())
+    variants_same = True
+    built = SBWT.build([g], 14, "cpu", precalc_k=4, variant="rrr-subsetwt")
+    for v in ("mef-matrix", "rrr-split", "mef-concat"):
+        vs = sb.to_variant(v)
+        vs.do_kmer_prefix_precalc(5)
+        save(d + "/v.sbwt", vs, "native")
+        back = load(d + "/v.sbwt", "cpu")
+        for x in (vs, back, built):
+            variants_same &= bool((x.streaming_search_batch(codes) == ans).all())
+            variants_same &= bool((x.search_batch(codes[:, :14]) == kmers).all())
 print(json.dumps({
     "modules": len(mods),
     "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
@@ -54,20 +67,22 @@ print(json.dumps({
     "hit": float((ans >= 0).mean()),
     "kmer_hits": int((kmers >= 0).sum()),
     "roundtrip": same,
+    "variants": variants_same,
 }))
 """
 
 
 def test_cpu_slice_imports_no_jax_and_launches_nothing():
+    # one torch thread, as in the test workers (torch_state.py)
     proc = subprocess.run([sys.executable, "-c", _SLICE], cwd=REPO, capture_output=True,
-                          text=True, timeout=300)
+                          text=True, timeout=300, env=dict(os.environ, OMP_NUM_THREADS="1"))
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["jax"] == []
     assert out["modules"] >= 12
     assert set(out["launches"]) == set(kernels.LAUNCHES)
     assert all(v == 0 for v in out["launches"].values())
-    assert out["arity"] == 3 and out["roundtrip"]
+    assert out["arity"] == 3 and out["roundtrip"] and out["variants"]
     assert 0.5 < out["hit"] < 1.0 and out["kmer_hits"] > 0
 
 
@@ -111,15 +126,28 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
         kernels.build()
 
 
+def _rank_desc(variant="rrr-split"):
+    from sbwt_tpu_torch.models.sbwt import SBWT
+
+    sb = SBWT.build(["ACGTTGCAAGGCTTAGC"], 5, "cpu").to_variant(variant)
+    return sb.device_index.kernel_desc(torch.device("cpu"))
+
+
 @pytest.mark.parametrize("call", [
-    lambda t: kernels.precalc_fill(t["rank"], 1, t["C"], 10, 2),
-    lambda t: kernels.kmer_search(t["rank"], 1, t["C"], 10, t["pre"], 0, t["codes"]),
+    lambda t: kernels.precalc_fill("plain-matrix", _rank_desc("plain-matrix"), t["C"], 10, 2),
+    lambda t: kernels.kmer_search("plain-matrix", _rank_desc("plain-matrix"), t["C"], 10,
+                                  t["pre"], 0, t["codes"]),
     lambda t: kernels.succ1(t["rank"], 1, t["sgs"], t["C"], 10),
     lambda t: kernels.succ_compose(torch.zeros((4, 10), dtype=torch.int32), 3),
     lambda t: kernels.seed_bits(t["pre"], 1),
     lambda t: kernels.turbo_stream(t["rank"], 1, t["rank"], 1, t["C"], t["pre"], 1, None,
                                    t["codes"], torch.full((2,), 5, dtype=torch.int32), 5),
-], ids=["precalc_fill", "kmer_search", "succ1", "succ_compose", "seed_bits", "turbo_stream"])
+    lambda t: kernels.lf_stream("rrr-split", _rank_desc(), t["sgs"], t["C"], t["pre"], 1, 5, 10,
+                                t["codes"], torch.full((2,), 5, dtype=torch.int32)),
+    lambda t: kernels.precalc_fill("rrr-split", _rank_desc(), t["C"], 10, 2),
+    lambda t: kernels.kmer_search("rrr-split", _rank_desc(), t["C"], 10, t["pre"], 1, t["codes"]),
+], ids=["precalc_fill", "kmer_search", "succ1", "succ_compose", "seed_bits", "turbo_stream",
+        "lf_stream", "variant_precalc_fill", "variant_kmer_search"])
 def test_wrappers_refuse_cpu_tensors(call):
     tensors = {
         "rank": torch.zeros((4, 2), dtype=torch.int32),
@@ -132,3 +160,14 @@ def test_wrappers_refuse_cpu_tensors(call):
     with pytest.raises(ValueError, match="CUDA kernel called with a tensor on cpu"):
         call(tensors)
     assert kernels.LAUNCHES == before
+
+
+def test_launch_counters_name_every_lf_instance():
+    lf = [name for name in kernels.LAUNCHES if "[" in name]
+    assert len(lf) == 3 * 10
+    for op in kernels.LF_OPS:
+        assert kernels.lf_counter(op, "plain-matrix") in lf
+    assert set(kernels.RANK_DESCS) == set(kernels.VARIANTS) == set(kernels.FAMILY)
+    for fam in set(kernels.FAMILY.values()):
+        src = "lf_stream.cu" if fam == "matrix" else f"lf_{fam}.cu"
+        assert f"sbwt_lf_{fam}(" in (kernels.CSRC / src).read_text()

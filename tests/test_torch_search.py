@@ -118,3 +118,34 @@ def test_update_interval_and_forward_match_jax(js, genome):
     ref = np.asarray(forward_jit(di, jnp.asarray(nodes), jnp.asarray(chars)))
     got = ts.forward_batch(ti, torch.from_numpy(nodes), torch.from_numpy(chars))
     np.testing.assert_array_equal(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("k,p", [(14, 0), (14, 6), (8, 8)], ids=["p0", "p_lt_k", "p_eq_k"])
+def test_lf_streaming_matches_jax_and_oracle(k, p):
+    """K14's plain version on plain-matrix against the JAX LF engine, on
+    all-hit, all-miss, alternating, lowercase/N and padded reads."""
+    from sbwt_tpu.ops.search import streaming_search_jit
+    from torch_state import main_corpora
+
+    rng = np.random.default_rng(30 + k + p)
+    g = "".join(rng.choice(list("ACGT"), size=2000))
+    js = SBWT.build([g], k, precalc_k=p)
+    parts = main_corpora(g, k, rng, L=k + 26, n=64)
+    codes = np.concatenate([c for c, _ in parts.values()]).astype(np.int8)
+    lengths = np.concatenate([n for _, n in parts.values()]).astype(np.int32)
+    ref = np.asarray(streaming_search_jit(js.device_index, jnp.asarray(codes), jnp.asarray(lengths)))
+    ti = tm.from_numpy_state(matrix_state(js.device_index), "cpu")
+    got = ts.streaming_search(ti, torch.from_numpy(codes), torch.from_numpy(lengths)).numpy()
+    np.testing.assert_array_equal(got, ref)
+    assert got.dtype == np.int32 and 0.2 < (got >= 0).mean() < 0.9
+    orc = OracleIndex([g], k)
+    for i in range(0, 64, 9):  # all-hit reads: plain uppercase
+        want = orc.streaming_search("".join("ACGT"[c] for c in codes[i]))
+        assert got[i].tolist() == want
+
+
+def test_lf_streaming_needs_streaming_support():
+    js = SBWT.build(["ACGTTGCAAGGCT"], 5, streaming_support=False)
+    ti = tm.from_numpy_state(matrix_state(js.device_index), "cpu")
+    with pytest.raises(ValueError, match="streaming support"):
+        ts.streaming_search(ti, torch.zeros((1, 8), dtype=torch.int8))

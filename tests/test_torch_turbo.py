@@ -23,7 +23,7 @@ from sbwt_tpu.utils.memory import select_turbo_arity as jax_select_turbo_arity
 from sbwt_tpu_torch.models import matrix as tm
 from sbwt_tpu_torch.ops import turbo as tt
 from sbwt_tpu_torch.utils.memory import select_turbo_arity, turbo_table_bytes
-from torch_state import matrix_state, turbo_state
+from torch_state import chimeric_corpora, main_corpora, matrix_state, turbo_state
 
 
 class Case:
@@ -61,58 +61,6 @@ class Case:
         if self._oracle is None:
             self._oracle = OracleIndex(self.seqs, self.k)
         return self._oracle
-
-
-def _genomic(enc, rng, n, L):
-    starts = rng.integers(0, len(enc) - L, size=n)
-    return enc[starts[:, None] + np.arange(L)]
-
-
-def _full(codes):
-    return codes, np.full(len(codes), codes.shape[1], dtype=np.int32)
-
-
-def main_corpora(g, k, rng, L=40, n=96):
-    enc = encode_query(g)
-    all_hit = _genomic(enc, rng, n, L)
-    all_miss = rng.integers(0, 4, size=(n, L)).astype(np.int8)
-    # alternating genomic and random stretches inside each read
-    alt = _genomic(enc, rng, n, L)
-    for i in range(n):
-        for s in range(int(rng.integers(3, 12)), L, 24):
-            e = s + int(rng.integers(1, 4))
-            alt[i, s:e] = (alt[i, s:e] + int(rng.integers(1, 4))) % 4
-    # lowercase spans and N: extension accepts lowercase only until the
-    # first -1 (the chain), restarts reject it
-    low = _genomic(enc, rng, n, L)
-    low[0::4, 10:15] |= 4
-    low[1::4, 5] = -1
-    low[1::4, 5 + k + 3] |= 4  # lowercase after a restart: the quirk
-    low[2::4, :] |= 4
-    low[3::4, int(rng.integers(0, L))] = -1
-    low[3::4, 25:] |= 4
-    # padded reads: -1 past a short length, some shorter than k
-    pad = np.concatenate([_genomic(enc, rng, n // 2, L),
-                          rng.integers(0, 4, size=(n - n // 2, L)).astype(np.int8)])
-    plen = rng.integers(0, L + 1, size=n).astype(np.int32)
-    plen[:4] = [0, k - 1, k, L]
-    for i, ln in enumerate(plen):
-        pad[i, ln:] = -1
-    return {"all_hit": _full(all_hit), "all_miss": _full(all_miss), "alternating": _full(alt),
-            "lowercase_n": _full(low), "padded": (pad, plen)}
-
-
-def chimeric_corpora(enc, k, rng, L, n=96):
-    """Genomic, chimeric (random prefix, genomic suffix: restarts must
-    resolve real k-mers) and random reads."""
-    gen = _genomic(enc, rng, n, L)
-    chim = rng.integers(0, 4, size=(n, L)).astype(np.int8)
-    src = _genomic(enc, rng, n, L)
-    for i in range(n):
-        cut = int(rng.integers(1, L - k))
-        chim[i, cut:] = src[i, : L - cut]
-    rand = rng.integers(0, 4, size=(n, L)).astype(np.int8)
-    return {"genomic": _full(gen), "chimeric": _full(chim), "random": _full(rand)}
 
 
 @pytest.fixture(scope="module")

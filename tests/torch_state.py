@@ -1,5 +1,17 @@
-"""JAX index state as numpy, for carrying it into sbwt_tpu_torch."""
+"""JAX index state as numpy, for carrying it into sbwt_tpu_torch, and the
+numpy-seeded read corpora the port's tests share.
+
+Importing it limits torch to one thread: the tests run in several worker
+processes at once, and a torch thread pool in each of them oversubscribes
+the cores (one CLI test took 190 s in each of four concurrent workers with
+the default pool, 42 s with one thread).
+"""
 import numpy as np
+import torch
+
+from sbwt_tpu.utils.dna import encode_query
+
+torch.set_num_threads(1)
 
 
 def matrix_state(di) -> dict:
@@ -16,3 +28,88 @@ def turbo_state(jt) -> dict:
     state["seed_bits"] = None if jt.seed_bits is None else np.asarray(jt.seed_bits)
     state.update({f: getattr(jt, f) for f in ("n_nodes", "k", "precalc_k", "arity")})
     return state
+
+
+def bv_from_jax(jbv, device="cpu"):
+    """The port's bit vector from a JAX PlainBV / RRRBV / MEFBV payload."""
+    from sbwt_tpu_torch.ops.bv import BV_CLASSES
+
+    kind = {"PlainBV": "plain", "RRRBV": "rrr", "MEFBV": "mef"}[type(jbv).__name__]
+    return BV_CLASSES[kind].from_payload(jbv.payload(), device)
+
+
+def wavelet_from_jax(jwt, device="cpu"):
+    """The port's wavelet tree from a JAX WaveletTree payload."""
+    from sbwt_tpu_torch.ops.wavelet import WaveletTree
+
+    return WaveletTree.from_payload(jwt.payload(), jwt.bv_kind, device)
+
+
+def generic_from_jax(jgi, device="cpu"):
+    """The port's GenericIndex from a JAX GenericIndex: its structure from
+    the structure's payload, the shared state from its numpy fields."""
+    import torch
+
+    from sbwt_tpu_torch.models.subsetrank import struct_from_payload
+    from sbwt_tpu_torch.models.variants import GenericIndex
+
+    def t(name):
+        return torch.as_tensor(np.array(getattr(jgi, name), dtype=np.int32), device=device)
+
+    return GenericIndex(
+        struct_from_payload(jgi.variant, jgi.struct.payload(), device), t("sgs_tbl"), t("C"),
+        t("precalc"), variant=jgi.variant, n_nodes=jgi.n_nodes, n_kmers=jgi.n_kmers, k=jgi.k,
+        precalc_k=jgi.precalc_k, has_streaming=jgi.has_streaming,
+    )
+
+
+def _genomic(enc, rng, n, L):
+    starts = rng.integers(0, len(enc) - L, size=n)
+    return enc[starts[:, None] + np.arange(L)]
+
+
+def _full(codes):
+    return codes, np.full(len(codes), codes.shape[1], dtype=np.int32)
+
+
+def main_corpora(g, k, rng, L=40, n=96):
+    enc = encode_query(g)
+    all_hit = _genomic(enc, rng, n, L)
+    all_miss = rng.integers(0, 4, size=(n, L)).astype(np.int8)
+    # alternating genomic and random stretches inside each read
+    alt = _genomic(enc, rng, n, L)
+    for i in range(n):
+        for s in range(int(rng.integers(3, 12)), L, 24):
+            e = s + int(rng.integers(1, 4))
+            alt[i, s:e] = (alt[i, s:e] + int(rng.integers(1, 4))) % 4
+    # lowercase spans and N: extension accepts lowercase only until the
+    # first -1 (the chain), restarts reject it
+    low = _genomic(enc, rng, n, L)
+    low[0::4, 10:15] |= 4
+    low[1::4, 5] = -1
+    low[1::4, 5 + k + 3] |= 4  # lowercase after a restart: the quirk
+    low[2::4, :] |= 4
+    low[3::4, int(rng.integers(0, L))] = -1
+    low[3::4, 25:] |= 4
+    # padded reads: -1 past a short length, some shorter than k
+    pad = np.concatenate([_genomic(enc, rng, n // 2, L),
+                          rng.integers(0, 4, size=(n - n // 2, L)).astype(np.int8)])
+    plen = rng.integers(0, L + 1, size=n).astype(np.int32)
+    plen[:4] = [0, k - 1, k, L]
+    for i, ln in enumerate(plen):
+        pad[i, ln:] = -1
+    return {"all_hit": _full(all_hit), "all_miss": _full(all_miss), "alternating": _full(alt),
+            "lowercase_n": _full(low), "padded": (pad, plen)}
+
+
+def chimeric_corpora(enc, k, rng, L, n=96):
+    """Genomic, chimeric (random prefix, genomic suffix: restarts must
+    resolve real k-mers) and random reads."""
+    gen = _genomic(enc, rng, n, L)
+    chim = rng.integers(0, 4, size=(n, L)).astype(np.int8)
+    src = _genomic(enc, rng, n, L)
+    for i in range(n):
+        cut = int(rng.integers(1, L - k))
+        chim[i, cut:] = src[i, : L - cut]
+    rand = rng.integers(0, 4, size=(n, L)).astype(np.int8)
+    return {"genomic": _full(gen), "chimeric": _full(chim), "random": _full(rand)}
