@@ -7,7 +7,7 @@ the bench's real size, every kernel against its plain PyTorch version.
 Phases, one line each; any failure exits nonzero:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: nvcc compiles K1-K4 and K14 from sbwt_tpu_torch/csrc, one
+2. build: nvcc compiles K1-K4, K14 and K19 from sbwt_tpu_torch/csrc, one
    process per source;
 3. main path (launches counted): ``SBWT.build`` of a 4 Mbp uniform random
    genome (numpy seed 20260817, as bench.py) at k = 30 with precalc_k = 13
@@ -19,20 +19,32 @@ Phases, one line each; any failure exits nonzero:
    of both 1M-read batches on the LF engine (K14 over the variant's ranks,
    K15-K17), whose answers must equal K4's, ``search_batch`` of 1M 30-mers
    (the variant's K1 search) and the variant's K1 fill at p = 12;
-5. kernels against their plain versions on the card, at the main path's
+5. device build (launches counted): ``SBWT.build_on_device`` (K19) of the
+   same genome with precalc_k = 13, whose tables, counts and p = 13 table
+   must equal phase 3's host-built index word for word and whose turbo
+   answers to the hit98 batch must equal phase 3's; then of the first
+   200,000 reads of the hit98 batch as separate sequences, equal to the
+   host build of the same reads;
+6. kernels against their plain versions on the card, at the main path's
    shapes, with times: K1 on plain-matrix (the p = 13 fill, the 1M
    30-mers), K2, K3, K4 on each whole 1M-read batch; K14 of each variant
    on the first 2^16 reads of each mix and on a batch with lowercase, N
    and short lengths; each variant's K1 search on the 1M 30-mers and fill
    at p = 8, and its p = 12 table of phase 4 against the plain version's;
-6. the CLI (``python -m sbwt_tpu_torch build`` / ``build-variant`` /
+   K19's four kernels at the genome build's shapes, the build's sorts, and
+   the build's time split by stage;
+7. the CLI (``python -m sbwt_tpu_torch build`` / ``build-variant`` /
    ``search``) on the reference's golden inputs, byte-equal to the golden
    output, on plain-matrix (turbo) and rrr-split (LF).
 
-It prints one JSON line of per-kernel results, the card's nvidia-smi line,
-and last ``{"ok": true, "device": {...}}``. Without a CUDA device it exits
-2 and prints no result. Every output is an integer, so each comparison is
-exact (max_abs_err must be 0).
+It prints one JSON line of per-kernel results (launches on its path, error
+against the plain version, time, the plain version's time, and the least
+time the card could take: compulsory bytes over the HBM rate or counted
+operations over the peak rate, whichever is larger), the card's nvidia-smi
+line, and last ``{"ok": true, "device": {...}}``. Without a CUDA device it
+exits 2 and prints no result. Every output is an integer, so each
+comparison is exact (max_abs_err must be 0). At its end no ``jax`` and no
+``sbwt_tpu`` module may be loaded.
 """
 from __future__ import annotations
 
@@ -74,6 +86,12 @@ VARIANTS = ("plain-matrix", "rrr-matrix", "mef-matrix", "plain-split", "rrr-spli
             "mef-split", "plain-concat", "mef-concat", "plain-subsetwt", "rrr-subsetwt")
 GENERIC_P = 12  # the largest precalc a compressed variant fills itself
 PLAIN_READS = 1 << 16  # reads per mix that K14's plain version answers
+BUILD_READS = 200_000  # reads of the hit98 batch that the device build takes as sequences
+
+# NVIDIA H100 SXM data sheet: HBM3 bytes/s, and the float32 rate outside the
+# tensor cores, which stands in for the integer ALU rate of these kernels
+HBM_BYTES_PER_S = 3.35e12
+ALU_OPS_PER_S = 67e12
 
 # kernel entry point -> (source, the XLA program it replaces)
 KERNELS = {
@@ -85,6 +103,13 @@ KERNELS = {
     "seed_bits": ("sbwt_tpu_torch/csrc/seed_bits.cu", "sbwt_tpu/ops/turbo.py:271"),
     "turbo_stream": ("sbwt_tpu_torch/csrc/turbo_stream.cu", "sbwt_tpu/ops/turbo.py:610"),
 }
+# K19, the on-device build (csrc/build_sbwt.cu)
+BUILD_KERNELS = {
+    "pack_windows": ("sbwt_tpu_torch/csrc/build_sbwt.cu", "sbwt_tpu/construct/device.py:198"),
+    "edge_src_probe": ("sbwt_tpu_torch/csrc/build_sbwt.cu", "sbwt_tpu/construct/device.py:221"),
+    "emit_dummies": ("sbwt_tpu_torch/csrc/build_sbwt.cu", "sbwt_tpu/construct/device.py:247"),
+    "finalize_tables": ("sbwt_tpu_torch/csrc/build_sbwt.cu", "sbwt_tpu/construct/device.py:307"),
+}
 # the LF entry points of the variants path, one instance per variant
 # (csrc/lf_stream.cuh); plain-matrix's K1 is in KERNELS
 LF_KERNELS = {}
@@ -95,6 +120,9 @@ for _v in VARIANTS:
     if _v != "plain-matrix":
         LF_KERNELS[f"kmer_search[{_v}]"] = (_src, "sbwt_tpu/ops/search.py:83")
         LF_KERNELS[f"precalc_fill[{_v}]"] = (_src, "sbwt_tpu/models/variants.py:125")
+
+
+ALL_KERNELS = {**KERNELS, **LF_KERNELS, **BUILD_KERNELS}
 
 
 class SmokeFailure(Exception):
@@ -140,6 +168,35 @@ def timed_ms(fn):
     end.record()
     end.synchronize()
     return out, start.elapsed_time(end)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+# Work of the LF and turbo kernels from their shapes, as (bytes moved,
+# integer operations). How many LF steps a lane takes before it empties
+# depends on the data, so operations are counted low: the one step that
+# every row, k-mer or answer needs, at LF_OPS operations (a rank pair with
+# its interval update: shifts, masks, a popcount, adds, read off the
+# source). The bound stays a lower bound.
+LF_OPS = 40
+
+
+def fill_work(structure_bytes: int, p: int):
+    """K1 fill: the structure read once, the table written."""
+    return structure_bytes + 4**p * 8, 4**p * LF_OPS
+
+
+def search_work(structure_bytes: int, B: int, k: int):
+    """K1 search: codes, one precalc row and the answer per k-mer."""
+    return structure_bytes + B * (k + 8 + 4), B * LF_OPS
+
+
+def stream_work(B: int, L: int, k: int):
+    """K4, K14: codes and lengths in, answers out. The table rows a read
+    walks depend on the data and are left out."""
+    return B * L + 4 * B + B * (L - k + 1) * 4, B * (L - k + 1) * LF_OPS
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -249,18 +306,200 @@ def run_variants_path(sbwt, runs):
     return out
 
 
+def check_same_index(got, want, what: str) -> None:
+    """Two SBWT objects hold the same index: tables, counts, host rows."""
+    a, b = got.device_index, want.device_index
+    check((a.n_nodes, a.n_kmers, a.n_words, a.k, a.precalc_k, a.has_streaming)
+          == (b.n_nodes, b.n_kmers, b.n_words, b.k, b.precalc_k, b.has_streaming),
+          f"{what}: counts differ")
+    for field in ("rank_tbl", "sgs_tbl", "C", "precalc"):
+        err = max_abs_err(getattr(a, field), getattr(b, field))
+        check(err == 0, f"{what}: {field} differs from the host build (max_abs_err {err})")
+    check(np.array_equal(got._bits_packed, want._bits_packed)
+          and np.array_equal(got._sgs_packed, want._sgs_packed), f"{what}: host rows differ")
+
+
+def run_device_build_path(dev, genome, sbwt, runs):
+    """K19 through ``SBWT.build_on_device``: the genome, held to the main
+    path's host-built index and its turbo answers, then the first
+    BUILD_READS reads of the hit98 batch as separate sequences, held to
+    the host build of the same reads."""
+    from sbwt_tpu_torch.models.sbwt import SBWT
+
+    t0 = time.perf_counter()
+    on_dev = SBWT.build_on_device([genome], K, dev, precalc_k=PRECALC_K)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check_same_index(on_dev, sbwt, "device build of the genome")
+    check(on_dev.enable_turbo(arity=ARITY) == ARITY, "device build: enable_turbo arity")
+    codes, want = runs["hit98"]
+    ans = on_dev.streaming_search_batch(codes)
+    check(np.array_equal(ans, want), "device build: turbo answers differ from the host build's")
+    del on_dev
+    # the same call again: without PyTorch's first use of its sort and scan kernels
+    t0 = time.perf_counter()
+    again = SBWT.build_on_device([genome], K, dev, precalc_k=PRECALC_K)
+    torch.cuda.synchronize()
+    again_seconds = time.perf_counter() - t0
+    check_same_index(again, sbwt, "second device build of the genome")
+    say("device_build", input="genome", bp=len(genome), n_columns=again.number_of_subsets(),
+        n_kmers=again.number_of_kmers(), max_abs_err=0, checksum=int(ans.sum(dtype=np.int64)),
+        seconds_with_upload_and_precalc=round(seconds, 4),
+        second_call_seconds=round(again_seconds, 4))
+    del again, ans
+
+    reads = list(codes[:BUILD_READS])
+    t0 = time.perf_counter()
+    on_dev = SBWT.build_on_device(reads, K, dev, precalc_k=8)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = SBWT.build(reads, K, dev, precalc_k=8, method="memory")
+    torch.cuda.synchronize()
+    host_seconds = time.perf_counter() - t0
+    check_same_index(on_dev, host, "device build of the reads")
+    sample = codes[BUILD_READS : BUILD_READS + 4096]
+    check(np.array_equal(on_dev.streaming_search_batch(sample),
+                         host.streaming_search_batch(sample)), "device build of the reads: answers")
+    say("device_build", input="reads", reads=len(reads), n_columns=on_dev.number_of_subsets(),
+        n_kmers=on_dev.number_of_kmers(),
+        dummies=on_dev.number_of_subsets() - on_dev.number_of_kmers(), max_abs_err=0,
+        seconds_with_upload_and_precalc=round(seconds, 4), host_build_seconds=round(host_seconds, 4))
+
+
+def profile_build(dev, codes):
+    """Device time of one genome build by kind of kernel, from torch.profiler
+    (a measurement only: it is skipped with a note if the profiler fails)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sbwt_tpu_torch.construct import device as td
+
+    kinds = {"kernels": ("pack_windows", "edge_src_probe", "emit_dummies", "finalize_tables"),
+             "sorts": ("sort", "radix", "merge"), "scans": ("scan", "cumsum"),
+             "compaction": ("index", "nonzero", "select", "masked", "gather", "scatter"),
+             "copies": ("memcpy", "memset")}
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            td.build_sbwt_device(None, K, dev, prepared=codes)
+            torch.cuda.synchronize()
+        split = dict.fromkeys([*kinds, "elementwise_and_other"], 0.0)
+        top = []
+        for ev in prof.key_averages():
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us = getattr(ev, "self_device_time_total", None)
+            us = ev.self_cuda_time_total if us is None else us
+            low = ev.key.lower()
+            kind = next((k for k, words in kinds.items() if any(w in low for w in words)),
+                        "elementwise_and_other")
+            split[kind] += us / 1e3
+            top.append((us / 1e3, ev.count, ev.key[:80]))
+        say("build_profile", device_ms_total=round(sum(split.values()), 4),
+            **{f"{k}_ms": round(v, 4) for k, v in split.items()})
+        for ms, count, key in sorted(top, reverse=True)[:12]:
+            print(f"  profiler: {ms:.4f} ms in {count} launches of {key}")
+    except Exception as e:  # the trace is not part of the check
+        say("build_profile", unavailable=repr(e)[:200])
+
+
+def compare_build_kernels(dev, genome, record):
+    """K19's four kernels against their plain versions at the genome
+    build's shapes, the build's sorts timed alone, and the whole build's
+    wall time with the codes already on the card."""
+    from sbwt_tpu_torch import kernels
+    from sbwt_tpu_torch.construct import device as td
+
+    W = kernels.key_words(K)
+    codes = td.prepare_device_codes([genome], K, dev)
+    keys, valid = kernels.pack_windows(codes, K)
+    plain = td.pack_windows_plain(codes, K)
+    record("pack_windows", max_abs_err(keys, plain[0]) + max_abs_err(valid, plain[1]),
+           cuda_ms(lambda: kernels.pack_windows(codes, K), 5),
+           cuda_ms(lambda: td.pack_windows_plain(codes, K), 1),
+           nbytes(codes, keys, valid), keys.shape[0] * K * 4, shape=tuple(keys.shape))
+    valid_keys = keys[valid]
+    sort_kmers_ms = cuda_ms(lambda: td.colex_order(valid_keys), 3)
+    del keys, valid, plain
+
+    dv = td.sorted_distinct_kmers(codes, K)
+    n = dv.shape[0]
+    probe = kernels.edge_src_probe(dv, K)
+    plain = td.edge_src_probe_plain(dv, K)
+    groups = int(probe[1].sum())
+    # a search is ceil(log2 n) steps of W word compares; four a group start, one a k-mer
+    record("edge_src_probe", sum(max_abs_err(a, b) for a, b in zip(probe, plain)),
+           cuda_ms(lambda: kernels.edge_src_probe(dv, K), 5),
+           cuda_ms(lambda: td.edge_src_probe_plain(dv, K), 1),
+           nbytes(dv, *probe), (4 * groups + n) * n.bit_length() * 4 * W,
+           shape=tuple(dv.shape), group_starts=groups, sources=int(probe[2].sum()))
+    src = dv[probe[2]]
+    del plain
+
+    dummies = kernels.emit_dummies(src, K)
+    plain = td.emit_dummies_plain(src, K)
+    record("emit_dummies", sum(max_abs_err(a, b) for a, b in zip(dummies, plain)),
+           cuda_ms(lambda: kernels.emit_dummies(src, K), 5),
+           cuda_ms(lambda: td.emit_dummies_plain(src, K), 1),
+           nbytes(src, *dummies), dummies[0].shape[0] * 4 * W, shape=tuple(dummies[0].shape))
+    # the same kernel where it has work: one source a row of 2^18 k-mers
+    many = dv[:: max(1, n >> 18)].contiguous()
+    plain, plain_ms = timed_ms(lambda: td.emit_dummies_plain(many, K))
+    got = kernels.emit_dummies(many, K)
+    err = sum(max_abs_err(a, b) for a, b in zip(got, plain))
+    check(err == 0, "emit_dummies on many sources: kernel differs from its plain version")
+    say("kernel", name="emit_dummies", shape=tuple(got[0].shape), max_abs_err=err,
+        ms=cuda_ms(lambda: kernels.emit_dummies(many, K), 5), plain_ms=plain_ms,
+        bound_ms=nbytes(many, *got) / HBM_BYTES_PER_S * 1e3)
+    del many, got, plain
+
+    nodes = td.merged_nodes(td.dummy_nodes(src, K), dv, probe[0], K)
+    sort_nodes_ms = cuda_ms(lambda: td.colex_order(nodes[0], nodes[1]), 3)
+    tables = kernels.finalize_tables(*nodes, K, True)
+    plain = td.finalize_tables_plain(*nodes, K, True)
+    record("finalize_tables", sum(max_abs_err(a, b) for a, b in zip(tables, plain)),
+           cuda_ms(lambda: kernels.finalize_tables(*nodes, K, True), 5),
+           cuda_ms(lambda: td.finalize_tables_plain(*nodes, K, True), 1),
+           nbytes(*nodes, *tables), nodes[0].shape[0] * 4 * W, shape=tuple(nodes[0].shape))
+    del nodes, tables, plain, dv, probe, src, dummies, valid_keys
+
+    def build():
+        td.build_sbwt_device(None, K, dev, prepared=codes)
+
+    build()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        build()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    say("build_time", input="genome, codes on the card, no precalc", wall_ms=[round(w * 1e3, 3) for w in walls],
+        device_ms=cuda_ms(build, 3), sort_kmers_ms=sort_kmers_ms, sort_nodes_ms=sort_nodes_ms)
+    profile_build(dev, codes)
+
+
 def recorder(launches: dict, card: str):
     """The per-kernel results of the JSON line, and the function that checks
     and adds one."""
     results = {}
 
-    def record(name, err, ms, plain_ms, **extra):
+    def record(name, err, ms, plain_ms, moved, ops, **extra):
+        """moved: the bytes the function must move at this shape (each input
+        read once, each output written once; of a table read at random, the
+        rows this run's data asks for). ops: its integer operations, counted
+        from the shape. No single PyTorch call computes any of these
+        functions, so library_ms is null."""
         check(err == 0, f"{name}: kernel differs from its plain version (max_abs_err {err})")
-        src, replaces = {**KERNELS, **LF_KERNELS}[name]
+        src, replaces = ALL_KERNELS[name]
+        bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, ops / ALU_OPS_PER_S * 1e3
         results[name] = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
                          "launches": launches[name], "max_abs_err": err,
-                         "ms": ms, "plain_ms": plain_ms}
-        say("kernel", name=name, max_abs_err=err, ms=ms, plain_ms=plain_ms, card=repr(card), **extra)
+                         "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+                         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                         "library_ms": None}
+        say("kernel", name=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=results[name]["bound_ms"], bound_by=results[name]["bound_by"],
+            bytes_moved=moved, card=repr(card), **extra)
 
     return results, record
 
@@ -280,30 +519,32 @@ def compare_kernels(dev, genome, sbwt, runs, record):
     plain = tm.precalc_fill_plain(di, p)
     record("precalc_fill[plain-matrix]", max_abs_err(k_pre(), plain) + max_abs_err(di.precalc, plain),
            cuda_ms(k_pre, 3), cuda_ms(lambda: tm.precalc_fill_plain(di, p), 1),
-           shape=tuple(plain.shape))
+           *fill_work(di.size_in_bytes(), p), shape=tuple(plain.shape))
     del plain
 
     km = torch.from_numpy(np.ascontiguousarray(runs["hit98"][0][:, :K])).to(dev)
     k_km = lambda: ts.search_batch(di, km)
     record("kmer_search[plain-matrix]", max_abs_err(k_km(), ts.search_batch_plain(di, km)),
            cuda_ms(k_km, 5), cuda_ms(lambda: ts.search_batch_plain(di, km), 1),
-           shape=tuple(km.shape))
+           *search_work(di.size_in_bytes(), *km.shape), shape=tuple(km.shape))
 
     k_s1 = lambda: kernels.succ1(di.rank_tbl, di.n_words, di.sgs_tbl, di.C, di.n_nodes)
     succ = k_s1()
     record("succ1", max_abs_err(succ, tt.succ1_plain(di)), cuda_ms(k_s1, 5),
-           cuda_ms(lambda: tt.succ1_plain(di), 1), shape=tuple(succ.shape))
+           cuda_ms(lambda: tt.succ1_plain(di), 1), nbytes(di.rank_tbl, di.sgs_tbl, succ),
+           succ.numel() * LF_OPS, shape=tuple(succ.shape))
 
     err = max_abs_err(turbo.tbl, tt.compose_plain(succ, ARITY))
     plain_ms = cuda_ms(lambda: tt.compose_plain(succ, ARITY), 1)
     record("succ_compose", err, cuda_ms(lambda: kernels.succ_compose(succ, ARITY), 3), plain_ms,
-           shape=tuple(turbo.tbl.shape))
+           nbytes(succ, turbo.tbl), turbo.tbl.numel(), shape=tuple(turbo.tbl.shape))
     del succ
 
     k_sb = lambda: kernels.seed_bits(di.precalc, p)
     record("seed_bits", max_abs_err(turbo.seed_bits, tt.seed_bits_plain(di.precalc, p))
            + max_abs_err(k_sb(), turbo.seed_bits), cuda_ms(k_sb, 5),
-           cuda_ms(lambda: tt.seed_bits_plain(di.precalc, p), 1), shape=tuple(turbo.seed_bits.shape))
+           cuda_ms(lambda: tt.seed_bits_plain(di.precalc, p), 1),
+           nbytes(di.precalc, turbo.seed_bits), 4 ** (p + 1) * 4, shape=tuple(turbo.seed_bits.shape))
 
     n_answers = None
     for mix, (codes_np, ans_np) in runs.items():
@@ -326,7 +567,8 @@ def compare_kernels(dev, genome, sbwt, runs, record):
                      answers_per_s=n_answers / (ms / 1e3),
                      plain_answers_per_s=n_answers / (plain_ms / 1e3))
         if mix == "hit98":
-            record("turbo_stream", err, ms, plain_ms, **extra)
+            record("turbo_stream", err, ms, plain_ms, *stream_work(len(codes_np), READ_LEN, K),
+                   **extra)
         else:
             check(err == 0, f"turbo_stream {mix}: kernel differs from its plain version")
             say("kernel", name="turbo_stream", max_abs_err=err, ms=ms, plain_ms=plain_ms, **extra)
@@ -383,7 +625,8 @@ def compare_lf_kernels(dev, genome, sbwt, runs, variants, record):
                          plain_answers_per_s=plain.numel() / (plain_ms / 1e3))
             del got, plain
             if mix == "hit98":
-                record(name, err, cuda_ms(sample, 3), plain_ms, **extra)
+                record(name, err, cuda_ms(sample, 3), plain_ms,
+                       *stream_work(PLAIN_READS, READ_LEN, K), **extra)
             else:
                 check(err == 0, f"{name} {mix}: kernel differs from its plain version")
                 say("kernel", name=name, max_abs_err=err, ms=cuda_ms(sample, 3),
@@ -398,13 +641,14 @@ def compare_lf_kernels(dev, genome, sbwt, runs, variants, record):
         k_km = lambda: ts.search_batch(di, km)
         plain, plain_ms = timed_ms(lambda: ts.search_batch_plain(di, km))
         record(f"kmer_search[{v}]", max_abs_err(k_km(), plain), cuda_ms(k_km, 5), plain_ms,
-               shape=tuple(km.shape))
+               *search_work(di.size_in_bytes(), *km.shape), shape=tuple(km.shape))
         desc = di.kernel_desc(dev)
         k_pre = lambda: kernels.precalc_fill(v, desc, di.C, di.n_nodes, 8)
         plain, plain_ms = timed_ms(lambda: tm.precalc_fill_plain(di, 8))
         err = max_abs_err(k_pre(), plain)
         ms12 = cuda_ms(lambda: kernels.precalc_fill(v, desc, di.C, di.n_nodes, GENERIC_P), 3)
-        record(f"precalc_fill[{v}]", err, cuda_ms(k_pre, 5), plain_ms, shape=(4**8, 2),
+        record(f"precalc_fill[{v}]", err, cuda_ms(k_pre, 5), plain_ms,
+               *fill_work(di.size_in_bytes(), 8), shape=(4**8, 2),
                p12_ms=ms12, p12_shape=tuple(ref12.shape))
         del plain
 
@@ -485,15 +729,33 @@ def main() -> int:
     launches.update(lf_launches)
     say("memory", peak_bytes=torch.cuda.max_memory_allocated(dev))
 
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    run_device_build_path(dev, genome, sbwt, runs)
+    torch.cuda.synchronize()
+    build_launches = {name: kernels.LAUNCHES[name] for name in BUILD_KERNELS}
+    say("launches", path="device_build", seconds=round(time.perf_counter() - t0, 3),
+        **build_launches)
+    check(all(n > 0 for n in build_launches.values()),
+          f"a build kernel of the device_build path never launched: {build_launches}")
+    launches.update(build_launches)
+    torch.cuda.empty_cache()
+    say("memory", peak_bytes=torch.cuda.max_memory_allocated(dev))
+
     results, record = recorder(launches, card)
     compare_kernels(dev, genome, sbwt, runs, record)
     compare_lf_kernels(dev, genome, sbwt, runs, variants, record)
     del sbwt, runs, variants
     torch.cuda.empty_cache()
+    compare_build_kernels(dev, genome, record)
+    torch.cuda.empty_cache()
     run_cli(str(dev))
 
-    check(set(results) == set(KERNELS) | set(LF_KERNELS), "a kernel was not compared")
-    print(json.dumps({"kernels": [results[name] for name in {**KERNELS, **LF_KERNELS}]}))
+    check(set(results) == set(ALL_KERNELS), "a kernel was not compared")
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "sbwt_tpu"))
+    check(not loaded, f"modules of JAX or of the JAX package were loaded: {loaded}")
+    print(json.dumps({"kernels": [results[name] for name in ALL_KERNELS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -2,19 +2,20 @@
 kernels for NVIDIA Hopper.
 
 A port of the JAX package ``sbwt_tpu``, which stays beside it as the
-reference. This package imports ``torch`` and never ``jax``; host-side
-construction, file formats and query batching are shared with
-``sbwt_tpu`` through its modules that import no JAX (construct, io,
-native, utils).
+reference. This package imports ``torch``, never ``jax`` and nothing of
+``sbwt_tpu``: host-side construction, file formats, query batching and
+the native C runtime are its own copies (construct, io, native, utils),
+under the same sub-package names.
 
 Ported so far: ``build``, ``build-variant`` and ``search`` for all ten
 variants, with the precalc table, the turbo successor engine (arity 1, 2
-or 3, plain-matrix) and the LF streaming engine (every variant). Kernels
+or 3, plain-matrix), the LF streaming engine (every variant) and the
+on-device build (``SBWT.build_on_device``, construct/device.py). Kernels
 in csrc/, built by nvcc at first use (see kernels/): K1 (precalc fill,
 k-mer search) and K14 (LF streaming) in lf_stream.cuh, templated over the
 rank structures K15-K17 (bv.cuh, wavelet.cuh, subset_rank.cuh) with one
-instance per variant; succ_table.cu (K2), seed_bits.cu (K3) and
-turbo_stream.cu (K4).
+instance per variant; succ_table.cu (K2), seed_bits.cu (K3),
+turbo_stream.cu (K4) and build_sbwt.cu (K19, the four build kernels).
 
 Top-level names are lazy, so importing the package loads no index code.
 """

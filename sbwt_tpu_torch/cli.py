@@ -19,10 +19,21 @@ import time
 
 import torch
 
-from sbwt_tpu.cli import MAX_KMER_LENGTH, _input_file_list, _readlines
-from sbwt_tpu.utils.logging import LogLevel, set_log_level, write_log
+from .utils.logging import LogLevel, set_log_level, write_log
 
+MAX_KMER_LENGTH = 255  # the reference's compile-time ceiling (CMakeLists.txt:71-81)
 NOT_PORTED_COMMANDS = ("ascii-export",)
+
+
+def _readlines(path: str) -> list[str]:
+    with open(path) as f:
+        return [ln.strip() for ln in f if ln.strip()]
+
+
+def _input_file_list(arg: str) -> list[str]:
+    if arg.endswith(".txt"):
+        return _readlines(arg)
+    return [arg]
 
 
 def _device(name: str) -> torch.device:
@@ -60,8 +71,7 @@ def build_main(argv) -> int:
     _add_device_flag(p)
     args = p.parse_args(argv)
 
-    from sbwt_tpu.io import seqio
-
+    from .io import seqio
     from .io.serialize import save
     from .models.sbwt import SBWT, require_known_variant
 
@@ -140,8 +150,7 @@ def search_main(argv) -> int:
     set_log_level(LogLevel.MINOR)
     device = _device(args.device)
 
-    from sbwt_tpu.io.query_runner import run_query_files
-
+    from .io.query_runner import run_query_files
     from .io.serialize import load
     from .ops.turbo import TurboUnavailable
 

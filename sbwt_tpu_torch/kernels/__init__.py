@@ -32,7 +32,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("succ_table.cu", "seed_bits.cu", "turbo_stream.cu",
-           "lf_stream.cu", "lf_split.cu", "lf_concat.cu", "lf_subsetwt.cu")
+           "lf_stream.cu", "lf_split.cu", "lf_concat.cu", "lf_subsetwt.cu", "build_sbwt.cu")
 HEADERS = ("sbwt_common.cuh", "bv.cuh", "wavelet.cuh", "subset_rank.cuh", "lf_stream.cuh")
 NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = (
@@ -52,12 +52,16 @@ def lf_counter(op: str, variant: str) -> str:
     return f"{op}[{variant}]"
 
 
+# K19, the on-device build (csrc/build_sbwt.cu)
+BUILD_OPS = ("pack_windows", "edge_src_probe", "emit_dummies", "finalize_tables")
+
 # Launches per kernel entry point since the last reset_launch_counts().
 LAUNCHES = {
     "succ1": 0,
     "succ_compose": 0,
     "seed_bits": 0,
     "turbo_stream": 0,
+    **{op: 0 for op in BUILD_OPS},
     **{lf_counter(op, v): 0 for op in LF_OPS for v in VARIANTS},
 }
 
@@ -75,6 +79,10 @@ _SIGNATURES = {
     # (device, op, variant, rank descriptor*, LFArgs*, stream)
     **{f"sbwt_lf_{fam}": [_I, _I, _I, _P, _P, _P] for fam in sorted(set(FAMILY.values()))},
     "sbwt_lf_desc_sizes": [_P],
+    "sbwt_pack_windows": [_I, _P, _LL, _I, _P, _P, _P],
+    "sbwt_edge_src_probe": [_I, _P, _I, _I, _P, _P, _P, _P],
+    "sbwt_emit_dummies": [_I, _P, _LL, _I, _P, _P, _P, _P],
+    "sbwt_finalize_tables": [_I, _P, _P, _P, _LL, _I, _LL, _P, _P, _P, _P],
 }
 
 
@@ -377,3 +385,90 @@ def kmer_search(variant: str, rank_desc, C, n_nodes: int, precalc, p: int,
                codes=_check(codes, "codes", torch.int8, dev, align=1),
                out=_check(out, "out", torch.int32, dev), B=B, k=k, p=p, n_nodes=n_nodes)
     return out
+
+
+# ---------------------------------------------------------------------------
+# K19: the on-device build (csrc/build_sbwt.cu). Keys are int32 [n, W] rows
+# holding the bits of W = ceil(k / 16) uint32 words, word 0 most significant.
+# ---------------------------------------------------------------------------
+
+
+def key_words(k: int) -> int:
+    return -(-k // 16)
+
+
+def pack_windows(codes, k: int):
+    """Every length-k window of the int8 codes [Ntot] as a key: int32
+    [m, W] (m = Ntot - k + 1) and bool [m] validity; a window holding a
+    code < 0 is invalid and its key all ones."""
+    dev = _cuda_device(codes)
+    m, W = codes.shape[0] - k + 1, key_words(k)
+    if m < 1:
+        raise ValueError(f"codes: {codes.shape[0]} codes hold no window of k = {k}")
+    keys = torch.empty((m, W), dtype=torch.int32, device=dev)
+    valid = torch.empty(m, dtype=torch.bool, device=dev)
+    _launch("sbwt_pack_windows", "pack_windows", dev,
+            _check(codes, "codes", torch.int8, dev, (m + k - 1,), 1), m, k,
+            _check(keys, "keys", torch.int32, dev),
+            _check(valid, "valid", torch.bool, dev, align=1))
+    return keys, valid
+
+
+def edge_src_probe(keys, k: int):
+    """Over the n sorted distinct k-mer keys int32 [n, W]: uint8 [n] edge
+    nibble (bit c: the suffix group's out-edge c, on the group's first
+    column only), bool [n] suffix-group start, bool [n] source (no
+    predecessor in the set)."""
+    dev = _cuda_device(keys)
+    n = keys.shape[0]
+    edges = torch.empty(n, dtype=torch.uint8, device=dev)
+    gstart = torch.empty(n, dtype=torch.bool, device=dev)
+    is_src = torch.empty(n, dtype=torch.bool, device=dev)
+    if n == 0:
+        return edges, gstart, is_src
+    _launch("sbwt_edge_src_probe", "edge_src_probe", dev,
+            _check(keys, "keys", torch.int32, dev, (n, key_words(k))), n, k,
+            _check(edges, "edges", torch.uint8, dev, align=1),
+            _check(gstart, "gstart", torch.bool, dev, align=1),
+            _check(is_src, "is_src", torch.bool, dev, align=1))
+    return edges, gstart, is_src
+
+
+def emit_dummies(src, k: int):
+    """The dummy prefixes of the source keys int32 [n_src, W]: row s * k + l
+    is source s's l-char prefix (key, length l, edge char = its char at
+    index l), and the last row the root (zeros, 0, -1). Returns int32
+    [n_src * k + 1, W] keys, int32 lengths, int32 edges."""
+    dev = _cuda_device(src)
+    n_src, W = src.shape[0], key_words(k)
+    total = n_src * k + 1
+    out_keys = torch.empty((total, W), dtype=torch.int32, device=dev)
+    out_len = torch.empty(total, dtype=torch.int32, device=dev)
+    out_edge = torch.empty(total, dtype=torch.int32, device=dev)
+    _launch("sbwt_emit_dummies", "emit_dummies", dev,
+            _check(src, "src", torch.int32, dev, (n_src, W)), n_src, k,
+            _check(out_keys, "out_keys", torch.int32, dev),
+            _check(out_len, "out_len", torch.int32, dev),
+            _check(out_edge, "out_edge", torch.int32, dev))
+    return out_keys, out_len, out_edge
+
+
+def finalize_tables(keys, lengths, edges, k: int, streaming: bool):
+    """Over the T merged nodes sorted by (key, length): the packed edge rows
+    int32 [4 * n_words] (char-major, n_words = T // 32 + 1), their per-word
+    popcounts int32 [4 * n_words], and the packed streaming marks int32
+    [n_words] (None without streaming support)."""
+    dev = _cuda_device(keys)
+    T = keys.shape[0]
+    n_words = T // 32 + 1
+    rank_words = torch.empty(4 * n_words, dtype=torch.int32, device=dev)
+    pops = torch.empty(4 * n_words, dtype=torch.int32, device=dev)
+    sgs_words = torch.empty(n_words, dtype=torch.int32, device=dev) if streaming else None
+    _launch("sbwt_finalize_tables", "finalize_tables", dev,
+            _check(keys, "keys", torch.int32, dev, (T, key_words(k))),
+            _check(lengths, "lengths", torch.int32, dev, (T,)),
+            _check(edges, "edges", torch.uint8, dev, (T,), 1), T, k, n_words,
+            _check(rank_words, "rank_words", torch.int32, dev),
+            _check(pops, "pops", torch.int32, dev),
+            _check(sgs_words, "sgs_words", torch.int32, dev) if streaming else 0)
+    return rank_words, pops, sgs_words

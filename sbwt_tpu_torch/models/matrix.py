@@ -171,7 +171,7 @@ def from_host_arrays(bits: np.ndarray, suffix_group_starts: np.ndarray | None, k
 
 
 def build_device_index(built, device, precalc_k: int = 0) -> MatrixIndex:
-    """Upload a host BuiltSBWT (sbwt_tpu/construct/inmemory.py)."""
+    """Upload a host BuiltSBWT (construct/inmemory.py)."""
     return from_host_arrays(built.bits, built.suffix_group_starts, built.k,
                             built.n_kmers, device, precalc_k)
 

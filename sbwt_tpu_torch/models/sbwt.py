@@ -1,15 +1,15 @@
 """High-level SBWT API of the port: the index object of all ten variants.
 
-The surface of sbwt_tpu/models/sbwt.py in PyTorch. Host construction is
-shared with the JAX package (sbwt_tpu/construct, which imports no JAX);
-the index tables live on an explicit ``device``. ``variant`` picks the
+The surface of sbwt_tpu/models/sbwt.py in PyTorch. ``build`` constructs on
+the host (the port's own construct/inmemory.py and external.py) and
+uploads; ``build_on_device`` constructs on the device (construct/device.py).
+The index tables live on an explicit ``device``. ``variant`` picks the
 subset-rank structure: plain-matrix keeps the fused-row ``MatrixIndex``,
 the nine compressed variants a ``GenericIndex`` over their own structure.
 On a CUDA device every query runs a hand-written kernel; on the CPU the
 plain PyTorch versions run. The ``search_batch`` /
 ``streaming_search_batch`` / ``has_streaming_query_support`` / ``k``
-surface is the one the shared query runner (sbwt_tpu/io/query_runner.py)
-drives.
+surface is the one the query runner (io/query_runner.py) drives.
 
 Streaming search runs the turbo successor engine once ``enable_turbo``
 has built its table (plain-matrix only), and the LF engine otherwise.
@@ -19,11 +19,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from sbwt_tpu.utils.dna import encode_query
-
 from .. import kernels
 from ..ops import search as engines
 from ..ops.turbo import TurboUnavailable, build_turbo, turbo_streaming_search
+from ..utils.dna import encode_query
 from ..utils.memory import device_free_bytes, select_turbo_arity
 from .matrix import from_host_arrays, from_packed_rows, with_precalc
 from .variants import build_generic_index
@@ -88,7 +87,7 @@ class SBWT:
     @classmethod
     def from_built(cls, built, device, precalc_k: int = 0,
                    variant: str = "plain-matrix") -> "SBWT":
-        """Index from a host BuiltSBWT (sbwt_tpu/construct/inmemory.py). A
+        """Index from a host BuiltSBWT (construct/inmemory.py). A
         compressed variant fills its precalc table over its own ranks."""
         bits = np.asarray(built.bits, dtype=bool)
         sgs = np.asarray(built.suffix_group_starts, dtype=bool)
@@ -125,7 +124,7 @@ class SBWT:
               add_reverse_complements: bool = False, variant: str = "plain-matrix",
               method: str = "auto", ram_bytes: int = 2 << 30, n_threads: int = 4,
               temp_dir: str | None = None, input_bases: int | None = None) -> "SBWT":
-        """Construct from sequences with the shared host builders, then
+        """Construct from sequences on the host (construct/), then
         upload to ``device`` and fill the precalc table there. method:
         'memory', 'external', or 'auto' (external when the k-mer spill would
         exceed half of ram_bytes). A generator of sequences needs
@@ -133,7 +132,7 @@ class SBWT:
         require_known_variant(variant)
         streamed = not hasattr(seqs, "__len__")
         if method == "auto":
-            from sbwt_tpu.utils import kmers_wide
+            from ..utils import kmers_wide
 
             if streamed and input_bases is None:
                 raise ValueError("auto method needs input_bases when seqs is a generator")
@@ -141,7 +140,7 @@ class SBWT:
             est = bases * 8 * kmers_wide.n_words(k) * (2 if add_reverse_complements else 1)
             method = "external" if est > ram_bytes // 2 else "memory"
         if method == "external":
-            from sbwt_tpu.construct.external import build_sbwt_external
+            from ..construct.external import build_sbwt_external
 
             built = build_sbwt_external(
                 seqs, k, streaming_support=streaming_support, min_abundance=min_abundance,
@@ -149,7 +148,7 @@ class SBWT:
                 ram_bytes=ram_bytes, n_threads=n_threads, temp_dir=temp_dir,
             )
         else:
-            from sbwt_tpu.construct.inmemory import build_sbwt
+            from ..construct.inmemory import build_sbwt
 
             built = build_sbwt(
                 list(seqs) if streamed else seqs, k, streaming_support=streaming_support,
@@ -161,6 +160,32 @@ class SBWT:
                                     built.k, built.n_kmers, device, precalc_k)
             return plain if variant == "plain-matrix" else plain.to_variant(variant)
         return cls.from_built(built, device, precalc_k, variant)
+
+    @classmethod
+    def build_on_device(cls, seqs, k: int, device, streaming_support: bool = True,
+                        precalc_k: int = 0, src_pad: int | None = None) -> "SBWT":
+        """Construct on ``device``: the whole pipeline (window packing, colex
+        sort, dedup, out-edge probes, dummy emission, rank-table packing)
+        runs there (construct/device.py), any k <= 255, with the build
+        kernels on a CUDA device and their plain versions on the CPU.
+        Raises ValueError when the input has more sources than an explicit
+        ``src_pad``; calling ``build`` instead is then the caller's choice.
+
+        The host packed rows (serialization, variant re-encoding) are
+        recovered from the device tables in one download of n / 2 bytes."""
+        from ..construct.device import build_sbwt_device
+
+        di = build_sbwt_device(seqs, k, device, streaming_support=streaming_support,
+                               precalc_k=precalc_k, src_pad=src_pad)
+        n = di.n_nodes
+        nb = (n + 7) // 8
+
+        def packed(words):  # int32 word column -> little-endian bytes
+            return words.contiguous().cpu().numpy().view(np.uint8)
+
+        rows = packed(di.rank_tbl[:, 0]).reshape(4, di.n_words * 4)
+        sgs = packed(di.sgs_tbl[:, 0])[:nb] if di.has_streaming else None
+        return cls(di, np.ascontiguousarray(rows[:, :nb]), n, sgs)
 
     def to_variant(self, variant: str) -> "SBWT":
         """Re-encode into another variant on the same device, carrying k,

@@ -9,12 +9,13 @@ import numpy as np
 import pytest
 import torch
 
-from sbwt_tpu.utils.dna import encode_query
 from sbwt_tpu_torch import kernels
+from sbwt_tpu_torch.construct import device as td
 from sbwt_tpu_torch.models import matrix as tm
 from sbwt_tpu_torch.models.sbwt import SBWT, VARIANT_NAMES
 from sbwt_tpu_torch.ops import search as ts
 from sbwt_tpu_torch.ops import turbo as tt
+from sbwt_tpu_torch.utils.dna import encode_query
 
 pytestmark = pytest.mark.cuda
 
@@ -86,3 +87,58 @@ def test_lf_kernels_equal_plain_versions(cuda, variant, k, p):
     ref = tm.precalc_fill_plain(di, q)
     tm.with_precalc(di, q)
     assert torch.equal(di.precalc, ref)
+
+
+def _same(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert (g is None and w is None) or torch.equal(g, w)
+
+
+@pytest.mark.parametrize("k", [4, 16, 30, 32, 33, 51, 64, 255])
+def test_build_kernels_equal_plain_versions(cuda, k):
+    """K19's four kernels against their plain versions, on reads with N,
+    an all-T stretch (a valid key of all ones at k = 16 j) and repeats."""
+    rng = np.random.default_rng(300 + k)
+    seqs = ["".join(rng.choice(list("ACGTN"), p=[0.245, 0.245, 0.245, 0.245, 0.02], size=700))
+            for _ in range(6)] + ["T" * (k + 40), "ACGT" * (k // 2 + 5)]
+    codes = td.prepare_device_codes(seqs, k, cuda)
+    keys, valid = kernels.pack_windows(codes, k)
+    _same((keys, valid), td.pack_windows_plain(codes, k))
+    keys = keys[valid]
+    keys = keys[td.colex_order(keys)]
+    dv = keys[td._differs_from_left(keys)]
+    probe = kernels.edge_src_probe(dv, k)
+    _same(probe, td.edge_src_probe_plain(dv, k))
+    src = dv[probe[2]]
+    dummies = kernels.emit_dummies(src, k)
+    _same(dummies, td.emit_dummies_plain(src, k))
+    dd, dl, _ = dummies
+    order = td.colex_order(dd, dl)
+    dd, dl = dd[order], dl[order]
+    head = td._differs_from_left(dd, dl)
+    a_keys = torch.cat([dd[head], dv])
+    a_len = torch.cat([dl[head], torch.full((len(dv),), k, dtype=torch.int32, device=cuda)])
+    a_edges = torch.from_numpy(rng.integers(0, 16, size=len(a_len)).astype(np.uint8)).to(cuda)
+    order = td.colex_order(a_keys, a_len)
+    a_keys, a_len = a_keys[order], a_len[order]
+    for streaming in (True, False):
+        _same(kernels.finalize_tables(a_keys, a_len, a_edges, k, streaming),
+              td.finalize_tables_plain(a_keys, a_len, a_edges, k, streaming))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("k,n_seqs,size", [(7, 1, 3000), (30, 3, 4000), (32, 40, 150),
+                                           (33, 2, 2000), (255, 1, 900), (8, 300, 20)])
+def test_device_build_equals_host_build(cuda, k, n_seqs, size):
+    rng = np.random.default_rng(400 + k)
+    seqs = ["".join(rng.choice(list("ACGT"), size=size)) for _ in range(n_seqs)]
+    a = SBWT.build_on_device(seqs, k, cuda, precalc_k=min(k, 5))
+    b = SBWT.build(seqs, k, cuda, precalc_k=min(k, 5))
+    da, db = a.device_index, b.device_index
+    assert (da.n_nodes, da.n_kmers, da.n_words) == (db.n_nodes, db.n_kmers, db.n_words)
+    for name in ("rank_tbl", "sgs_tbl", "C", "precalc"):
+        assert torch.equal(getattr(da, name), getattr(db, name)), name
+    np.testing.assert_array_equal(a._bits_packed, b._bits_packed)
+    np.testing.assert_array_equal(a._sgs_packed, b._sgs_packed)
+    assert all(kernels.LAUNCHES[op] > 0 for op in kernels.BUILD_OPS)

@@ -1,19 +1,28 @@
-"""The port never imports JAX, and CPU runs never launch a kernel.
+"""The port never imports JAX or the JAX package, and CPU runs never
+launch a kernel.
 
-A fresh interpreter imports every module of sbwt_tpu_torch and runs the
-CPU slice (build, precalc, turbo tables, streaming and k-mer search, file
-round trip) and a variant slice (build --variant, re-encoding, the LF
-engine, the variant's own precalc fill, its files); afterwards no ``jax``
-module may be loaded and every kernel launch counter must still be 0. The
-kernel loader's sources must exist, and a wrapper handed CPU tensors must
-refuse them rather than fall back.
+A fresh interpreter, started where only ``sbwt_tpu_torch`` is importable
+(the ``sbwt_tpu`` directory is not on its path), imports every module of
+the port and runs the CPU slice (build, precalc, turbo tables, streaming
+and k-mer search, file round trip), a variant slice (build --variant,
+re-encoding, the LF engine, the variant's own precalc fill, its files) and
+a device-build slice (``build_on_device`` on the CPU); afterwards no
+``jax`` and no ``sbwt_tpu`` module may be loaded and every kernel launch
+counter must still be 0. The kernel loader's sources must exist, and a
+wrapper handed CPU tensors must refuse them rather than fall back. The
+port's copies of the host modules must give the JAX package's bytes.
 """
+import gzip
+import importlib
+import io
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -33,7 +42,7 @@ for m in mods:
     importlib.import_module(m)
 from sbwt_tpu_torch.io.serialize import load, save
 from sbwt_tpu_torch.models.sbwt import SBWT
-from sbwt_tpu.utils.dna import encode_query
+from sbwt_tpu_torch.utils.dna import encode_query
 
 rng = np.random.default_rng(3)
 g = "".join(rng.choice(list("ACGT"), size=3000))
@@ -59,9 +68,20 @@ with tempfile.TemporaryDirectory() as d:
         for x in (vs, back, built):
             variants_same &= bool((x.streaming_search_batch(codes) == ans).all())
             variants_same &= bool((x.search_batch(codes[:, :14]) == kmers).all())
+    on_dev = SBWT.build_on_device([g, g[100:400] + "NNA" + g[7:90]], 14, "cpu", precalc_k=6)
+    host = SBWT.build([g, g[100:400] + "NNA" + g[7:90]], 14, "cpu", precalc_k=6)
+    device_build = bool((on_dev._bits_packed == host._bits_packed).all()
+                        and (on_dev._sgs_packed == host._sgs_packed).all()
+                        and (on_dev.streaming_search_batch(codes)
+                             == host.streaming_search_batch(codes)).all())
+    save(d + "/dev.sbwt", on_dev)
+    device_build &= bool((load(d + "/dev.sbwt", "cpu").search_batch(codes[:, :14])
+                          == host.search_batch(codes[:, :14])).all())
 print(json.dumps({
     "modules": len(mods),
     "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
+    "sbwt_tpu": sorted(m for m in sys.modules if m == "sbwt_tpu" or m.startswith("sbwt_tpu.")),
+    "device_build": device_build,
     "launches": kernels.LAUNCHES,
     "arity": arity,
     "hit": float((ans >= 0).mean()),
@@ -72,14 +92,19 @@ print(json.dumps({
 """
 
 
-def test_cpu_slice_imports_no_jax_and_launches_nothing():
+def test_cpu_slice_imports_no_jax_and_launches_nothing(tmp_path):
+    # only the port is importable: a directory holding a link to it, not the repository
+    (tmp_path / "site").mkdir()
+    (tmp_path / "site" / "sbwt_tpu_torch").symlink_to(PKG, target_is_directory=True)
     # one torch thread, as in the test workers (torch_state.py)
-    proc = subprocess.run([sys.executable, "-c", _SLICE], cwd=REPO, capture_output=True,
-                          text=True, timeout=300, env=dict(os.environ, OMP_NUM_THREADS="1"))
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=str(tmp_path / "site"))
+    proc = subprocess.run([sys.executable, "-c", _SLICE], cwd=tmp_path, capture_output=True,
+                          text=True, timeout=300, env=env)
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert out["jax"] == []
-    assert out["modules"] >= 12
+    assert out["jax"] == [] and out["sbwt_tpu"] == []
+    assert out["modules"] >= 28
+    assert out["device_build"]
     assert set(out["launches"]) == set(kernels.LAUNCHES)
     assert all(v == 0 for v in out["launches"].values())
     assert out["arity"] == 3 and out["roundtrip"] and out["variants"]
@@ -87,7 +112,10 @@ def test_cpu_slice_imports_no_jax_and_launches_nothing():
 
 
 def test_package_source_never_names_jax():
-    for path in PKG.rglob("*.py"):
+    """No import of jax, and none of the JAX package, in the port or in
+    chip_smoke.py (comments may cite sbwt_tpu/...:line as the counterpart)."""
+    jax_package = re.compile(r"^\s*(from|import)\s+sbwt_tpu(\.|\s|$)")
+    for path in [*PKG.rglob("*.py"), REPO / "chip_smoke.py"]:
         if kernels.BUILD_DIR in path.parents:
             continue  # build outputs, not package source
         for line in path.read_text().splitlines():
@@ -95,6 +123,7 @@ def test_package_source_never_names_jax():
             assert not (words[:1] == ["import"] and "jax" in words[1:2]), (path, line)
             assert not (words[:1] == ["from"] and words[1:2] == ["jax"]), (path, line)
             assert "import jax" not in line, (path, line)
+            assert not jax_package.match(line), (path, line)
 
 
 def test_loader_sources_exist():
@@ -171,3 +200,277 @@ def test_launch_counters_name_every_lf_instance():
     for fam in set(kernels.FAMILY.values()):
         src = "lf_stream.cu" if fam == "matrix" else f"lf_{fam}.cu"
         assert f"sbwt_lf_{fam}(" in (kernels.CSRC / src).read_text()
+
+
+# ---------------------------------------------------------------------------
+# The port's copies of the host modules against the JAX package's originals:
+# the same seeded input through both must give the same bytes.
+# ---------------------------------------------------------------------------
+
+
+def _mod(pkg, name):
+    return importlib.import_module(f"{pkg}.{name}")
+
+
+def _blob(*parts) -> bytes:
+    out = bytearray()
+    for p in parts:
+        if isinstance(p, np.ndarray):
+            p = repr((p.dtype.str, p.shape)).encode() + np.ascontiguousarray(p).tobytes()
+        elif not isinstance(p, (bytes, bytearray)):
+            p = repr(p).encode()
+        out += p + b"|"
+    return bytes(out)
+
+
+def _text(seed, n, alphabet="ACGT"):
+    return "".join(np.random.default_rng(seed).choice(list(alphabet), size=n))
+
+
+def _text_with_n(seed, n):
+    t = list(_text(seed, n))
+    t[n // 3] = t[n // 2] = "N"
+    return "".join(t)
+
+
+def _seqs():
+    return [_text(1, 900), _text(2, 400, "ACGTN"), _text(3, 60), _text(1, 900)[100:300]]
+
+
+def _dna(pkg, tmp):
+    m = _mod(pkg, "utils.dna")
+    t = _text(4, 500, "ACGTacgtNn-")
+    return _blob(m.encode(t), m.encode_query(t), m.reverse_complement_bytes(t.encode()),
+                 m.decode(m.encode(_text(5, 99))), m.reverse_complement(_text(6, 77)))
+
+
+def _kmer_ops(m, vals, k):
+    return [m.drop_first(vals, k), m.drop_last(vals), m.append_last(vals, 2),
+            m.append_from_base(m.append_last_base(vals), 3), m.first_char(vals, k),
+            m.last_char(vals), m.char_at_distance(vals, 3), m.prefix_of_length(vals, k, k // 2),
+            m.colex_argsort(vals), m.to_string(vals[0], k)]
+
+
+def _kmers(pkg, tmp):
+    m = _mod(pkg, "utils.kmers")
+    codes = _mod(pkg, "utils.dna").encode(_text_with_n(7, 700))
+    vals, valid = m.pack_windows(codes, 21)
+    one = m.pack_kmer(codes[:21].clip(min=0))
+    return _blob(vals, valid, one, m.unpack_kmer(one, 21), *_kmer_ops(m, vals[valid], 21))
+
+
+def _kmers_wide(pkg, tmp):
+    m = _mod(pkg, "utils.kmers_wide")
+    codes = _mod(pkg, "utils.dna").encode(_text_with_n(8, 700))
+    vals, valid = m.pack_windows(codes, 45)
+    vals = vals[valid]
+    srt = vals[m.colex_argsort(vals)]
+    one = m.pack_kmer(codes[:45].clip(min=0))
+    return _blob(m.n_words(45), vals, valid, one, m.unpack_kmer(one, 45), *_kmer_ops(m, vals, 45),
+                 m.rows_less(vals[1:], vals[:-1]), m.searchsorted_rows(srt, vals[:50]),
+                 m.isin_sorted(srt, m.append_last(vals[:50], 1)), *m.unique_rows_sorted(srt))
+
+
+def _built(b):
+    if hasattr(b, "bits_packed"):
+        return _blob(b.bits_packed, b.sgs_packed, b.n_cols, b.k, b.n_kmers)
+    return _blob(b.bits, b.suffix_group_starts, b.k, b.n_kmers)
+
+
+def _inmemory(pkg, tmp):
+    m = _mod(pkg, "construct.inmemory")
+    enc = _mod(pkg, "utils.dna").encode
+    return _blob(_built(m.build_sbwt(_seqs(), 9)), _built(m.build_sbwt(_seqs(), 40)),
+                 _built(m.build_sbwt(_seqs(), 12, streaming_support=False, min_abundance=2,
+                                     add_reverse_complements=True)),
+                 m.encode_rc(enc(_text(9, 50, "ACGTN"))),
+                 m.mark_suffix_groups(m.build_sbwt(_seqs(), 9).bits, 9))
+
+
+def _external(pkg, tmp):
+    """construct/external.py over construct/streaming.py and the native sorts."""
+    m = _mod(pkg, "construct.external")
+    enc = _mod(pkg, "utils.dna").encode
+    seqs = [enc(s) for s in _seqs()]
+    return _blob(
+        _built(m.build_sbwt_external(seqs, 13, ram_bytes=1 << 20, n_threads=2, temp_dir=str(tmp))),
+        _built(m.build_sbwt_external(iter(seqs), 37, add_reverse_complements=True,
+                                     ram_bytes=1 << 20, n_threads=1, temp_dir=str(tmp))))
+
+
+def _streaming(pkg, tmp):
+    """build_streaming with tiny chunks, so every cross-chunk carry runs."""
+    m = _mod(pkg, "construct.streaming")
+    km = _mod(pkg, "utils.kmers")
+    tf = _mod(pkg, "utils.tempfiles").TempFileManager()
+    tf.set_dir(str(tmp))
+    vals, valid = km.pack_windows(_mod(pkg, "utils.dna").encode(_text(10, 3000)), 15)
+    distinct = np.unique(vals[valid])
+    path = str(tmp / f"distinct_{pkg}.bin")
+    distinct.tofile(path)
+    return _built(m.build_streaming(path, len(distinct), 15, True, ram_bytes=1 << 20,
+                                    n_threads=2, tfm=tf, chunk_records=257))
+
+
+def _seqio(pkg, tmp):
+    m = _mod(pkg, "io.seqio")
+    seqs = _seqs() + [_text(11, 130, "ACGTacgtN")]
+    fa, fq, gz = tmp / "a.fna", tmp / "b.fastq", tmp / "c.fna.gz"
+    fa.write_text("".join(f">s{i} x\n{s[:70]}\n{s[70:]}\n" for i, s in enumerate(seqs)))
+    fq.write_text("".join(f"@r{i}\n{s}\n+\n{'I' * len(s)}\n" for i, s in enumerate(seqs)))
+    with gzip.open(gz, "wt") as f:
+        f.write(fa.read_text())
+    rc = tmp / f"rc_{pkg}.fna"
+    m.create_reverse_complement_files([str(fa)], [str(rc)])
+    parts = [rc.read_bytes()]
+    for path in (fa, fq, gz):
+        fmt = m.figure_out_file_format(str(path))
+        parts += [fmt.format, fmt.gzipped, *m.read_sequences(str(path)),
+                  *m.stream_build_codes([str(path)]),
+                  *[b for batch in m.iter_sequence_batches(str(path), max_reads=2) for b in batch]]
+    return _blob(*parts)
+
+
+def _sdsl(pkg, tmp):
+    m = _mod(pkg, "io.sdsl")
+    rng = np.random.default_rng(12)
+    bits = rng.random(5000) < 0.3
+    sparse = rng.random(5000) < 0.02
+    text = np.frombuffer(_text(13, 3000, "ACGT$").encode(), dtype=np.uint8)
+    f = io.BytesIO()
+    m.write_bit_vector(f, bits)
+    m.write_bit_vector_packed(f, np.packbits(bits, bitorder="little"), len(bits))
+    m.write_rank_support_v(f, bits)
+    m.write_rank_support_v5(f, bits)
+    m.write_int_vector64(f, m.rank_v5_payload_packed(np.packbits(bits, bitorder="little"), 5000))
+    m.write_select_mcl(f, sparse, 0)
+    m.write_rrr(f, bits)
+    m.write_sd(f, sparse)
+    m.write_mef(f, bits)
+    m.write_mef_rank_support(f, m.mef_encode(bits)["wl"])
+    m.write_wt_blcd(f, text, compressed=False)
+    m.write_wt_blcd(f, text, compressed=True)
+    data = f.getvalue()
+    f.seek(0)
+    back = [m.read_bit_vector(f), m.read_bit_vector_packed(f)[0]]
+    return _blob(data, *back, m.mef_optimize_w(bits))
+
+
+def _native(pkg, tmp):
+    m = _mod(pkg, "native")
+    assert m.available()
+    rng = np.random.default_rng(14)
+    vals = rng.integers(-1, 10**9, size=300)
+    lens = np.array([0, 100, 1, 199], dtype=np.int64)
+    codes = _mod(pkg, "utils.dna").encode(_text_with_n(15, 4000))
+    raw, srt, ded = (str(tmp / f"{n}_{pkg}.bin") for n in ("raw", "sorted", "dedup"))
+    n_spilled = m.spill_windows_u64(codes, 19, raw, n_threads=2)
+    m.em_sort_u64_file(raw, srt, str(tmp), ram_bytes=1 << 16, n_threads=2)
+    n_kept = m.em_dedup_count_u64_file(srt, ded, 1, 2**62)
+    packed = m.pack_windows_u64(codes, 19)
+    distinct = np.fromfile(ded, dtype=np.uint64)
+    return _blob(m.format_ranks(vals, lens), n_spilled, n_kept, distinct, *packed,
+                 *m.merge_isin_u64(distinct, np.sort(distinct[::3] ^ np.uint64(1))))
+
+
+def _query_runner(pkg, tmp):
+    m = _mod(pkg, "io.query_runner")
+    reads = [s.encode() for s in _seqs()] + [b"", b"acgtNNAC"]
+    rng = np.random.default_rng(16)
+    rows = [rng.integers(-1, 5000, size=n) for n in (5, 0, 71, 1)]
+    return _blob(*m.encode_reads(reads), *m.encode_reads(reads[:2], pad_len=1024),
+                 m.format_answers(rows), m.format_answers([]))
+
+
+def _serialize(pkg, tmp):
+    """An index built, saved in both formats and re-read, by each package's own
+    facade and writers; plain-matrix and one compressed variant."""
+    facade, ser = _mod(pkg, "models.sbwt"), _mod(pkg, "io.serialize")
+    dev = () if pkg == "sbwt_tpu" else ("cpu",)
+    parts = []
+    for variant in ("plain-matrix", "mef-split"):
+        sb = facade.SBWT.build(_seqs(), 10, *dev, precalc_k=3, variant=variant)
+        for fmt in ("cpp", "native"):
+            path = str(tmp / f"{pkg}_{variant}.{fmt}")
+            parts += [ser.save(path, sb, fmt), open(path, "rb").read()]
+            back = ser.load(path, *dev)
+            parts += [back.variant, back.k, back.number_of_kmers(), np.asarray(back.bits)]
+    f = io.BytesIO()
+    parts += [ser.write_string(f, "plain-matrix"), ser.write_int64_vector(f, np.arange(7)),
+              f.getvalue(), ser.SBWT_VERSION, ser.NATIVE_MAGIC]
+    return _blob(*parts)
+
+
+def _small_utils(pkg, tmp):
+    """utils/logging.py, utils/tempfiles.py and the progress ticker."""
+    log, tf = _mod(pkg, "utils.logging"), _mod(pkg, "utils.tempfiles")
+    out = io.StringIO()
+    progress = _mod(pkg, "utils.profiling").ProgressPrinter(37, n_steps=10, stream=out)
+    for _ in range(37):
+        progress.job_done()
+    before = log.get_log_level()
+    log.set_log_level(log.LogLevel.MINOR)
+    levels = [int(v) for v in log.LogLevel], int(log.get_log_level())
+    log.set_log_level(before)
+    manager = tf.TempFileManager()
+    manager.set_dir(str(tmp))
+    name = manager.create_filename("pre_", ".suf")
+    open(name, "w").close()
+    shape = (os.path.dirname(name) == manager.get_dir(), os.path.basename(name)[:4], name[-4:])
+    manager.delete_file(name)
+    return _blob(out.getvalue(), levels, shape, os.path.exists(name))
+
+
+_COPIED = {"utils.dna": _dna, "utils.kmers": _kmers, "utils.kmers_wide": _kmers_wide,
+           "utils.logging+tempfiles+profiling": _small_utils, "native": _native,
+           "io.sdsl": _sdsl, "io.seqio": _seqio, "io.query_runner": _query_runner,
+           "io.serialize": _serialize, "construct.inmemory": _inmemory,
+           "construct.external": _external, "construct.streaming": _streaming}
+
+
+@pytest.mark.parametrize("module", list(_COPIED))
+def test_copied_host_module_gives_the_jax_packages_bytes(module, tmp_path):
+    want = _COPIED[module]("sbwt_tpu", tmp_path)
+    got = _COPIED[module]("sbwt_tpu_torch", tmp_path)
+    assert len(want) > 100
+    assert got == want
+
+
+def test_native_library_builds_into_the_ports_build_directory():
+    from sbwt_tpu_torch import native
+
+    assert native.available()
+    assert Path(native._so_path()).parent == kernels.BUILD_DIR
+    assert not list((PKG / "native").glob("*.so"))
+
+
+def test_streaming_build_shuts_its_probe_pool_down_on_error(tmp_path, monkeypatch):
+    """Fault F3 of the JAX package's construct/streaming.py, closed in the
+    port's copy: an exception in phase 1 leaves no probe thread behind."""
+    from concurrent import futures
+
+    from sbwt_tpu_torch.construct import streaming
+    from sbwt_tpu_torch.utils.tempfiles import TempFileManager
+
+    pools = []
+
+    class Pool(futures.ThreadPoolExecutor):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            pools.append(self)
+
+    monkeypatch.setattr(futures, "ThreadPoolExecutor", Pool)
+
+    def boom(self, y):
+        raise OSError("probe failed")
+
+    monkeypatch.setattr(streaming._ProbeCursor, "probe", boom)
+    distinct = np.arange(1, 4000, 7, dtype=np.uint64) << np.uint64(34)
+    path = str(tmp_path / "distinct.bin")
+    distinct.tofile(path)
+    tf = TempFileManager()
+    tf.set_dir(str(tmp_path))
+    with pytest.raises(OSError, match="probe failed"):
+        streaming.build_streaming(path, len(distinct), 15, True, ram_bytes=1 << 20, n_threads=2,
+                                  tfm=tf, chunk_records=100)
+    assert len(pools) == 1 and pools[0]._shutdown
