@@ -7,8 +7,8 @@ the bench's real size, every kernel against its plain PyTorch version.
 Phases, one line each; any failure exits nonzero:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: nvcc compiles K1-K4, K14 and K19 from sbwt_tpu_torch/csrc, one
-   process per source;
+2. build: nvcc compiles K1-K4, K14, K18 and K19 from sbwt_tpu_torch/csrc,
+   one process per source;
 3. main path (launches counted): ``SBWT.build`` of a 4 Mbp uniform random
    genome (numpy seed 20260817, as bench.py) at k = 30 with precalc_k = 13
    (K1's fill), ``enable_turbo(arity=3)`` (K2, K3),
@@ -19,23 +19,49 @@ Phases, one line each; any failure exits nonzero:
    of both 1M-read batches on the LF engine (K14 over the variant's ranks,
    K15-K17), whose answers must equal K4's, ``search_batch`` of 1M 30-mers
    (the variant's K1 search) and the variant's K1 fill at p = 12;
-5. device build (launches counted): ``SBWT.build_on_device`` (K19) of the
+5. variant turbo (launches counted): for each of the nine compressed
+   variants, ``enable_turbo(3)`` from the variant's own ranks (succ1 of its
+   rank type, then compose), whose table must be byte-equal to
+   plain-matrix's, and ``streaming_search_batch`` of both batches through
+   K4 of its rank type, equal to plain-matrix's answers; one table at a
+   time. For all ten variants, ``partial_search_batch`` and
+   ``forward_batch`` of 1M lanes, equal to plain-matrix's;
+6. wide turbo (launches counted): the same genome index forced onto the
+   wide (int64) tier through ``from_packed_rows_wide`` (K18: the wide K1
+   fill at p = 13), its LF answers (wide K14) and, after
+   ``enable_turbo`` (wide succ1 and seed bits: an int64 [n, 4] table), its
+   turbo answers (wide K4) on both batches, equal to the narrow ones;
+7. wide giant (launches counted): the complete order-16 de Bruijn graph,
+   4,294,967,297 columns (a 6.44 GB rank table and a 1.07 GB suffix-group
+   table on the card), from its packed pattern through ``SBWT.from_packed``,
+   which must route to the wide index by itself; the pattern is first held
+   to the host constructor at order 8. ``search_batch`` of 1M 16-mers,
+   ``streaming_search_batch`` of 1M reads of 100 bp and of the same reads
+   with an N every 20-40 bases, ``partial_search_batch`` and
+   ``forward_batch`` of 1M lanes, every answer against the closed form
+   1 + sum code_i * 4^i; ``enable_turbo(None)`` must find no room for a
+   table (137 GB) and leave the LF engine;
+8. device build (launches counted): ``SBWT.build_on_device`` (K19) of the
    same genome with precalc_k = 13, whose tables, counts and p = 13 table
    must equal phase 3's host-built index word for word and whose turbo
    answers to the hit98 batch must equal phase 3's; then of the first
    200,000 reads of the hit98 batch as separate sequences, equal to the
    host build of the same reads;
-6. kernels against their plain versions on the card, at the main path's
+9. kernels against their plain versions on the card, at the main path's
    shapes, with times: K1 on plain-matrix (the p = 13 fill, the 1M
    30-mers), K2, K3, K4 on each whole 1M-read batch; K14 of each variant
    on the first 2^16 reads of each mix and on a batch with lowercase, N
    and short lengths; each variant's K1 search on the 1M 30-mers and fill
    at p = 8, and its p = 12 table of phase 4 against the plain version's;
    K19's four kernels at the genome build's shapes, the build's sorts, and
-   the build's time split by stage;
-7. the CLI (``python -m sbwt_tpu_torch build`` / ``build-variant`` /
+   the build's time split by stage; succ1 and K4 of each compressed
+   variant and partial_search of all eleven rank types; the wide kernels
+   at the 4M-column index (whole batches, beside the narrow times) and at
+   the giant's size (K14 on 2^16 reads, the others on 1M lanes; the giant
+   can have no table, so wide K4 is held at 4M columns only);
+10. the CLI (``python -m sbwt_tpu_torch build`` / ``build-variant`` /
    ``search``) on the reference's golden inputs, byte-equal to the golden
-   output, on plain-matrix (turbo) and rrr-split (LF).
+   output, on plain-matrix (turbo) and rrr-split (LF, turbo3 and auto).
 
 It prints one JSON line of per-kernel results (launches on its path, error
 against the plain version, time, the plain version's time, and the least
@@ -48,13 +74,17 @@ comparison is exact (max_abs_err must be 0). At its end no ``jax`` and no
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import re
+import resource
 import subprocess
 import sys
 import tempfile
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -87,6 +117,11 @@ VARIANTS = ("plain-matrix", "rrr-matrix", "mef-matrix", "plain-split", "rrr-spli
 GENERIC_P = 12  # the largest precalc a compressed variant fills itself
 PLAIN_READS = 1 << 16  # reads per mix that K14's plain version answers
 BUILD_READS = 200_000  # reads of the hit98 batch that the device build takes as sequences
+COMPRESSED = VARIANTS[1:]
+WIDE = "wide-matrix"  # the rank type of the int64 tier (kernels.WIDE)
+GIANT_K = 16  # the complete order-16 de Bruijn graph: 4^16 + 1 columns
+GIANT_P = 8  # the reference's default prefix length (sbwt_build.cpp -p 8)
+TURBO_PLAIN_READS = {"hit98": 1 << 16, "hit0": 1 << 14}  # reads K4's plain version answers per variant
 
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s, and the float32 rate outside the
 # tensor cores, which stands in for the integer ALU rate of these kernels
@@ -98,10 +133,10 @@ KERNELS = {
     "precalc_fill[plain-matrix]": ("sbwt_tpu_torch/csrc/lf_stream.cu",
                                    "sbwt_tpu/models/matrix.py:267"),
     "kmer_search[plain-matrix]": ("sbwt_tpu_torch/csrc/lf_stream.cu", "sbwt_tpu/ops/search.py:83"),
-    "succ1": ("sbwt_tpu_torch/csrc/succ_table.cu", "sbwt_tpu/ops/turbo.py:294"),
+    "succ1": ("sbwt_tpu_torch/csrc/succ_table.cuh", "sbwt_tpu/ops/turbo.py:294"),
     "succ_compose": ("sbwt_tpu_torch/csrc/succ_table.cu", "sbwt_tpu/ops/turbo.py:342"),
     "seed_bits": ("sbwt_tpu_torch/csrc/seed_bits.cu", "sbwt_tpu/ops/turbo.py:271"),
-    "turbo_stream": ("sbwt_tpu_torch/csrc/turbo_stream.cu", "sbwt_tpu/ops/turbo.py:610"),
+    "turbo_stream": ("sbwt_tpu_torch/csrc/turbo_stream.cuh", "sbwt_tpu/ops/turbo.py:610"),
 }
 # K19, the on-device build (csrc/build_sbwt.cu)
 BUILD_KERNELS = {
@@ -121,8 +156,37 @@ for _v in VARIANTS:
         LF_KERNELS[f"kmer_search[{_v}]"] = (_src, "sbwt_tpu/ops/search.py:83")
         LF_KERNELS[f"precalc_fill[{_v}]"] = (_src, "sbwt_tpu/models/variants.py:125")
 
+# turbo from a compressed variant's own ranks, and partial_search on every
+# narrow rank type: instances of the templates in succ_table.cuh,
+# turbo_stream.cuh and lf_stream.cuh
+VARIANT_TURBO_KERNELS = {}
+for _v in VARIANTS:
+    _fam = _v.split("-")[1]
+    _src = "sbwt_tpu_torch/csrc/" + ("lf_stream.cu" if _fam == "matrix" else f"lf_{_fam}.cu")
+    if _v != "plain-matrix":
+        VARIANT_TURBO_KERNELS[f"succ1[{_v}]"] = (_src, "sbwt_tpu/ops/turbo.py:294")
+        VARIANT_TURBO_KERNELS[f"turbo_stream[{_v}]"] = (_src, "sbwt_tpu/ops/turbo.py:610")
+    VARIANT_TURBO_KERNELS[f"partial_search[{_v}]"] = (_src, "sbwt_tpu/ops/search.py:291")
+# K18, the wide tier: the same templates at 64-bit positions
+_WIDE_SRC = "sbwt_tpu_torch/csrc/lf_wide.cu"
+WIDE_KERNELS = {
+    f"precalc_fill[{WIDE}]": (_WIDE_SRC, "sbwt_tpu/models/wide.py:157"),
+    f"kmer_search[{WIDE}]": (_WIDE_SRC, "sbwt_tpu/ops/search.py:83"),
+    f"lf_stream[{WIDE}]": (_WIDE_SRC, "sbwt_tpu/ops/search.py:185"),
+    f"partial_search[{WIDE}]": (_WIDE_SRC, "sbwt_tpu/ops/search.py:291"),
+    f"succ1[{WIDE}]": (_WIDE_SRC, "sbwt_tpu/ops/turbo.py:209"),
+    f"seed_bits[{WIDE}]": ("sbwt_tpu_torch/csrc/seed_bits.cu", "sbwt_tpu/ops/turbo.py:271"),
+    f"turbo_stream[{WIDE}]": (_WIDE_SRC, "sbwt_tpu/ops/turbo.py:661"),
+}
+# what the giant's path launches: it can have no table, so no K4 and no seed bits
+GIANT_KERNELS = [f"{op}[{WIDE}]" for op in
+                 ("precalc_fill", "kmer_search", "lf_stream", "partial_search", "succ1")]
 
-ALL_KERNELS = {**KERNELS, **LF_KERNELS, **BUILD_KERNELS}
+# plain-matrix's succ1 and K4 keep, in this script's output, the bare names
+# they had as the only instances; their launch counters are named as the others'
+COUNTER = {"succ1": "succ1[plain-matrix]", "turbo_stream": "turbo_stream[plain-matrix]"}
+
+ALL_KERNELS = {**KERNELS, **LF_KERNELS, **BUILD_KERNELS, **VARIANT_TURBO_KERNELS, **WIDE_KERNELS}
 
 
 class SmokeFailure(Exception):
@@ -136,6 +200,20 @@ def check(cond: bool, what: str) -> None:
 
 def say(phase: str, **fields) -> None:
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
+
+
+def ptxas_lines(log: str) -> list:
+    """(entry point, registers, spill bytes stored and loaded) of every
+    kernel in nvcc's ``-Xptxas -v`` output."""
+    out, entry, spill = [], "?", 0
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            entry = m.group(1)
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            spill = int(m.group(1)) + int(m.group(2))
+        elif m := re.search(r"Used (\d+) registers", line):
+            out.append((entry, int(m.group(1)), spill))
+    return out
 
 
 def nvidia_smi_line() -> str:
@@ -170,6 +248,27 @@ def timed_ms(fn):
     return out, start.elapsed_time(end)
 
 
+@contextlib.contextmanager
+def host_seconds(*functions):
+    """While the block runs, the (module, name) functions add the host
+    seconds of their calls to the one-element list that is yielded."""
+    total = [0.0]
+
+    def timed(fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                total[0] += time.perf_counter() - t0
+        return call
+
+    with contextlib.ExitStack() as stack:
+        for module, name in functions:
+            stack.enter_context(mock.patch.object(module, name, timed(getattr(module, name))))
+        yield total
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
@@ -193,10 +292,31 @@ def search_work(structure_bytes: int, B: int, k: int):
     return structure_bytes + B * (k + 8 + 4), B * LF_OPS
 
 
-def stream_work(B: int, L: int, k: int):
-    """K4, K14: codes and lengths in, answers out. The table rows a read
-    walks depend on the data and are left out."""
-    return B * L + 4 * B + B * (L - k + 1) * 4, B * (L - k + 1) * LF_OPS
+def stream_work(B: int, L: int, k: int, pos_bytes: int = 4):
+    """K4, K14: codes and lengths in, answers out (8 bytes each on the wide
+    tier). The table rows a read walks depend on the data and are left out."""
+    return B * L + 4 * B + B * (L - k + 1) * pos_bytes, B * (L - k + 1) * LF_OPS
+
+
+def partial_work(lengths: torch.Tensor, matched: torch.Tensor, pos_bytes: int = 4):
+    """partial_search: the codes a lane reads before it stops (its matched
+    chars and, short of its length, the char that ended it) and the lengths
+    in; l, r and the matched length out."""
+    B = len(lengths)
+    codes_read = int(torch.minimum(matched.long() + 1, lengths.long()).sum())
+    return codes_read + 4 * B + B * (2 * pos_bytes + 4), B * LF_OPS
+
+
+def seed_bits_work(precalc: torch.Tensor, out: torch.Tensor, p: int):
+    """seed_bits: the left bound of every precalc interval (the kernel reads
+    no right bound) in, the packed bits out."""
+    return nbytes(precalc[:, 0], out), 4 ** (p + 1) * 4
+
+
+def succ_work(structure_bytes: int, sgs_tbl, out):
+    """succ1 over all columns: the structure and the marks read once, the
+    successors written; four rank pairs a column."""
+    return structure_bytes + nbytes(sgs_tbl, out), out.numel() * LF_OPS
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -304,6 +424,263 @@ def run_variants_path(sbwt, runs):
         say("variant", name=v, structure_bytes=vs.structure_size_in_bytes(),
             to_variant_seconds=round(build_s, 3), **fields)
     return out
+
+
+def lane_batch(runs, seed: int = 31, width: int = 40):
+    """1M lanes for partial_search and forward: the first ``width`` chars of
+    the hit98 reads with lengths 0..width, and random nodes and chars."""
+    rng = np.random.default_rng(seed)
+    codes = np.ascontiguousarray(runs["hit98"][0][:, :width])
+    lengths = rng.integers(0, width + 1, size=len(codes)).astype(np.int32)
+    return codes, lengths, rng
+
+
+def run_variant_turbo_path(sbwt, runs, variants):
+    """Turbo from each compressed variant's own ranks, through the entry
+    points: ``enable_turbo(3)`` (succ1 of the variant's rank type, then
+    compose), whose table must be byte-equal to plain-matrix's, and
+    ``streaming_search_batch`` of both whole batches through K4 of that rank
+    type, equal to plain-matrix's answers. One table (4.1 GB) at a time.
+    ``partial_search_batch`` and ``forward_batch`` of 1M lanes on all ten
+    variants, equal to plain-matrix's."""
+    plain_tbl = sbwt._turbo.tbl
+    codes, lengths, rng = lane_batch(runs)
+    n = sbwt.number_of_subsets()
+    nodes = rng.integers(0, n, size=len(codes))
+    chars = rng.integers(0, 4, size=len(codes))
+    ref_partial = sbwt.partial_search_batch(codes, lengths)
+    ref_forward = sbwt.forward_batch(nodes, chars)
+    check(int(ref_partial[2].max()) > K and int((ref_partial[2] == lengths).sum()) > 0
+          and int((ref_partial[2] < lengths).sum()) > 0, "partial_search: lanes all alike")
+    check(0.2 < float((ref_forward >= 0).mean()) < 0.3, "forward: a quarter of the edges exist")
+    for v, (vs, _) in variants.items():
+        fields = {}
+        if v != "plain-matrix":
+            t0 = time.perf_counter()
+            check(vs.enable_turbo(arity=ARITY) == ARITY, f"{v}: enable_turbo arity")
+            torch.cuda.synchronize()
+            fields["enable_turbo_seconds"] = round(time.perf_counter() - t0, 4)
+            check(torch.equal(vs._turbo.tbl, plain_tbl),
+                  f"{v}: turbo table differs from plain-matrix's")
+            check(torch.equal(vs._turbo.seed_bits, sbwt._turbo.seed_bits), f"{v}: seed bits differ")
+            for mix, (reads, ans) in runs.items():
+                t0 = time.perf_counter()
+                got = vs.streaming_search_batch(reads)
+                fields[f"{mix}_host_seconds"] = round(time.perf_counter() - t0, 4)
+                check(np.array_equal(got, ans), f"{v} {mix}: turbo answers differ from plain-matrix's")
+                del got
+            vs._turbo = None  # the next variant's table takes its place
+            torch.cuda.empty_cache()
+        got = vs.partial_search_batch(codes, lengths)
+        check(all(np.array_equal(a, b) for a, b in zip(got, ref_partial)),
+              f"{v}: partial_search differs from plain-matrix's")
+        check(np.array_equal(vs.forward_batch(nodes, chars), ref_forward),
+              f"{v}: forward differs from plain-matrix's")
+        say("variant_turbo", name=v, table="byte-equal" if fields else "main path's", **fields)
+    return codes, lengths
+
+
+def run_wide_turbo_path(dev, sbwt, runs, lanes):
+    """The main path's 4M-column index forced onto the wide tier: the wide
+    K1 fill at p = 13, wide K14 and, after ``enable_turbo``, wide K4 on both
+    whole batches, int64 answers equal to the narrow ones. Returns the wide
+    SBWT with its table."""
+    from sbwt_tpu_torch.models.sbwt import SBWT
+    from sbwt_tpu_torch.models.wide import WideMatrixIndex, from_packed_rows_wide
+    from sbwt_tpu_torch.ops.turbo import WideTurboIndex
+
+    di = sbwt.device_index
+    n = di.n_nodes
+    words = di.rank_tbl[:, 0].contiguous().cpu().numpy().view(np.uint32).reshape(4, di.n_words)
+    sgs_words = di.sgs_tbl[:, 0].contiguous().cpu().numpy().view(np.uint32)
+    t0 = time.perf_counter()
+    wide = from_packed_rows_wide(words, n, sgs_words, K, di.n_kmers, dev, precalc_k=PRECALC_K)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check(isinstance(wide, WideMatrixIndex) and wide.precalc.dtype == torch.int64
+          and wide.C.dtype == torch.int64, "forced-wide index: types")
+    check(torch.equal(wide.precalc, di.precalc.long()) and torch.equal(wide.C, di.C.long()),
+          "forced-wide index: precalc or C differ from the narrow ones")
+    wsb = SBWT(wide, sbwt._bits_packed, n, sbwt._sgs_packed)
+    km = np.ascontiguousarray(runs["hit98"][0][:, :K])
+    first = wsb.search_batch(km)
+    check(first.dtype == np.int64 and np.array_equal(first, runs["hit98"][1][:, 0]),
+          "forced-wide index: search_batch differs from the narrow one")
+    fields = {}
+    for engine in ("lf", "turbo"):
+        if engine == "turbo":
+            check(wsb.enable_turbo(arity=ARITY) == 1 and isinstance(wsb._turbo, WideTurboIndex)
+                  and wsb._turbo.tbl.dtype == torch.int64 and tuple(wsb._turbo.tbl.shape) == (n, 4),
+                  "forced-wide index: build_turbo did not give the arity-1 int64 table")
+            # the first successors in the narrow arity-3 rows col * 64 + c * 16
+            narrow1 = sbwt._turbo.tbl.view(n, 4, 16, 4)[:, :, 0, 0]
+            check(torch.equal(wsb._turbo.tbl, narrow1.long()),
+                  "forced-wide index: successor table differs from the narrow one")
+            check(torch.equal(wsb._turbo.seed_bits, sbwt._turbo.seed_bits),
+                  "forced-wide index: seed bits differ from the narrow ones")
+        for mix, (reads, ans) in runs.items():
+            t0 = time.perf_counter()
+            got = wsb.streaming_search_batch(reads)
+            fields[f"{engine}_{mix}_host_seconds"] = round(time.perf_counter() - t0, 4)
+            check(got.dtype == np.int64 and np.array_equal(got, ans),
+                  f"forced-wide index, {engine} {mix}: answers differ from the narrow K4's")
+            del got
+    got = wsb.partial_search_batch(*lanes)
+    check(all(np.array_equal(a, b) for a, b in zip(got, sbwt.partial_search_batch(*lanes))),
+          "forced-wide index: partial_search differs from the narrow one")
+    say("wide_turbo", n_columns=n, build_seconds_with_upload_and_precalc=round(seconds, 4),
+        structure_bytes=wsb.structure_size_in_bytes(),
+        table_bytes=nbytes(wsb._turbo.tbl), precalc_bytes=nbytes(wide.precalc), **fields)
+    return wsb
+
+
+def complete_dbg_packed(order: int):
+    """The SBWT of the complete de Bruijn graph of that order, byte-packed:
+    columns are the root and all 4^order k-mers in colex order. Suffix groups
+    are runs of 4 (k-mers that differ in their first char only), and only
+    each group's first column carries its four out-edges: k-mer indices
+    m % 4 == 0, columns j % 4 == 1, the byte 0x22 in every row. The last
+    byte holds only the last column (j % 4 == 0). Returns (rows [4, nb],
+    suffix-group starts [nb], columns, k-mers)."""
+    n_kmers = 4**order
+    n = n_kmers + 1
+    row = np.full((n + 7) // 8, 0x22, dtype=np.uint8)
+    row[-1] = 0
+    sgs = row.copy()
+    sgs[0] = 0x23  # the root column is always marked
+    return np.stack([row] * 4), sgs, n, n_kmers
+
+
+def check_dbg_pattern(order: int = 8) -> None:
+    """The packed pattern against the host constructor on all 4^order k-mers."""
+    from sbwt_tpu_torch.construct.inmemory import build_from_kmers
+    from sbwt_tpu_torch.utils import kmers as km
+
+    vals = np.arange(4**order)
+    codes = ((vals[:, None] >> (2 * np.arange(order))) & 3).astype(np.int8)
+    packed = np.array([km.pack_kmer(row) for row in codes], dtype=np.uint64)
+    built = build_from_kmers(np.unique(packed), order)
+    rows, sgs, n, _ = complete_dbg_packed(order)
+    check(built.bits.shape == (4, n), "order-8 pattern: column count")
+    check(np.array_equal(np.packbits(built.bits, axis=1, bitorder="little"), rows)
+          and np.array_equal(np.packbits(built.suffix_group_starts, bitorder="little"), sgs),
+          "order-8 pattern differs from the host constructor's index")
+    say("wide_giant", pattern=f"order {order} equals the host constructor's index")
+
+
+def dbg_oracle(codes: torch.Tensor, k: int) -> torch.Tensor:
+    """Column of every k-window of codes [B, L] in the complete graph:
+    1 + sum_i code_i * 4^i, or -1 where the window holds a code < 0."""
+    P = codes.shape[1] - k + 1
+    col = torch.ones((codes.shape[0], P), dtype=torch.int64, device=codes.device)
+    bad = torch.zeros_like(col, dtype=torch.bool)
+    for i in range(k):
+        c = codes[:, i : i + P].long()
+        bad |= c < 0
+        col += c.clamp(min=0) << (2 * i)
+    return torch.where(bad, -1, col)
+
+
+def giant_batches(dev):
+    """The giant's queries, made from a seed: 1M reads of 100 bp, the same
+    with an N every 20-40 bases, and 1M prefix lengths 1..16."""
+    rng = np.random.default_rng(4)
+    reads = rng.integers(0, 4, size=(N_READS, READ_LEN), dtype=np.int8)
+    reads[0, :] = 0  # AAAA...: column 1
+    reads[1, :] = 3  # TTTT...: the last column
+    with_n = reads.copy()
+    pos = np.cumsum(rng.integers(20, 41, size=(N_READS, READ_LEN // 20)), axis=1) - 10
+    rows = np.broadcast_to(np.arange(N_READS)[:, None], pos.shape)
+    keep = pos < READ_LEN
+    with_n[rows[keep], pos[keep]] = -1
+    prefix_len = rng.integers(1, GIANT_K + 1, size=N_READS).astype(np.int32)
+    return reads, with_n, prefix_len
+
+
+def run_wide_giant_path(dev):
+    """The slice's path at full width: the complete order-16 de Bruijn
+    graph, 4^16 + 1 columns, through ``SBWT.from_packed``, every answer held
+    to the closed form. Returns the SBWT and the query batches."""
+    from sbwt_tpu_torch.models import wide
+    from sbwt_tpu_torch.models.sbwt import SBWT
+    from sbwt_tpu_torch.models.wide import WideMatrixIndex
+    from sbwt_tpu_torch.ops import bitvector
+
+    check_dbg_pattern()
+    t0 = time.perf_counter()
+    rows, sgs, n, n_kmers = complete_dbg_packed(GIANT_K)
+    pattern_s = time.perf_counter() - t0
+    check(n == 4_294_967_297, "giant: column count")
+    t0 = time.perf_counter()
+    with host_seconds((bitvector, "rank_table_from_words_wide"), (wide, "sgs_pair_table"),
+                      (wide, "c_array_from_rows")) as tables_s:
+        sb = SBWT.from_packed(rows, n, sgs, GIANT_K, n_kmers, dev, precalc_k=GIANT_P)
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    del rows, sgs
+    di = sb.device_index
+    check(isinstance(di, WideMatrixIndex), f"giant: from_packed gave a {type(di).__name__}")
+    C = sb.C
+    check(C.tolist() == [1 + c * (n_kmers // 4) for c in range(4)] and int(C[3]) > 2**31,
+          f"giant: C = {C.tolist()}")
+    say("wide_giant", n_columns=n, k=GIANT_K, precalc_k=GIANT_P, n_words=di.n_words,
+        rank_tbl_bytes=nbytes(di.rank_tbl), sgs_tbl_bytes=nbytes(di.sgs_tbl),
+        structure_bytes=sb.structure_size_in_bytes(), pattern_seconds=round(pattern_s, 3),
+        from_packed_seconds=round(seconds, 3),
+        host_tables_seconds=round(tables_s[0], 3),
+        repack_upload_fill_seconds=round(seconds - tables_s[0], 3))
+
+    reads, with_n, prefix_len = giant_batches(dev)
+    pows = 4 ** np.arange(GIANT_K, dtype=np.int64)
+    kmers = np.ascontiguousarray(reads[:, :GIANT_K])
+    want = 1 + (kmers.astype(np.int64) * pows).sum(axis=1)
+    t0 = time.perf_counter()
+    got = sb.search_batch(kmers)
+    fields = {"search_host_seconds": round(time.perf_counter() - t0, 4)}
+    check(got.dtype == np.int64 and np.array_equal(got, want), "giant: search_batch != oracle")
+    check(int(got[0]) == 1 and int(got[1]) == n - 1 and int(got.max()) > 2**31,
+          "giant: AAAA, TTTT or no answer over 2^31")
+    over = int((got >= 2**31).sum())
+    for name, batch in (("reads", reads), ("reads_with_n", with_n)):
+        oracle = dbg_oracle(torch.from_numpy(batch).to(dev), GIANT_K).cpu().numpy()
+        t0 = time.perf_counter()
+        ans = sb.streaming_search_batch(batch)
+        fields[f"{name}_host_seconds"] = round(time.perf_counter() - t0, 4)
+        check(ans.dtype == np.int64 and ans.shape == (N_READS, READ_LEN - GIANT_K + 1),
+              f"giant {name}: shape or type")
+        check(np.array_equal(ans, oracle), f"giant {name}: streaming answers != oracle")
+        fields[f"{name}_hit_fraction"] = float((ans >= 0).mean())
+        fields[f"{name}_checksum"] = int(ans.sum(dtype=np.int64))
+        del ans, oracle
+    check(fields["reads_hit_fraction"] == 1.0 and 0.3 < fields["reads_with_n_hit_fraction"] < 0.7,
+          f"giant: hit fractions {fields}")
+
+    # partial search of a prefix of m chars: the columns of all k-mers that end with it
+    l, r, m = sb.partial_search_batch(kmers, prefix_len)
+    idx = np.arange(GIANT_K)[None, :]
+    shift = 2 * (GIANT_K - prefix_len[:, None] + idx)
+    lo = 1 + np.where(idx < prefix_len[:, None], kmers.astype(np.int64) << shift, 0).sum(axis=1)
+    check(np.array_equal(m, prefix_len) and np.array_equal(l, lo)
+          and np.array_equal(r, lo + 4 ** (GIANT_K - prefix_len.astype(np.int64)) - 1),
+          "giant: partial_search != closed form")
+    # forward: column(x) by c is column(x[1:] + c)
+    chars = np.random.default_rng(5).integers(0, 4, size=N_READS)
+    nxt = sb.forward_batch(want, chars)
+    succ = np.concatenate([kmers[:, 1:], chars[:, None].astype(np.int8)], axis=1)
+    check(nxt.dtype == np.int64 and np.array_equal(nxt, 1 + (succ.astype(np.int64) * pows).sum(axis=1)),
+          "giant: forward != closed form")
+    first = 1 + int((np.array([0, 1, 2, 3, 0]) * pows[GIANT_K - 5 :]).sum())
+    check(sb.partial_search("ACGTA") == ((first, first + 4 ** (GIANT_K - 5) - 1), 5)
+          and sb.forward(1, "T") == 1 + 3 * 4 ** (GIANT_K - 1),
+          "giant: partial_search or forward of one string")
+    # a table would take 32 B a column, 137 GB: auto must leave the LF engine
+    check(sb.enable_turbo(None) is None and sb._turbo is None, "giant: enable_turbo found room")
+    check(np.array_equal(sb.streaming_search_batch(reads[:4096]),
+                         dbg_oracle(torch.from_numpy(reads[:4096]), GIANT_K).numpy()),
+          "giant: answers after enable_turbo(None)")
+    say("wide_giant", queries="1M 16-mers, 2 x 1M reads of 100 bp, 1M prefixes, 1M edges: all equal "
+        "the closed form", answers_over_2_31=over, **fields)
+    return sb, reads, with_n, prefix_len
 
 
 def check_same_index(got, want, what: str) -> None:
@@ -504,7 +881,7 @@ def recorder(launches: dict, card: str):
     return results, record
 
 
-def compare_kernels(dev, genome, sbwt, runs, record):
+def compare_kernels(dev, genome, sbwt, runs, record, card):
     """Each kernel of the main path against its plain version on the main
     path's shapes."""
     from sbwt_tpu_torch import kernels
@@ -528,7 +905,7 @@ def compare_kernels(dev, genome, sbwt, runs, record):
            cuda_ms(k_km, 5), cuda_ms(lambda: ts.search_batch_plain(di, km), 1),
            *search_work(di.size_in_bytes(), *km.shape), shape=tuple(km.shape))
 
-    k_s1 = lambda: kernels.succ1(di.rank_tbl, di.n_words, di.sgs_tbl, di.C, di.n_nodes)
+    k_s1 = lambda: tt.succ1(di)
     succ = k_s1()
     record("succ1", max_abs_err(succ, tt.succ1_plain(di)), cuda_ms(k_s1, 5),
            cuda_ms(lambda: tt.succ1_plain(di), 1), nbytes(di.rank_tbl, di.sgs_tbl, succ),
@@ -544,7 +921,7 @@ def compare_kernels(dev, genome, sbwt, runs, record):
     record("seed_bits", max_abs_err(turbo.seed_bits, tt.seed_bits_plain(di.precalc, p))
            + max_abs_err(k_sb(), turbo.seed_bits), cuda_ms(k_sb, 5),
            cuda_ms(lambda: tt.seed_bits_plain(di.precalc, p), 1),
-           nbytes(di.precalc, turbo.seed_bits), 4 ** (p + 1) * 4, shape=tuple(turbo.seed_bits.shape))
+           *seed_bits_work(di.precalc, turbo.seed_bits, p), shape=tuple(turbo.seed_bits.shape))
 
     n_answers = None
     for mix, (codes_np, ans_np) in runs.items():
@@ -555,6 +932,11 @@ def compare_kernels(dev, genome, sbwt, runs, record):
         check(torch.equal(out.cpu(), torch.from_numpy(ans_np)), f"{mix}: rerun differs")
         checksum = int(torch.sum(out, dtype=torch.int64).item())
         check(checksum == int(ans_np.sum(dtype=np.int64)), f"{mix}: checksum")
+        # K13, the checksum and hit-count reductions: PyTorch's own, timed beside their byte bound
+        say("reduction", name="torch.sum(int64) and hit count", mix=mix, shape=tuple(out.shape),
+            sum_ms=cuda_ms(lambda: torch.sum(out, dtype=torch.int64), 5),
+            hits_ms=cuda_ms(lambda: (out >= 0).sum(), 5),
+            bound_ms=nbytes(out) / HBM_BYTES_PER_S * 1e3, card=repr(card))
         # the plain version on the whole batch; its one run is also its time
         plain, plain_ms = timed_ms(
             lambda: tt.turbo_streaming_search_plain(turbo, di, codes, lengths))
@@ -653,6 +1035,187 @@ def compare_lf_kernels(dev, genome, sbwt, runs, variants, record):
         del plain
 
 
+def compare_variant_turbo_kernels(dev, runs, variants, lanes, record):
+    """partial_search of each of the ten variants on the 1M lanes, and succ1
+    (all columns) and K4 of each compressed variant: K4 on each whole batch
+    beside K14 on the same variant (rates), and on the first
+    TURBO_PLAIN_READS reads of each mix against its plain version."""
+    from sbwt_tpu_torch.ops import search as ts
+    from sbwt_tpu_torch.ops import turbo as tt
+
+    lane_codes, lane_len = (torch.from_numpy(a).to(dev) for a in lanes)
+    batches = {}
+    for mix, (codes_np, _) in runs.items():
+        codes = torch.from_numpy(codes_np).to(dev)
+        batches[mix] = (codes, torch.full((len(codes),), READ_LEN, dtype=torch.int32, device=dev))
+    for v, (vs, _) in variants.items():
+        di = vs.device_index
+        k_ps = lambda: ts.partial_search_batch(di, lane_codes, lane_len)
+        plain, plain_ms = timed_ms(lambda: ts.partial_search_plain(di, lane_codes, lane_len))
+        record(f"partial_search[{v}]", sum(max_abs_err(a, b) for a, b in zip(k_ps(), plain)),
+               cuda_ms(k_ps, 5), plain_ms, *partial_work(lane_len, plain[2]),
+               shape=tuple(lane_codes.shape))
+        del plain
+        if v == "plain-matrix":
+            continue
+        k_s1 = lambda: tt.succ1(di)
+        succ = k_s1()
+        plain, plain_ms = timed_ms(lambda: tt.succ1_plain(di))
+        record(f"succ1[{v}]", max_abs_err(succ, plain), cuda_ms(k_s1, 5), plain_ms,
+               *succ_work(di.size_in_bytes(), di.sgs_tbl, succ), shape=tuple(succ.shape))
+        del succ, plain
+        turbo = tt.build_turbo(di, ARITY)
+        name = f"turbo_stream[{v}]"
+        for mix, (codes, lengths) in batches.items():
+            ms_full = cuda_ms(lambda: tt.turbo_streaming_search(turbo, di, codes, lengths), 3)
+            lf_ms_full = cuda_ms(lambda: ts.streaming_search(di, codes, lengths), 3)
+            nb = TURBO_PLAIN_READS[mix]
+            sc, sl = codes[:nb], lengths[:nb]
+            sample = lambda: tt.turbo_streaming_search(turbo, di, sc, sl)
+            got = sample()
+            plain, plain_ms = timed_ms(lambda: tt.turbo_streaming_search_plain(turbo, di, sc, sl))
+            err = max_abs_err(got, plain)
+            check(torch.equal(got.cpu(), torch.from_numpy(runs[mix][1][:nb])),
+                  f"{name} {mix}: sample differs from plain-matrix's answers")
+            answers = len(codes) * (READ_LEN - K + 1)
+            extra = dict(variant=v, mix=mix, shape=tuple(sc.shape), full_batch_ms=ms_full,
+                         lf_full_batch_ms=lf_ms_full, turbo_over_lf=lf_ms_full / ms_full,
+                         answers_per_s=answers / (ms_full / 1e3))
+            del got, plain
+            if mix == "hit98":
+                record(name, err, cuda_ms(sample, 3), plain_ms, *stream_work(nb, READ_LEN, K), **extra)
+            else:
+                check(err == 0, f"{name} {mix}: kernel differs from its plain version")
+                say("kernel", name=name, max_abs_err=err, ms=cuda_ms(sample, 3), plain_ms=plain_ms,
+                    **extra)
+        del turbo
+        torch.cuda.empty_cache()
+
+
+def compare_wide_kernels_4m(dev, sbwt, wsb, runs, record):
+    """The wide kernels at the 4M-column index, beside the narrow ones in
+    the same run: K14 and K4 on each whole batch (K4 also against the narrow
+    arity-1 table, the like-for-like of the wide one), K1's p = 13 fill and
+    1M-k-mer search, and the wide seed bits. Records wide K4 and the wide
+    seed bits; the giant records the others."""
+    from sbwt_tpu_torch import kernels
+    from sbwt_tpu_torch.ops import search as ts
+    from sbwt_tpu_torch.ops import turbo as tt
+
+    di, wide, wturbo = sbwt.device_index, wsb.device_index, wsb._turbo
+    p = wide.precalc_k
+    fill = lambda index: kernels.precalc_fill(index.variant, index.kernel_desc(dev), index.C,
+                                              index.n_nodes, p)
+    check(torch.equal(fill(wide), wide.precalc), "wide fill: rerun differs")
+    say("kernel", name=f"precalc_fill[{WIDE}]", n_columns=wide.n_nodes, shape=tuple(wide.precalc.shape),
+        ms=cuda_ms(lambda: fill(wide), 3), narrow_ms=cuda_ms(lambda: fill(di), 3))
+    k_sb = lambda: kernels.seed_bits(wide.precalc, p)
+    record(f"seed_bits[{WIDE}]", max_abs_err(k_sb(), tt.seed_bits_plain(wide.precalc, p)),
+           cuda_ms(k_sb, 5), cuda_ms(lambda: tt.seed_bits_plain(wide.precalc, p), 1),
+           *seed_bits_work(wide.precalc, wturbo.seed_bits, p),
+           shape=tuple(wturbo.seed_bits.shape), narrow_ms=cuda_ms(lambda: kernels.seed_bits(di.precalc, p), 5))
+    km = torch.from_numpy(np.ascontiguousarray(runs["hit98"][0][:, :K])).to(dev)
+    err = max_abs_err(ts.search_batch(wide, km), ts.search_batch_plain(wide, km))
+    check(err == 0, "wide kmer_search at 4M columns: kernel differs from its plain version")
+    say("kernel", name=f"kmer_search[{WIDE}]", n_columns=wide.n_nodes, shape=tuple(km.shape),
+        max_abs_err=err, ms=cuda_ms(lambda: ts.search_batch(wide, km), 5),
+        narrow_ms=cuda_ms(lambda: ts.search_batch(di, km), 5))
+    narrow1 = tt.build_turbo(di, 1)
+    for mix, (codes_np, ans_np) in runs.items():
+        codes = torch.from_numpy(codes_np).to(dev)
+        lengths = torch.full((len(codes),), READ_LEN, dtype=torch.int32, device=dev)
+        answers = ans_np.size
+        # wide K14: whole batch beside the narrow one, a sample against its plain version
+        lf = lambda index: ts.streaming_search(index, codes, lengths)
+        sc, sl = codes[:PLAIN_READS], lengths[:PLAIN_READS]
+        err = max_abs_err(ts.streaming_search(wide, sc, sl), ts.streaming_search_plain(wide, sc, sl))
+        check(err == 0, f"wide lf_stream at 4M columns, {mix}: kernel differs from its plain version")
+        ms = cuda_ms(lambda: lf(wide), 3)
+        say("kernel", name=f"lf_stream[{WIDE}]", n_columns=wide.n_nodes, mix=mix, max_abs_err=err,
+            full_batch_ms=ms, narrow_full_batch_ms=cuda_ms(lambda: lf(di), 3),
+            answers_per_s=answers / (ms / 1e3))
+        # wide K4 on the whole batch against its plain version
+        stream = lambda: tt.turbo_streaming_search(wturbo, wide, codes, lengths)
+        out = stream()
+        check(torch.equal(out.cpu(), torch.from_numpy(ans_np).long()), f"wide K4 {mix}: rerun differs")
+        plain, plain_ms = timed_ms(lambda: tt.turbo_streaming_search_plain(wturbo, wide, codes, lengths))
+        err = max_abs_err(out, plain)
+        del out, plain
+        ms = cuda_ms(stream, 5)
+        extra = dict(mix=mix, reads=len(codes_np), n_columns=wide.n_nodes,
+                     narrow_arity3_ms=cuda_ms(lambda: tt.turbo_streaming_search(sbwt._turbo, di, codes, lengths), 5),
+                     narrow_arity1_ms=cuda_ms(lambda: tt.turbo_streaming_search(narrow1, di, codes, lengths), 5),
+                     answers_per_s=answers / (ms / 1e3))
+        if mix == "hit98":
+            record(f"turbo_stream[{WIDE}]", err, ms, plain_ms,
+                   *stream_work(len(codes_np), READ_LEN, K, 8), **extra)
+        else:
+            check(err == 0, f"wide K4 {mix}: kernel differs from its plain version")
+            say("kernel", name=f"turbo_stream[{WIDE}]", max_abs_err=err, ms=ms, plain_ms=plain_ms, **extra)
+
+
+def compare_giant_kernels(dev, sb, reads, with_n, prefix_len, record):
+    """The wide kernels at the giant's size against their plain versions:
+    K1's p = 8 fill and 1M-k-mer search, K14 on the first PLAIN_READS reads
+    of each batch (and its time on each whole batch), partial_search of the
+    1M prefixes and succ1 over 1M sampled columns (what forward launches)."""
+    from sbwt_tpu_torch import kernels
+    from sbwt_tpu_torch.models import matrix as tm
+    from sbwt_tpu_torch.ops import search as ts
+    from sbwt_tpu_torch.ops import turbo as tt
+
+    di = sb.device_index
+    desc = di.kernel_desc(dev)
+    k_pre = lambda: kernels.precalc_fill(WIDE, desc, di.C, di.n_nodes, GIANT_P)
+    plain, plain_ms = timed_ms(lambda: tm.precalc_fill_plain(di, GIANT_P))
+    # the fill reads two rank rows a step of each lane, not the whole 6.4 GB table
+    record(f"precalc_fill[{WIDE}]", max_abs_err(k_pre(), plain) + max_abs_err(di.precalc, plain),
+           cuda_ms(k_pre, 5), plain_ms, 4**GIANT_P * (16 + GIANT_P * 2 * 12), 4**GIANT_P * LF_OPS,
+           shape=tuple(plain.shape), n_columns=di.n_nodes)
+    codes = torch.from_numpy(reads).to(dev)
+    km = codes[:, :GIANT_K].contiguous()
+    k_km = lambda: ts.search_batch(di, km)
+    plain, plain_ms = timed_ms(lambda: ts.search_batch_plain(di, km))
+    steps = GIANT_K - GIANT_P
+    record(f"kmer_search[{WIDE}]", max_abs_err(k_km(), plain), cuda_ms(k_km, 5), plain_ms,
+           len(km) * (GIANT_K + 16 + 8 + steps * 2 * 12), len(km) * steps * LF_OPS,
+           shape=tuple(km.shape), n_columns=di.n_nodes)
+    del plain
+    lengths = torch.full((len(codes),), READ_LEN, dtype=torch.int32, device=dev)
+    answers = len(codes) * (READ_LEN - GIANT_K + 1)
+    for name, batch in (("reads", codes), ("reads_with_n", torch.from_numpy(with_n).to(dev))):
+        ms_full = cuda_ms(lambda: ts.streaming_search(di, batch, lengths), 3)
+        sc, sl = batch[:PLAIN_READS], lengths[:PLAIN_READS]
+        sample = lambda: ts.streaming_search(di, sc, sl)
+        plain, plain_ms = timed_ms(lambda: ts.streaming_search_plain(di, sc, sl))
+        err = max_abs_err(sample(), plain)
+        extra = dict(batch=name, shape=tuple(sc.shape), n_columns=di.n_nodes, full_batch_ms=ms_full,
+                     answers_per_s=answers / (ms_full / 1e3),
+                     plain_answers_per_s=plain.numel() / (plain_ms / 1e3))
+        del plain
+        if name == "reads":
+            record(f"lf_stream[{WIDE}]", err, cuda_ms(sample, 3), plain_ms,
+                   *stream_work(PLAIN_READS, READ_LEN, GIANT_K, 8), **extra)
+        else:
+            check(err == 0, f"giant lf_stream {name}: kernel differs from its plain version")
+            say("kernel", name=f"lf_stream[{WIDE}]", max_abs_err=err, ms=cuda_ms(sample, 3),
+                plain_ms=plain_ms, **extra)
+    plen = torch.from_numpy(prefix_len).to(dev)
+    k_ps = lambda: ts.partial_search_batch(di, km, plen)
+    plain, plain_ms = timed_ms(lambda: ts.partial_search_plain(di, km, plen))
+    record(f"partial_search[{WIDE}]", sum(max_abs_err(a, b) for a, b in zip(k_ps(), plain)),
+           cuda_ms(k_ps, 5), plain_ms, *partial_work(plen, plain[2], 8), shape=tuple(km.shape),
+           n_columns=di.n_nodes)
+    cols = torch.from_numpy(np.random.default_rng(6).integers(0, di.n_nodes, size=len(km))).to(dev)
+    k_s1 = lambda: tt.succ1(di, cols, row_major=True)
+    succ = k_s1()
+    plain, plain_ms = timed_ms(lambda: tt.succ1_plain(di, cols))
+    # per column: its index, one suffix-group row, four rank rows, four successors
+    record(f"succ1[{WIDE}]", max_abs_err(succ, plain.t().contiguous()), cuda_ms(k_s1, 5), plain_ms,
+           len(cols) * (8 + 8 + 4 * 12 + 32), succ.numel() * LF_OPS, shape=tuple(succ.shape),
+           n_columns=di.n_nodes, columns="1M sampled")
+
+
 def run_cli(device: str) -> None:
     """The CLI on the golden inputs, in a subprocess, as a user runs it."""
     env = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
@@ -677,13 +1240,22 @@ def run_cli(device: str) -> None:
             ["build-variant", "-i", str(index), "-o", str(rrr), "--variant", "rrr-split"],
             ["search", "-i", str(rrr), "-q", str(tmp / "q.fq"), "-o", str(tmp / "o3.txt"),
              "--engine", "lf"],
+            ["search", "-i", str(rrr), "-q", str(tmp / "q.fq"), "-o", str(tmp / "o4.txt"),
+             "--engine", "turbo3"],
+            ["search", "-i", str(rrr), "-q", str(tmp / "q.fna"), "-o", str(tmp / "o5.txt"),
+             "--engine", "auto"],
         ):
             proc = subprocess.run(cli + argv + ["--device", device], cwd=REPO, env=env,
                                   capture_output=True, text=True, timeout=600)
             check(proc.returncode == 0, f"CLI {argv[0]} failed:\n{proc.stderr[-2000:]}")
-        for name in ("o1.txt", "o2.txt", "o3.txt"):
+            if "rrr-split.sbwt" in argv[2] and argv[-1] in ("turbo3", "auto"):
+                check("Turbo successor engine enabled" in proc.stderr,
+                      f"CLI search --engine {argv[-1]} on rrr-split did not enable turbo:\n"
+                      f"{proc.stderr[-2000:]}")
+        for name in ("o1.txt", "o2.txt", "o3.txt", "o4.txt", "o5.txt"):
             check((tmp / name).read_text() == GOLDEN, f"CLI output {name} differs from GOLDEN")
-    say("cli", golden="byte-equal", files=3, variants="plain-matrix (turbo), rrr-split (lf)")
+    say("cli", golden="byte-equal", files=5,
+        variants="plain-matrix (turbo), rrr-split (lf, turbo3, auto)")
 
 
 def main() -> int:
@@ -700,20 +1272,20 @@ def main() -> int:
         cuda=torch.version.cuda)
     print(card, flush=True)
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     lib, compile_s = kernels.build()
-    regs = [line.strip() for line in lib.with_suffix(".log").read_text().splitlines()
-            if "registers" in line]
+    regs = ptxas_lines(lib.with_suffix(".log").read_text())
     say("build", library=lib.name, nvcc_seconds=round(compile_s, 3),
-        seconds=round(time.perf_counter() - t0, 3))
-    for line in regs:
-        print(f"  ptxas: {line}")
+        seconds=round(time.perf_counter() - t0, 3), kernels=len(regs),
+        max_registers=max(r for _, r, _ in regs), spill_bytes=sum(s for _, _, s in regs))
+    for entry, registers, spill in regs:
+        print(f"  ptxas: {entry} registers={registers} spill_bytes={spill}")
 
     torch.cuda.reset_peak_memory_stats(dev)
     kernels.reset_launch_counts()
     genome, sbwt, runs = run_main_path(dev)
     torch.cuda.synchronize()
-    launches = {name: kernels.LAUNCHES[name] for name in KERNELS}
+    launches = {name: kernels.LAUNCHES[COUNTER.get(name, name)] for name in KERNELS}
     say("launches", path="main", **launches)
     check(all(launches[name] > 0 for name in KERNELS), f"a kernel of the path never launched: {launches}")
     say("memory", peak_main_path_bytes=torch.cuda.max_memory_allocated(dev))
@@ -729,24 +1301,53 @@ def main() -> int:
     launches.update(lf_launches)
     say("memory", peak_bytes=torch.cuda.max_memory_allocated(dev))
 
+    def counted(path, names, t0):
+        """Read the counts of a path's kernels, just after it ran. The giant
+        launches five kernels that the forced-wide path launched before it:
+        their entries keep the giant's counts, as they keep its times, and the
+        forced-wide path's own stand in its ``launches`` line."""
+        torch.cuda.synchronize()
+        counts = {name: kernels.LAUNCHES[name] for name in names}
+        say("launches", path=path, seconds=round(time.perf_counter() - t0, 3), **counts)
+        check(all(n > 0 for n in counts.values()),
+              f"a kernel of the {path} path never launched: {counts}")
+        launches.update(counts)
+        say("memory", peak_bytes=torch.cuda.max_memory_allocated(dev),
+            host_peak_rss_bytes=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024)
+
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    lanes = run_variant_turbo_path(sbwt, runs, variants)
+    counted("variant_turbo", VARIANT_TURBO_KERNELS, t0)
+
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    wsb = run_wide_turbo_path(dev, sbwt, runs, lanes)
+    counted("wide_turbo", WIDE_KERNELS, t0)
+
     t0 = time.perf_counter()
     kernels.reset_launch_counts()
     run_device_build_path(dev, genome, sbwt, runs)
-    torch.cuda.synchronize()
-    build_launches = {name: kernels.LAUNCHES[name] for name in BUILD_KERNELS}
-    say("launches", path="device_build", seconds=round(time.perf_counter() - t0, 3),
-        **build_launches)
-    check(all(n > 0 for n in build_launches.values()),
-          f"a build kernel of the device_build path never launched: {build_launches}")
-    launches.update(build_launches)
+    counted("device_build", BUILD_KERNELS, t0)
     torch.cuda.empty_cache()
-    say("memory", peak_bytes=torch.cuda.max_memory_allocated(dev))
 
     results, record = recorder(launches, card)
-    compare_kernels(dev, genome, sbwt, runs, record)
+    compare_kernels(dev, genome, sbwt, runs, record, card)
     compare_lf_kernels(dev, genome, sbwt, runs, variants, record)
-    del sbwt, runs, variants
+    compare_variant_turbo_kernels(dev, runs, variants, lanes, record)
+    compare_wide_kernels_4m(dev, sbwt, wsb, runs, record)
+    del sbwt, wsb, runs, variants, lanes
     torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    giant = run_wide_giant_path(dev)
+    counted("wide_giant", GIANT_KERNELS, t0)
+    compare_giant_kernels(dev, *giant, record)
+    del giant
+    torch.cuda.empty_cache()
+
     compare_build_kernels(dev, genome, record)
     torch.cuda.empty_cache()
     run_cli(str(dev))
@@ -755,6 +1356,7 @@ def main() -> int:
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "sbwt_tpu"))
     check(not loaded, f"modules of JAX or of the JAX package were loaded: {loaded}")
+    say("total", seconds=round(time.perf_counter() - t_start, 1), kernel_entries=len(results))
     print(json.dumps({"kernels": [results[name] for name in ALL_KERNELS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -4,11 +4,11 @@ for all ten variants.
 
 Each takes ``--device`` (default ``cuda``): on a CUDA device the index and
 queries run the hand-written kernels; ``--device cpu`` runs their plain
-PyTorch versions. Search runs the turbo successor engine on a plain-matrix
-index that can have one, and the LF engine otherwise (``--engine lf``, a
-compressed variant under ``auto``, or a table that does not fit). The
-turbo engine on a compressed variant and ``ascii-export`` are not yet
-ported.
+PyTorch versions. Search runs the turbo successor engine on any index that
+can have its table (built from the index's own ranks, whatever the
+variant; an index of 2^31 columns or more has the arity-1 tier only), and
+the LF engine otherwise (``--engine lf``, no streaming support, or a table
+that does not fit). ``ascii-export`` is not yet ported.
 """
 from __future__ import annotations
 
@@ -139,10 +139,9 @@ def search_main(argv) -> int:
                    default="auto",
                    help="lf: the LF rank engine over the variant's own structure; "
                         "turbo1/2/3: successor table of that arity (16 B, 128 B, "
-                        "1 KiB of device memory per column; plain-matrix only); "
-                        "turbo/auto: the largest arity that fits free device memory, "
-                        "degrading 3 -> 2 -> 1 -> LF. auto on a compressed variant "
-                        "runs LF.")
+                        "1 KiB of device memory per column), built from any "
+                        "variant's ranks; turbo/auto: the largest arity that fits "
+                        "free device memory, degrading 3 -> 2 -> 1 -> LF.")
     _add_device_flag(p)
     args = p.parse_args(argv)
 
@@ -168,9 +167,7 @@ def search_main(argv) -> int:
     # search, so auto tries no table
     want_turbo = args.engine.startswith("turbo") or (
         args.engine == "auto" and sbwt.has_streaming_query_support())
-    if want_turbo and args.engine == "auto" and sbwt.variant != "plain-matrix":
-        write_log(f"Turbo engine on variant {sbwt.variant} is not yet ported; using LF engine")
-    elif want_turbo:
+    if want_turbo:
         # as sbwt_tpu/cli.py:159-173, an index that cannot have a table runs
         # LF; a failure to build or launch a kernel still ends the run
         try:

@@ -352,7 +352,9 @@ def build_sbwt_device(seqs, k: int, device, streaming_support: bool = True, prec
     del dv, kmer_edges, is_src, src
     T = nodes[0].shape[0]
     if T >= 2**31:
-        raise ValueError(f"{T} columns need the int64 (wide) engine, which is not yet ported")
+        raise ValueError(f"{T} columns need the int64 (wide) engine, which the device build "
+                         "does not reach (its tables are int32, as in the JAX package); "
+                         "use SBWT.build")
     rank_tbl, sgs_tbl, C = tables_from_words(
         *finalize_tables(*nodes, k, bool(streaming_support)))
     del nodes

@@ -1,5 +1,6 @@
-// K14 and K1 (lf_stream.cuh) instances of the split variants.
-#include "lf_stream.cuh"
+// Instances of the rank-templated kernels (rank_ops.cuh: K14, K1,
+// partial_search, succ1, K4) for the split variants.
+#include "rank_ops.cuh"
 
 extern "C" int sbwt_lf_split(int device, int op, int variant, const void* rank,
                              const void* args, void* stream) {
@@ -7,9 +8,9 @@ extern "C" int sbwt_lf_split(int device, int op, int variant, const void* rank,
     cudaSetDevice(device);
     const LFArgs* a = static_cast<const LFArgs*>(args);
     switch (variant) {
-        case 3: return launch_lf<SplitRank<PlainBV>>(op, rank, a, stream);
-        case 4: return launch_lf<SplitRank<RRR15>>(op, rank, a, stream);
-        case 5: return launch_lf<SplitRank<MEF>>(op, rank, a, stream);
+        case 3: return launch_rank_op<SplitRank<PlainBV>>(op, rank, a, stream);
+        case 4: return launch_rank_op<SplitRank<RRR15>>(op, rank, a, stream);
+        case 5: return launch_rank_op<SplitRank<MEF>>(op, rank, a, stream);
         default: return (int)cudaErrorInvalidValue;
     }
 }

@@ -4,6 +4,8 @@
 // and _pack_2bit_u32. Entry m, over all (p+1)-mers, has bit0 = (precalc
 // row m mod 4^p is non-empty) and bit1 = (precalc row m >> 2 is
 // non-empty); word w holds entries 16w .. 16w + 15, entry e at bits 2e.
+// The precalc rows are int2 on the narrow tier and longlong2 on the wide
+// one; the bits are the same.
 //
 // Bound on the H100: reading the left column of the precalc table
 // (4^p rows of 8 bytes, 537 MB at p = 13) twice over. Design: one thread
@@ -13,7 +15,8 @@
 
 namespace {
 
-__global__ void seed_bits_kernel(const int2* __restrict__ precalc, int p,
+template <class Pair>
+__global__ void seed_bits_kernel(const Pair* __restrict__ precalc, int p,
                                  int64_t n_out, unsigned* __restrict__ out) {
     const int64_t w = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
     if (w >= n_out) return;
@@ -30,11 +33,18 @@ __global__ void seed_bits_kernel(const int2* __restrict__ precalc, int p,
 
 }  // namespace
 
-extern "C" int sbwt_seed_bits(int device, const void* precalc, int p, void* out,
+extern "C" int sbwt_seed_bits(int device, const void* precalc, int p, int wide, void* out,
                               void* stream) {
     cudaSetDevice(device);
     const int64_t n_out = ((int64_t)1 << (2 * (p + 1))) / 16;
-    seed_bits_kernel<<<sbwt::grid_for(n_out), sbwt::kBlock, 0, (cudaStream_t)stream>>>(
-        (const int2*)precalc, p, n_out, (unsigned*)out);
+    const unsigned grid = sbwt::grid_for(n_out);
+    const cudaStream_t s = (cudaStream_t)stream;
+    if (wide) {
+        seed_bits_kernel<<<grid, sbwt::kBlock, 0, s>>>((const longlong2*)precalc, p, n_out,
+                                                       (unsigned*)out);
+    } else {
+        seed_bits_kernel<<<grid, sbwt::kBlock, 0, s>>>((const int2*)precalc, p, n_out,
+                                                       (unsigned*)out);
+    }
     return (int)cudaGetLastError();
 }

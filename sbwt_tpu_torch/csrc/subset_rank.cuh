@@ -1,4 +1,6 @@
-// K17: subset rank of the ten variants on the device. Each type has
+// K17: subset rank of the ten variants on the device, and K18a, the
+// plain-matrix rank of the wide (int64) tier. Each type has
+//   pos_t              the type of a position: int, or int64_t for WideMatrix
 //   rank(c, pos)       count of char c in subsets 0..pos-1, pos in [0, n]
 //   rank_pair(c, pos)  (rank(c, pos), rank(c, pos + 1)), pos in [0, n)
 // and is a plain descriptor passed to a kernel by value (mirrored in
@@ -8,7 +10,8 @@
 // (:92-104), SplitRank (:179-203), ConcatRank with _select0 /
 // _select0_pair (:309-391) and SubsetWTRank with the _wt4_* helpers
 // (:504-631); PlainMatrix is the fused-row rank of
-// sbwt_tpu/models/matrix.py:40-86 (sbwt_common.cuh).
+// sbwt_tpu/models/matrix.py:40-86 (sbwt_common.cuh), and WideMatrix the
+// rank_c / extend_rank of sbwt_tpu/models/wide.py:60-86.
 //
 // Bound on the H100: the dependent loads of the bit-vector ranks inside
 // (bv.cuh, wavelet.cuh): one for PlainMatrix, one for MatrixRank, X then
@@ -34,6 +37,7 @@ __device__ __forceinline__ int pick4(const int (&a)[5], int c) {
 
 // plain-matrix: the fused (word, cum) rows of sbwt_common.cuh
 struct PlainMatrix {
+    using pos_t = int;
     const int2* rank_tbl;
     long long n_words;
 
@@ -47,9 +51,41 @@ struct PlainMatrix {
     }
 };
 
+// The plain-matrix rows of the wide tier, int32 [4 * n_words, 3]: (bits
+// word, low and high half of the exclusive cum popcount). The JAX layout is
+// kept, so a row is 12 bytes, not 16-byte aligned, and is read as three
+// 4-byte loads. The low half is unsigned: sign-extending it would corrupt
+// every count whose bit 31 is set.
+struct WideMatrix {
+    using pos_t = int64_t;
+    const int* rank_tbl;
+    long long n_words;
+
+    __device__ __forceinline__ int64_t rank_get(int c, int64_t pos, int* bit) const {
+        const int* row = rank_tbl + 3 * ((int64_t)c * n_words + (pos >> 5));
+        const unsigned word = (unsigned)row[0];
+        const int64_t cum = ((int64_t)row[2] << 32) | (int64_t)(unsigned)row[1];
+        const unsigned o = (unsigned)pos & 31u;
+        *bit = (int)((word >> o) & 1u);
+        return cum + __popc(word & ((1u << o) - 1u));
+    }
+    __device__ __forceinline__ int64_t rank(int c, int64_t pos) const {
+        int bit;
+        return rank_get(c, pos, &bit);
+    }
+    // rank(pos + 1) = rank(pos) + bit(pos), also at o = 31, where pos + 1
+    // lies in the next word
+    __device__ __forceinline__ longlong2 rank_pair(int c, int64_t pos) const {
+        int bit;
+        const int64_t r = rank_get(c, pos, &bit);
+        return make_longlong2(r, r + bit);
+    }
+};
+
 // rrr-matrix, mef-matrix: one bit vector over the rows [A | C | G | T]
 template <class BV>
 struct MatrixRank {
+    using pos_t = int;
     BV bv;
     int n;
     int base[5];  // rank at the start of each char's row
@@ -69,6 +105,7 @@ struct MatrixRank {
 // columns' rows, char-major over n_b columns
 template <class XBV>
 struct SplitRank {
+    using pos_t = int;
     XBV X;
     WaveletTree<PlainBV> Y;
     PlainBV Z;
@@ -111,6 +148,7 @@ __device__ __forceinline__ int nth_set_bit(unsigned w, int n) {
 // tree; the zeros of L mark set starts (and the end)
 template <class BV>
 struct ConcatRank {
+    using pos_t = int;
     WaveletTree<BV> wt;
     const int2* l_words;  // (L word w, L word w + 1)
     const int* samples;   // position of every 8th zero of L
@@ -154,6 +192,7 @@ struct ConcatRank {
 // gt over 2 * G + T of the GT-present columns.
 template <class BV>
 struct SubsetWTRank {
+    using pos_t = int;
     WaveletTree<BV> acgt, ac, gt;
 
     // What the rank of a sigma-4 tree reads: level 0 counts symbols {2, 3};

@@ -1,5 +1,10 @@
-// K4 turbo_stream: exact streaming search over the successor table, one
-// thread per read.
+// K4 turbo_stream as a template over the rank type R of subset_rank.cuh:
+// exact streaming search over the successor table, one thread per read.
+// The table is followed wherever a column is known; R serves only the
+// exact LF steps of a restart whose precalc seed is wider than one column.
+// With WideMatrix it is K18d, the wide arity-1 chain and restarts of
+// sbwt_tpu/ops/turbo.py (:167-198, :661) at int64, whose (lo, hi) table
+// pair and lo-only path exist because the TPU has no 64-bit lanes.
 //
 // Replaces the XLA program of sbwt_tpu/ops/turbo.py turbo_streaming_search
 // as a whole: the position-0 seed and walk, the arity-A chain (_step), the
@@ -26,65 +31,57 @@
 // table rows. Design: one thread per read keeps its whole state in
 // registers (rolling p-mer index, run of valid chars, previous answer) and
 // reads the int8 codes in place, so every load it issues is one the
-// algorithm needs; the many resident threads hide the latency. The codes
+// algorithm needs; the many resident threads hide the latency. A wide
+// arity-1 row is 32 bytes, of which the char picks one 16-byte half. The codes
 // reads and the [B, P] answer writes are strided by row (one read per
 // thread), which is correct but not coalesced: staging them through shared
 // memory is left for a later change.
-#include "sbwt_common.cuh"
+#pragma once
 
-namespace {
+#include "lf_stream.cuh"
 
-struct Tables {
-    const int* tbl;  // arity-A successor table
-    int arity;
-    const int2* rank_tbl;
-    int64_t n_words;
-    const int2* precalc;  // [4^p] (l, r), (-1, -1) when empty
-    const unsigned* seed_bits;  // 2-bit pair entries, or nullptr
-    int p;
-    int k;
-};
+namespace sbwt {
 
 // Full search of the window at win (its k chars are all 0..3): seed from
 // the precalc row of its first p chars (pidx), then walk the rest with
 // table rows from a singleton seed, or take exact LF steps from a wider one.
-__device__ __forceinline__ int restart(const Tables& t, const int* Cl,
-                                       const int8_t* win, unsigned pidx) {
-    if (t.seed_bits != nullptr &&
-        !((t.seed_bits[pidx >> 4] >> (2 * (pidx & 15))) & 1u)) {
+template <class R, class P = typename R::pos_t>
+__device__ __forceinline__ P turbo_restart(const R& rk, const LFArgs& a, const CArray<P>& Cl,
+                                           const int8_t* win, unsigned pidx) {
+    if (a.seed_bits != nullptr &&
+        !((a.seed_bits[pidx >> 4] >> (2 * (pidx & 15))) & 1u)) {
         return -1;
     }
-    const int2 seed = t.precalc[pidx];
+    const pair_t<P> seed = static_cast<const pair_t<P>*>(a.precalc)[pidx];
     if (seed.x < 0) return -1;
     if (seed.x == seed.y) {
-        int col = seed.x;
-        for (int j = t.p; j < t.k && col >= 0; j += t.arity) {
-            const int take = min(t.arity, t.k - j);
-            col = sbwt::component(sbwt::table_row(t.tbl, t.arity, col, win + j, take),
-                                  take - 1);
+        P col = seed.x;
+        for (int j = a.p; j < a.k && col >= 0; j += a.arity) {
+            const int take = min(a.arity, a.k - j);
+            col = component(table_row<P>(a.tbl, a.arity, col, win + j, take), take - 1);
         }
         return col;
     }
-    int l = seed.x, r = seed.y;
-    for (int j = t.p; j < t.k; ++j) {
-        if (!sbwt::lf_step(t.rank_tbl, t.n_words, Cl, win[j], l, r)) return -1;
+    P l = seed.x, r = seed.y;
+    for (int j = a.p; j < a.k; ++j) {
+        if (!lf_step_r(rk, Cl, win[j], l, r)) return -1;
     }
     return l;
 }
 
-__global__ void turbo_stream_kernel(Tables t, const int* __restrict__ C,
-                                    const int8_t* __restrict__ codes, int64_t B, int L,
-                                    const int* __restrict__ lengths, int* __restrict__ out) {
+template <class R>
+__global__ void turbo_stream_kernel(R rk, LFArgs a) {
+    using P = typename R::pos_t;
     const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (b >= B) return;
-    const int k = t.k, p = t.p;
-    const int P = L - k + 1;
-    const int8_t* read = codes + b * L;
-    int* ans = out + b * P;
-    const int n_pos = max(0, min(P, lengths[b] - k + 1));
-    for (int i = n_pos; i < P; ++i) ans[i] = -1;
+    if (b >= a.B) return;
+    const int k = a.k, p = a.p, L = a.L;
+    const int P_out = L - k + 1;
+    const int8_t* read = a.codes + b * L;
+    P* ans = static_cast<P*>(a.out) + b * P_out;
+    const int n_pos = max(0, min(P_out, a.lengths[b] - k + 1));
+    for (int i = n_pos; i < P_out; ++i) ans[i] = -1;
     if (n_pos == 0) return;
-    const int Cl[4] = {C[0], C[1], C[2], C[3]};
+    const CArray<P> Cl(a.C);
 
     // Rolling state of position pos: pidx packs chars pos..pos+p-1
     // colex-reversed (char j at bits 2j), run counts the valid chars
@@ -92,32 +89,32 @@ __global__ void turbo_stream_kernel(Tables t, const int* __restrict__ C,
     const unsigned top = 2u * (unsigned)(p - 1);
     unsigned pidx = 0;
     int run = 0;
-    for (int j = 0; j < k - 1; ++j) run = sbwt::is_base(read[j]) ? run + 1 : 0;
+    for (int j = 0; j < k - 1; ++j) run = is_base(read[j]) ? run + 1 : 0;
     for (int j = 0; j < p - 1; ++j) pidx = (pidx >> 2) | ((unsigned)(read[j] & 3) << top);
     auto advance = [&](int pos) {
         const int c = read[pos + k - 1];
-        run = sbwt::is_base(c) ? run + 1 : 0;
+        run = is_base(c) ? run + 1 : 0;
         pidx = (pidx >> 2) | ((unsigned)(read[pos + p - 1] & 3) << top);
     };
 
     bool lenient = true;  // lowercase extends until the read's first -1
-    int prev = -1;
+    P prev = -1;
     int pos = 0;
     while (pos < n_pos) {
         if (prev < 0) {
             advance(pos);
-            prev = run >= k ? restart(t, Cl, read + pos, pidx) : -1;
+            prev = run >= k ? turbo_restart(rk, a, Cl, read + pos, pidx) : (P)-1;
             ans[pos++] = prev;
             if (prev < 0) lenient = false;
             continue;
         }
-        const int take = min(t.arity, n_pos - pos);
-        const int4 row = sbwt::table_row(t.tbl, t.arity, prev, read + pos + k - 1, take);
+        const int take = min(a.arity, n_pos - pos);
+        const Succ3<P> row = table_row<P>(a.tbl, a.arity, prev, read + pos + k - 1, take);
         for (int j = 0; j < take; ++j) {
             advance(pos);
             const int c = read[pos + k - 1];
             const bool ok = c >= 0 && (lenient || c < 4);
-            prev = ok ? sbwt::component(row, j) : -1;
+            prev = ok ? component(row, j) : (P)-1;
             ans[pos++] = prev;
             if (prev < 0) {
                 lenient = false;
@@ -127,17 +124,4 @@ __global__ void turbo_stream_kernel(Tables t, const int* __restrict__ C,
     }
 }
 
-}  // namespace
-
-extern "C" int sbwt_turbo_stream(int device, const void* tbl, int arity,
-                                 const void* rank_tbl, long long n_words, const void* C,
-                                 const void* precalc, int p, const void* seed_bits,
-                                 const void* codes, long long B, int L, int k,
-                                 const void* lengths, void* out, void* stream) {
-    cudaSetDevice(device);
-    const Tables t{(const int*)tbl, arity, (const int2*)rank_tbl, n_words,
-                   (const int2*)precalc, (const unsigned*)seed_bits, p, k};
-    turbo_stream_kernel<<<sbwt::grid_for(B), sbwt::kBlock, 0, (cudaStream_t)stream>>>(
-        t, (const int*)C, (const int8_t*)codes, B, L, (const int*)lengths, (int*)out);
-    return (int)cudaGetLastError();
-}
+}  // namespace sbwt

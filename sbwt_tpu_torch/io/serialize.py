@@ -410,7 +410,7 @@ def save_native(path: str, sbwt) -> int:
     di = sbwt.device_index
     payload = _variant_payload(sbwt)
     payload["sgs_packed"] = sbwt._sgs_packed
-    # the engine's dtype (int32)
+    # the engine's dtype (int32, or int64 on the wide tier)
     payload["precalc"] = di.precalc.cpu().numpy()
     meta = {
         "variant": sbwt.variant,
@@ -492,7 +492,8 @@ def load_cpp_stream(f, device) -> SBWT:
         raise CppFormatError(
             f"bit rows have {n_bits} columns but the trailing n_nodes scalar says {n_nodes}"
         )
-    # stored int64 on disk; the narrow engine holds int32
+    # stored int64 on disk and handed on as int64: the narrow engine narrows
+    # it to int32, the wide one (n >= 2^31, routed to by from_packed) keeps it
     precalc_table = pairs.reshape(-1, 2) if precalc_k > 0 else None
     if variant == "plain-matrix":
         sbwt = SBWT.from_packed(

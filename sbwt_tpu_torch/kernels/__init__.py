@@ -31,9 +31,10 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("succ_table.cu", "seed_bits.cu", "turbo_stream.cu",
-           "lf_stream.cu", "lf_split.cu", "lf_concat.cu", "lf_subsetwt.cu", "build_sbwt.cu")
-HEADERS = ("sbwt_common.cuh", "bv.cuh", "wavelet.cuh", "subset_rank.cuh", "lf_stream.cuh")
+SOURCES = ("succ_table.cu", "seed_bits.cu", "lf_stream.cu", "lf_split.cu", "lf_concat.cu",
+           "lf_subsetwt.cu", "lf_wide.cu", "build_sbwt.cu")
+HEADERS = ("sbwt_common.cuh", "bv.cuh", "wavelet.cuh", "subset_rank.cuh", "lf_stream.cuh",
+           "succ_table.cuh", "turbo_stream.cuh", "rank_ops.cuh")
 NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -42,13 +43,26 @@ NVCC_FLAGS = (
 
 VARIANTS = ("plain-matrix", "rrr-matrix", "mef-matrix", "plain-split", "rrr-split",
             "mef-split", "plain-concat", "mef-concat", "plain-subsetwt", "rrr-subsetwt")
-# the source file (and C entry point sbwt_lf_<family>) of each variant's instances
+# the rank type of the wide (int64) tier: plain-matrix rows with 64-bit counts
+WIDE = "wide-matrix"
+# every rank type of csrc/subset_rank.cuh, in the order the kernels number them
+RANK_TYPES = VARIANTS + (WIDE,)
+# the source file (and C entry point sbwt_lf_<family>) of each rank type's instances
 FAMILY = {v: v.split("-")[1] for v in VARIANTS}
-# the LF entry points of lf_stream.cuh: K14, then K1's fill and search
-LF_OPS = ("lf_stream", "precalc_fill", "kmer_search")
+FAMILY[WIDE] = "wide"
+# the kernels that are templates over the rank type (csrc/rank_ops.cuh), in
+# the order of the LFOp enum: K14, K1's fill and search, partial_search,
+# K2's succ1 and K4
+LF_OPS = ("lf_stream", "precalc_fill", "kmer_search", "partial_search", "succ1", "turbo_stream")
+
+
+def pos_dtype(variant: str) -> torch.dtype:
+    """The type of a rank type's positions: columns, interval bounds, answers."""
+    return torch.int64 if variant == WIDE else torch.int32
 
 
 def lf_counter(op: str, variant: str) -> str:
+    """The LAUNCHES key of one instance."""
     return f"{op}[{variant}]"
 
 
@@ -57,12 +71,11 @@ BUILD_OPS = ("pack_windows", "edge_src_probe", "emit_dummies", "finalize_tables"
 
 # Launches per kernel entry point since the last reset_launch_counts().
 LAUNCHES = {
-    "succ1": 0,
     "succ_compose": 0,
     "seed_bits": 0,
-    "turbo_stream": 0,
+    f"seed_bits[{WIDE}]": 0,
     **{op: 0 for op in BUILD_OPS},
-    **{lf_counter(op, v): 0 for op in LF_OPS for v in VARIANTS},
+    **{lf_counter(op, v): 0 for op in LF_OPS for v in RANK_TYPES},
 }
 
 _lib = None
@@ -72,10 +85,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _SIGNATURES = {
-    "sbwt_succ1": [_I, _P, _LL, _P, _P, _I, _P, _P],
     "sbwt_succ_compose": [_I, _P, _I, _I, _P, _P],
-    "sbwt_seed_bits": [_I, _P, _I, _P, _P],
-    "sbwt_turbo_stream": [_I, _P, _I, _P, _LL, _P, _P, _I, _P, _P, _LL, _I, _I, _P, _P, _P],
+    "sbwt_seed_bits": [_I, _P, _I, _I, _P, _P],
     # (device, op, variant, rank descriptor*, LFArgs*, stream)
     **{f"sbwt_lf_{fam}": [_I, _I, _I, _P, _P, _P] for fam in sorted(set(FAMILY.values()))},
     "sbwt_lf_desc_sizes": [_P],
@@ -123,6 +134,7 @@ SUBSETWT_DESCS = {k: _struct(f"SubsetWTRank_{k}", [("acgt", WT_DESCS[k]), ("ac",
                                                    ("gt", WT_DESCS[k])])
                   for k in ("plain", "rrr")}
 PlainMatrixDesc = _struct("PlainMatrix", [("rank_tbl", _P), ("n_words", _LL)])
+WideMatrixDesc = _struct("WideMatrix", [("rank_tbl", _P), ("n_words", _LL)])
 RANK_DESCS = {
     "plain-matrix": PlainMatrixDesc,
     "rrr-matrix": MATRIX_DESCS["rrr"], "mef-matrix": MATRIX_DESCS["mef"],
@@ -130,10 +142,13 @@ RANK_DESCS = {
     "mef-split": SPLIT_DESCS["mef"],
     "plain-concat": CONCAT_DESCS["plain"], "mef-concat": CONCAT_DESCS["rrr"],
     "plain-subsetwt": SUBSETWT_DESCS["plain"], "rrr-subsetwt": SUBSETWT_DESCS["rrr"],
+    WIDE: WideMatrixDesc,
 }
 LFArgs = _struct("LFArgs", [
-    ("sgs_tbl", _P), ("C", _P), ("precalc", _P), ("codes", _P), ("lengths", _P), ("out", _P),
-    ("B", _LL), ("L", _I), ("k", _I), ("p", _I), ("n_nodes", _I),
+    ("sgs_tbl", _P), ("C", _P), ("precalc", _P), ("codes", _P), ("lengths", _P), ("aux", _P),
+    ("tbl", _P), ("seed_bits", _P), ("out", _P), ("out_r", _P), ("out_len", _P),
+    ("B", _LL), ("n_nodes", _LL), ("L", _I), ("k", _I), ("p", _I), ("arity", _I),
+    ("row_major", _I),
 ])
 
 
@@ -207,7 +222,7 @@ def _library():
 
 def _check_desc_sizes(lib) -> None:
     """Raise unless every descriptor has the size the library compiled."""
-    types = [RANK_DESCS[v] for v in VARIANTS] + [LFArgs]
+    types = [RANK_DESCS[v] for v in RANK_TYPES] + [LFArgs]
     sizes = (ctypes.c_longlong * len(types))()
     lib.sbwt_lf_desc_sizes(sizes)
     for t, size in zip(types, sizes):
@@ -246,20 +261,6 @@ def _launch(entry: str, counter: str, device: torch.device, *args) -> None:
     LAUNCHES[counter] += 1
 
 
-def succ1(rank_tbl, n_words: int, sgs_tbl, C, n_nodes: int) -> torch.Tensor:
-    """K2 (succ_table.cu): int32 [4, n] successor of each column by each char."""
-    dev = _cuda_device(rank_tbl)
-    out = torch.empty((4, n_nodes), dtype=torch.int32, device=dev)
-    _launch(
-        "sbwt_succ1", "succ1", dev,
-        _check(rank_tbl, "rank_tbl", torch.int32, dev, (4 * n_words, 2), 8), n_words,
-        _check(sgs_tbl, "sgs_tbl", torch.int32, dev, (n_words, 2), 8),
-        _check(C, "C", torch.int32, dev, (4,)), n_nodes,
-        _check(out, "succ", torch.int32, dev),
-    )
-    return out
-
-
 def succ_compose(succ, arity: int) -> torch.Tensor:
     """K2 (succ_table.cu): the arity-A table from succ [4, n]: [n, 4] for
     A = 1, [n * 16, 2] for A = 2, [n * 64, 4] for A = 3."""
@@ -277,43 +278,24 @@ def succ_compose(succ, arity: int) -> torch.Tensor:
 
 def seed_bits(precalc, p: int) -> torch.Tensor:
     """K3 (seed_bits.cu): packed 2-bit pair entries, int32 [4^(p+1) / 16]
-    (the bits of the JAX package's uint32 words)."""
+    (the bits of the JAX package's uint32 words), of an int32 or (wide
+    tier) int64 precalc table [4^p, 2]."""
     dev = _cuda_device(precalc)
+    wide = precalc.dtype == torch.int64
     out = torch.empty(4 ** (p + 1) // 16, dtype=torch.int32, device=dev)
     _launch(
-        "sbwt_seed_bits", "seed_bits", dev,
-        _check(precalc, "precalc", torch.int32, dev, (4**p, 2), 8), p,
-        _check(out, "out", torch.int32, dev),
-    )
-    return out
-
-
-def turbo_stream(tbl, arity: int, rank_tbl, n_words: int, C, precalc, p: int,
-                 seed_bits_tbl, codes, lengths, k: int) -> torch.Tensor:
-    """K4 (turbo_stream.cu): int32 [B, L - k + 1] streaming answers of the
-    int8 codes [B, L] with valid lengths int32 [B]."""
-    dev = _cuda_device(codes)
-    B, L = codes.shape
-    out = torch.empty((B, L - k + 1), dtype=torch.int32, device=dev)
-    if B == 0:
-        return out
-    sb = 0 if seed_bits_tbl is None else _check(seed_bits_tbl, "seed_bits", torch.int32, dev)
-    _launch(
-        "sbwt_turbo_stream", "turbo_stream", dev,
-        _check(tbl, "tbl", torch.int32, dev, align=16), arity,
-        _check(rank_tbl, "rank_tbl", torch.int32, dev, (4 * n_words, 2), 8), n_words,
-        _check(C, "C", torch.int32, dev, (4,)),
-        _check(precalc, "precalc", torch.int32, dev, (4**p, 2), 8), p, sb,
-        _check(codes, "codes", torch.int8, dev, align=1), B, L, k,
-        _check(lengths, "lengths", torch.int32, dev, (B,)),
+        "sbwt_seed_bits", f"seed_bits[{WIDE}]" if wide else "seed_bits", dev,
+        _check(precalc, "precalc", torch.int64 if wide else torch.int32, dev, (4**p, 2),
+               16 if wide else 8), p, int(wide),
         _check(out, "out", torch.int32, dev),
     )
     return out
 
 
 # ---------------------------------------------------------------------------
-# K14 and K1: LF engines over any variant's ranks (csrc/lf_stream.cuh; one
-# instance per variant in lf_<family>.cu)
+# The kernels over any rank type (csrc/rank_ops.cuh; one instance per rank
+# type in lf_<family>.cu): K14, K1, partial_search, K2's succ1 and K4.
+# Positions (C, precalc, answers) are int32, or int64 for the wide type.
 # ---------------------------------------------------------------------------
 
 
@@ -330,42 +312,55 @@ def _lf_launch(op: str, variant: str, rank_desc, device: torch.device, **fields)
     entry = f"sbwt_lf_{FAMILY[variant]}"
     fn = getattr(_library(), entry)
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = fn(device.index, LF_OPS.index(op), VARIANTS.index(variant), ctypes.byref(rank_desc),
+    err = fn(device.index, LF_OPS.index(op), RANK_TYPES.index(variant), ctypes.byref(rank_desc),
              ctypes.byref(args), stream)
     if err != 0:
         raise RuntimeError(f"{entry} ({op}, {variant}): CUDA launch failed with cudaError {err}")
     LAUNCHES[lf_counter(op, variant)] += 1
 
 
+def _check_C(C, variant: str, dev) -> int:
+    return _check(C, "C", pos_dtype(variant), dev, (4,), pos_dtype(variant).itemsize)
+
+
+def _check_precalc(precalc, variant: str, p: int, dev) -> int:
+    dt = pos_dtype(variant)
+    return _check(precalc, "precalc", dt, dev, (max(1, 4**p), 2), 2 * dt.itemsize)
+
+
+def _check_reads(codes, lengths, dev):
+    B = codes.shape[0]
+    return (_check(codes, "codes", torch.int8, dev, align=1),
+            _check(lengths, "lengths", torch.int32, dev, (B,)))
+
+
 def lf_stream(variant: str, rank_desc, sgs_tbl, C, precalc, p: int, k: int, n_nodes: int,
               codes, lengths) -> torch.Tensor:
-    """K14 (lf_stream.cuh): int32 [B, L - k + 1] LF streaming answers of the
+    """K14 (lf_stream.cuh): [B, L - k + 1] LF streaming answers of the
     int8 codes [B, L] with valid lengths int32 [B]."""
     dev = _cuda_device(codes)
     B, L = codes.shape
-    out = torch.empty((B, L - k + 1), dtype=torch.int32, device=dev)
+    out = torch.empty((B, L - k + 1), dtype=pos_dtype(variant), device=dev)
     if B == 0:
         return out
+    codes_p, lengths_p = _check_reads(codes, lengths, dev)
     _lf_launch(
         "lf_stream", variant, rank_desc, dev,
         sgs_tbl=_check(sgs_tbl, "sgs_tbl", torch.int32, dev, align=8),
-        C=_check(C, "C", torch.int32, dev, (4,)),
-        precalc=_check(precalc, "precalc", torch.int32, dev, (max(1, 4**p), 2), 8),
-        codes=_check(codes, "codes", torch.int8, dev, align=1),
-        lengths=_check(lengths, "lengths", torch.int32, dev, (B,)),
-        out=_check(out, "out", torch.int32, dev), B=B, L=L, k=k, p=p, n_nodes=n_nodes,
+        C=_check_C(C, variant, dev), precalc=_check_precalc(precalc, variant, p, dev),
+        codes=codes_p, lengths=lengths_p,
+        out=_check(out, "out", out.dtype, dev), B=B, L=L, k=k, p=p, n_nodes=n_nodes,
     )
     return out
 
 
 def precalc_fill(variant: str, rank_desc, C, n_nodes: int, p: int) -> torch.Tensor:
-    """K1 (lf_stream.cuh): int32 [4^p, 2] intervals of all p-mers over the
-    variant's ranks, (-1, -1) when empty."""
+    """K1 (lf_stream.cuh): [4^p, 2] intervals of all p-mers over the rank
+    type's ranks, (-1, -1) when empty."""
     dev = _cuda_device(C)
-    out = torch.empty((4**p, 2), dtype=torch.int32, device=dev)
-    _lf_launch("precalc_fill", variant, rank_desc, dev,
-               C=_check(C, "C", torch.int32, dev, (4,)),
-               out=_check(out, "out", torch.int32, dev, align=8),
+    out = torch.empty((4**p, 2), dtype=pos_dtype(variant), device=dev)
+    _lf_launch("precalc_fill", variant, rank_desc, dev, C=_check_C(C, variant, dev),
+               out=_check(out, "out", out.dtype, dev, align=2 * out.dtype.itemsize),
                B=4**p, p=p, n_nodes=n_nodes)
     return out
 
@@ -373,17 +368,88 @@ def precalc_fill(variant: str, rank_desc, C, n_nodes: int, p: int) -> torch.Tens
 def kmer_search(variant: str, rank_desc, C, n_nodes: int, precalc, p: int,
                 codes) -> torch.Tensor:
     """K1 (lf_stream.cuh): colex rank or -1 of each int8 k-mer row [B, k]
-    over the variant's ranks."""
+    over the rank type's ranks."""
     dev = _cuda_device(codes)
     B, k = codes.shape
-    out = torch.empty(B, dtype=torch.int32, device=dev)
+    out = torch.empty(B, dtype=pos_dtype(variant), device=dev)
     if B == 0:
         return out
-    _lf_launch("kmer_search", variant, rank_desc, dev,
-               C=_check(C, "C", torch.int32, dev, (4,)),
-               precalc=_check(precalc, "precalc", torch.int32, dev, (max(1, 4**p), 2), 8),
+    _lf_launch("kmer_search", variant, rank_desc, dev, C=_check_C(C, variant, dev),
+               precalc=_check_precalc(precalc, variant, p, dev),
                codes=_check(codes, "codes", torch.int8, dev, align=1),
-               out=_check(out, "out", torch.int32, dev), B=B, k=k, p=p, n_nodes=n_nodes)
+               out=_check(out, "out", out.dtype, dev), B=B, k=k, p=p, n_nodes=n_nodes)
+    return out
+
+
+def partial_search(variant: str, rank_desc, C, n_nodes: int, codes, lengths, start=None):
+    """partial_search (lf_stream.cuh): LF steps over the first lengths[b]
+    chars of each int8 row of codes [B, L] (lowercase as its base), from
+    the full interval or from the lane's row of ``start`` [B, 2], until the
+    first char < 0 or emptied interval. Returns (l [B], r [B], matched
+    length int32 [B])."""
+    dev = _cuda_device(codes)
+    B, L = codes.shape
+    dt = pos_dtype(variant)
+    l, r = torch.empty(B, dtype=dt, device=dev), torch.empty(B, dtype=dt, device=dev)
+    mlen = torch.empty(B, dtype=torch.int32, device=dev)
+    if B == 0:
+        return l, r, mlen
+    codes_p, lengths_p = _check_reads(codes, lengths, dev)
+    aux = 0 if start is None else _check(start, "start", dt, dev, (B, 2), 2 * dt.itemsize)
+    _lf_launch("partial_search", variant, rank_desc, dev, C=_check_C(C, variant, dev),
+               codes=codes_p, lengths=lengths_p, aux=aux, out=_check(l, "l", dt, dev),
+               out_r=_check(r, "r", dt, dev), out_len=_check(mlen, "mlen", torch.int32, dev),
+               B=B, L=L, n_nodes=n_nodes)
+    return l, r, mlen
+
+
+def succ1(variant: str, rank_desc, sgs_tbl, C, n_nodes: int, cols=None,
+          row_major: bool = False) -> torch.Tensor:
+    """K2 (succ_table.cuh): the successor of each column's suffix group by
+    each char, or -1, over the rank type's ranks: [4, B], or [B, 4] when
+    ``row_major``. The columns are ``cols`` [B], or all n_nodes."""
+    dev = _cuda_device(C)
+    dt = pos_dtype(variant)
+    B = n_nodes if cols is None else cols.shape[0]
+    out = torch.empty((B, 4) if row_major else (4, B), dtype=dt, device=dev)
+    if B == 0:
+        return out
+    _lf_launch("succ1", variant, rank_desc, dev,
+               sgs_tbl=_check(sgs_tbl, "sgs_tbl", torch.int32, dev, align=8),
+               C=_check_C(C, variant, dev),
+               aux=0 if cols is None else _check(cols, "cols", dt, dev, (B,), dt.itemsize),
+               out=_check(out, "succ", dt, dev, align=16), B=B, n_nodes=n_nodes,
+               row_major=int(row_major))
+    return out
+
+
+def turbo_stream(variant: str, rank_desc, tbl, arity: int, C, precalc, p: int, seed_bits_tbl,
+                 codes, lengths, k: int, n_nodes: int) -> torch.Tensor:
+    """K4 (turbo_stream.cuh): [B, L - k + 1] streaming answers of the int8
+    codes [B, L] with valid lengths int32 [B], over the arity-A successor
+    table and, for restarts from a wide seed, the rank type's ranks. The
+    wide type's table is int64 [n, 4] (arity 1)."""
+    dev = _cuda_device(codes)
+    B, L = codes.shape
+    dt = pos_dtype(variant)
+    out = torch.empty((B, L - k + 1), dtype=dt, device=dev)
+    if B == 0:
+        return out
+    if p <= 0:
+        raise ValueError("turbo_stream needs a precalc table (p > 0)")
+    shape = {1: (n_nodes, 4), 2: (n_nodes * 16, 2), 3: (n_nodes * 64, 4)}.get(arity)
+    if shape is None or (variant == WIDE and arity != 1):
+        raise ValueError(f"turbo_stream: no arity-{arity} table on {variant}")
+    codes_p, lengths_p = _check_reads(codes, lengths, dev)
+    sb = 0 if seed_bits_tbl is None else _check(seed_bits_tbl, "seed_bits", torch.int32, dev,
+                                                (4 ** (p + 1) // 16,))
+    _lf_launch(
+        "turbo_stream", variant, rank_desc, dev,
+        tbl=_check(tbl, "tbl", dt, dev, shape, 16), arity=arity, C=_check_C(C, variant, dev),
+        precalc=_check_precalc(precalc, variant, p, dev), seed_bits=sb,
+        codes=codes_p, lengths=lengths_p, out=_check(out, "out", dt, dev),
+        B=B, L=L, k=k, p=p, n_nodes=n_nodes,
+    )
     return out
 
 

@@ -11,7 +11,9 @@ its predecessor, so the left walk of SBWT.hh:563 is one row too:
     precalc  int32 [4^p, 2]          intervals of all p-mers; [1, 2] zeros when p = 0
 
 ``rank_c``, ``extend_rank`` and ``sg_start`` are the plain PyTorch
-versions of the device helpers in csrc/sbwt_common.cuh.
+versions of the device helpers in csrc/sbwt_common.cuh. An index of 2^31
+columns or more is a ``WideMatrixIndex`` (models/wide.py), to which
+``from_packed_rows`` routes by itself.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ class MatrixIndex(nn.Module):
 
     variant = "plain-matrix"
     max_precalc_k = MAX_PRECALC_K
+    pos_dtype = torch.int32  # of C, precalc and every answer
 
     def __init__(self, rank_tbl, sgs_tbl, C, precalc, *, n_nodes: int, n_kmers: int,
                  k: int, precalc_k: int, n_words: int, has_streaming: bool):
@@ -65,7 +68,7 @@ class MatrixIndex(nn.Module):
         return sg_start(self.sgs_tbl, col)
 
     def kernel_desc(self, dev):
-        """The plain-matrix rank descriptor of the LF kernels (K1, K14)."""
+        """The plain-matrix rank descriptor of the kernels."""
         return kernels.PlainMatrixDesc(kernels.ptr(self.rank_tbl, "rank_tbl", dev, 8),
                                        self.n_words)
 
@@ -127,16 +130,23 @@ def c_array_from_rows(row_words: np.ndarray, dtype) -> np.ndarray:
     return C
 
 
+def needs_wide_index(n: int) -> bool:
+    """Whether n columns are past int32 positions (the wide tier's)."""
+    return n >= 2**31
+
+
 def from_packed_rows(row_words: np.ndarray, n: int, sgs_words: np.ndarray | None,
                      k: int, n_kmers: int, device, precalc_k: int = 0,
                      precalc_table: np.ndarray | None = None) -> MatrixIndex:
     """Index from packed uint32 rows [4, n // 32 + 1] (and the packed
     suffix-group starts, or None) without bool arrays. Fills the precalc
-    table on the device (K1) unless ``precalc_table`` is given."""
-    if n >= 2**31:
-        raise ValueError(
-            f"n = {n} columns needs the int64 (wide) engine, which is not yet ported"
-        )
+    table on the device (K1) unless ``precalc_table`` is given. With 2^31
+    columns or more the index is a WideMatrixIndex."""
+    if needs_wide_index(n):
+        from .wide import from_packed_rows_wide
+
+        return from_packed_rows_wide(row_words, n, sgs_words, k, n_kmers, device, precalc_k,
+                                     precalc_table)
     W = n // 32 + 1
     if row_words.shape != (4, W):
         raise ValueError(f"row_words shape {row_words.shape}, expected {(4, W)}")
@@ -177,26 +187,27 @@ def build_device_index(built, device, precalc_k: int = 0) -> MatrixIndex:
 
 
 def precalc_fill_plain(index, p: int, chunk: int = 1 << 22) -> torch.Tensor:
-    """Plain version of K1's precalc fill: int32 [4^p, 2] intervals of all
-    p-mers, lane i spelling chars (i >> 2j) & 3, (-1, -1) when empty."""
+    """Plain version of K1's precalc fill: [4^p, 2] intervals of all
+    p-mers in the index's position type, lane i spelling chars
+    (i >> 2j) & 3, (-1, -1) when empty."""
     n_entries = 4**p
-    out = torch.empty((n_entries, 2), dtype=torch.int32, device=index.device)
+    out = torch.empty((n_entries, 2), dtype=index.pos_dtype, device=index.device)
     for s in range(0, n_entries, chunk):
         ids = torch.arange(s, min(s + chunk, n_entries), device=index.device)
         codes = torch.stack([(ids >> (2 * j)) & 3 for j in range(p)], dim=1)
         l0 = torch.zeros_like(ids)
         r0 = torch.full_like(ids, index.n_nodes - 1)
         l, r, alive = update_interval_batch(index, codes, l0, r0)
-        out[s : s + len(ids), 0] = torch.where(alive, l, -1).int()
-        out[s : s + len(ids), 1] = torch.where(alive, r, -1).int()
+        out[s : s + len(ids), 0] = torch.where(alive, l, -1)
+        out[s : s + len(ids), 1] = torch.where(alive, r, -1)
     return out
 
 
 def with_precalc(index, precalc_k: int):
     """Fill the table of the SBWT intervals of all 4^p strings
     (SBWT.hh:617-645), indexed colex-reversed: idx = sum_i code[i] << 2i,
-    over the ranks of any variant's index (a MatrixIndex or a
-    GenericIndex). On a CUDA index this launches the variant's K1 fill; on
+    over the ranks of any index (a MatrixIndex, a WideMatrixIndex or a
+    variant's GenericIndex), in its position type. On a CUDA index this launches the variant's K1 fill; on
     a CPU index it runs the plain version. Updates ``index`` in place and
     returns it."""
     p = int(precalc_k)
@@ -207,7 +218,7 @@ def with_precalc(index, precalc_k: int):
     if p > index.k:
         raise ValueError(f"precalc_k {p} > k {index.k}")
     if p == 0:
-        tbl = torch.zeros((1, 2), dtype=torch.int32, device=index.device)
+        tbl = torch.zeros((1, 2), dtype=index.pos_dtype, device=index.device)
     elif index.device.type == "cuda":
         tbl = kernels.precalc_fill(index.variant, index.kernel_desc(index.device), index.C,
                                    index.n_nodes, p)

@@ -4,7 +4,8 @@ The surface of sbwt_tpu/models/sbwt.py in PyTorch. ``build`` constructs on
 the host (the port's own construct/inmemory.py and external.py) and
 uploads; ``build_on_device`` constructs on the device (construct/device.py).
 The index tables live on an explicit ``device``. ``variant`` picks the
-subset-rank structure: plain-matrix keeps the fused-row ``MatrixIndex``,
+subset-rank structure: plain-matrix keeps the fused-row ``MatrixIndex``
+(a ``WideMatrixIndex`` with int64 positions from 2^31 columns on),
 the nine compressed variants a ``GenericIndex`` over their own structure.
 On a CUDA device every query runs a hand-written kernel; on the CPU the
 plain PyTorch versions run. The ``search_batch`` /
@@ -12,7 +13,8 @@ plain PyTorch versions run. The ``search_batch`` /
 surface is the one the query runner (io/query_runner.py) drives.
 
 Streaming search runs the turbo successor engine once ``enable_turbo``
-has built its table (plain-matrix only), and the LF engine otherwise.
+has built its table from the index's own ranks (any variant, and the wide
+tier at arity 1), and the LF engine otherwise.
 """
 from __future__ import annotations
 
@@ -45,9 +47,10 @@ class SBWT:
 
     def __init__(self, device_index, bits_packed: np.ndarray, n_cols: int,
                  sgs_packed: np.ndarray | None, variant: str = "plain-matrix"):
-        """Wrap a built index (a MatrixIndex, or a GenericIndex of
-        ``variant``). The host keeps the rows byte-packed (little bit
-        order, [4, ceil(n/8)]) for serialization and re-encoding."""
+        """Wrap a built index (a MatrixIndex or WideMatrixIndex, or a
+        GenericIndex of ``variant``). The host keeps the rows byte-packed
+        (little bit order, [4, ceil(n/8)]) for serialization and
+        re-encoding."""
         require_known_variant(variant)
         self.device_index = device_index
         self.variant = variant
@@ -67,7 +70,8 @@ class SBWT:
                     k: int, n_kmers: int, device, precalc_k: int = 0,
                     precalc_table: np.ndarray | None = None) -> "SBWT":
         """Index from byte-packed rows [4, ceil(n/8)] (little bit order),
-        never expanding them to bools."""
+        never expanding them to bools. With 2^31 columns or more the index
+        is a WideMatrixIndex (int64 positions)."""
         W = n // 32 + 1
 
         def to_words(packed_rows):
@@ -283,18 +287,14 @@ class SBWT:
         for streaming search. arity=None picks the largest of 3, 2, 1 whose
         table fits half of the free device memory (free_bytes overrides the
         measurement) and returns None, leaving the LF engine in use, when
-        none fits. Returns the arity.
+        none fits. Returns the arity. The table is built from the index's
+        own ranks, whatever the variant; a wide index has the arity-1 tier
+        only (32 B a column), whatever arity is asked.
 
         Raises TurboUnavailable when the index cannot have a table (no
-        streaming support, or an arity past int32 row indexing), and
-        NotImplementedError on a compressed variant."""
+        streaming support, or an arity past int32 row indexing)."""
         if not self.has_streaming_query_support():
             raise TurboUnavailable("turbo engine requires streaming support (suffix group marks)")
-        if self.variant != "plain-matrix":
-            raise NotImplementedError(
-                f"the turbo engine on variant {self.variant} is not yet ported to sbwt_tpu_torch "
-                "(use --engine lf)"
-            )
         if self.device_index.precalc_k <= 0:
             # the reference's default prefix length (sbwt_build.cpp -p 8)
             self.do_kmer_prefix_precalc(min(self.k, 8))
@@ -302,12 +302,13 @@ class SBWT:
             if free_bytes is None:
                 free_bytes = device_free_bytes(self.device)
             arity = select_turbo_arity(self.number_of_subsets(), free_bytes,
-                                       self.device_index.precalc_k)
+                                       self.device_index.precalc_k,
+                                       wide=self.device_index.pos_dtype == torch.int64)
             if arity is None:
                 self._turbo = None
                 return None
         self._turbo = build_turbo(self.device_index, arity=arity)
-        return arity
+        return self._turbo.arity
 
     def streaming_search_batch(self, codes: np.ndarray, lengths: np.ndarray | None = None
                                ) -> np.ndarray:
@@ -331,3 +332,50 @@ class SBWT:
         if len(text) < self.k:
             return []
         return [int(x) for x in self.streaming_search_batch(encode_query(text)[None, :])[0]]
+
+    def partial_search_batch(self, codes: np.ndarray, lengths: np.ndarray | None = None):
+        """Batched partial search; codes [B, L] padded with -1. Returns
+        (l, r, matched length) arrays: the interval of each row's longest
+        matching prefix."""
+        lengths_t = None if lengths is None else torch.from_numpy(
+            np.asarray(lengths, dtype=np.int32)).to(self.device)
+        out = engines.partial_search_batch(self.device_index,
+                                           _as_int8_tensor(codes, self.device), lengths_t)
+        return tuple(t.cpu().numpy() for t in out)
+
+    def partial_search(self, text: str) -> tuple[tuple[int, int], int]:
+        """Longest matching prefix interval (SBWT.hh:526-537)."""
+        l, r, mlen = self.partial_search_batch(encode_query(text)[None, :])
+        return (int(l[0]), int(r[0])), int(mlen[0])
+
+    def update_sbwt_interval(self, s: str, interval: tuple[int, int]) -> tuple[int, int]:
+        """Run LF iterations from a given interval (SBWT.hh:423-437);
+        (-1, -1) when a char is not uppercase ACGT or the interval empties."""
+        if interval[0] == -1:
+            return interval
+        codes = encode_query(s)
+        codes = np.where((codes >= 0) & (codes < 4), codes, -1)[None, :]
+        l, r, mlen = engines.partial_search_batch(
+            self.device_index, _as_int8_tensor(codes, self.device),
+            start=torch.tensor([interval], dtype=self.device_index.pos_dtype))
+        if int(mlen[0]) != len(s):
+            return (-1, -1)
+        return (int(l[0]), int(r[0]))
+
+    def forward_batch(self, nodes: np.ndarray, chars: np.ndarray) -> np.ndarray:
+        """The successor of each node by its char code (0..3), or -1."""
+        if not self.has_streaming_query_support():
+            raise RuntimeError("streaming support required for forward")
+        di = self.device_index
+        nodes_t = torch.as_tensor(np.asarray(nodes)).to(device=self.device, dtype=di.pos_dtype)
+        chars_t = torch.as_tensor(np.asarray(chars)).to(device=self.device, dtype=torch.int64)
+        return engines.forward_batch(di, nodes_t, chars_t).cpu().numpy()
+
+    def forward(self, node: int, c: str) -> int:
+        """Follow a labeled edge in the de Bruijn graph (SBWT.hh:369-381)."""
+        if not self.has_streaming_query_support():
+            raise RuntimeError("streaming support required for forward")
+        code = int(encode_query(c)[0])
+        if code < 0 or code >= 4:
+            return -1
+        return int(self.forward_batch(np.array([node]), np.array([code]))[0])

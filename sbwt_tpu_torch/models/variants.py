@@ -26,6 +26,7 @@ class GenericIndex(nn.Module):
     MatrixIndex), C int32 [4] and precalc int32 [max(1, 4^p), 2]."""
 
     max_precalc_k = MAX_GENERIC_PRECALC_K
+    pos_dtype = torch.int32
 
     def __init__(self, struct: nn.Module, sgs_tbl, C, precalc, *, variant: str, n_nodes: int,
                  n_kmers: int, k: int, precalc_k: int, has_streaming: bool):
@@ -55,7 +56,7 @@ class GenericIndex(nn.Module):
         return sg_start(self.sgs_tbl, col)
 
     def kernel_desc(self, dev):
-        """The structure's rank descriptor of the LF kernels (K1, K14)."""
+        """The structure's rank descriptor of the kernels."""
         return self.struct.desc(dev)
 
     def size_in_bytes(self) -> int:
@@ -71,7 +72,8 @@ def build_generic_index(variant: str, bits: np.ndarray, suffix_group_starts, k: 
     otherwise filled over the variant's own ranks."""
     n = bits.shape[1]
     if n >= 2**31:
-        raise ValueError(f"n = {n} columns needs the int64 (wide) engine, which is not yet ported")
+        raise ValueError(f"n = {n} columns needs the int64 (wide) engine, which has no "
+                         f"compressed variant (plain-matrix only)")
     if struct is None:
         struct = build_struct(variant, bits, device)
     has_streaming = suffix_group_starts is not None and len(suffix_group_starts) > 0

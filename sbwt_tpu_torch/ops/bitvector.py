@@ -6,8 +6,9 @@ cumulative popcount, int32 rows ``(word, cum)``, so that
 
     rank(pos) = cum[pos >> 5] + popcount(word[pos >> 5] & ((1 << (pos & 31)) - 1))
 
-reads one 8-byte row (the layout of sbwt_tpu/ops/bitvector.py). The host
-helpers are numpy; the plain rank functions widen words to int64 and mask
+reads one 8-byte row (the layout of sbwt_tpu/ops/bitvector.py). The wide
+tier's rows are int32 ``(word, cum low half, cum high half)``, 12 bytes,
+for counts past 2^31. The host helpers are numpy; the plain rank functions widen words to int64 and mask
 them to 32 bits, because torch's uint32 support is partial and it has no
 popcount (a SWAR popcount stands in).
 """
@@ -57,6 +58,26 @@ def rank_table_from_words(words: np.ndarray) -> np.ndarray:
     return tbl
 
 
+def rank_table_from_words_wide(words: np.ndarray, window: int = 1 << 24) -> np.ndarray:
+    """The table of a bit vector with 2^31 set bits or more: int32 [W, 3]
+    rows (bits word, low 32 bits of the exclusive cum popcount, high 32).
+    Built window by window with a running total, so the int64 transients
+    stay at 8 bytes a word of one window, not of the whole vector."""
+    W = len(words)
+    tbl = np.empty((W, 3), dtype=np.int32)
+    tbl[:, 0] = words.view(np.int32)
+    total = 0
+    for w0 in range(0, W, window):
+        cum = np.cumsum(popcount_words_host(words[w0 : w0 + window]), dtype=np.int64)
+        excl = total + cum
+        excl[1:] = excl[:-1]
+        excl[0] = total
+        tbl[w0 : w0 + window, 1] = (excl & _LOW32).astype(np.uint32).view(np.int32)
+        tbl[w0 : w0 + window, 2] = (excl >> 32).astype(np.int32)
+        total += int(cum[-1])
+    return tbl
+
+
 def rank_table_host(bools: np.ndarray) -> np.ndarray:
     """The interleaved (bits, exclusive cum popcount) table of a bool array."""
     return rank_table_from_words(pack_bits_host(bools))
@@ -84,6 +105,18 @@ def rank_get(tbl: torch.Tensor, pos: torch.Tensor, row0=0):
     word = word_u32(row[..., 0])
     r = row[..., 1].long() + popcount32(word & ((1 << o) - 1))
     return r, (word >> o) & 1
+
+
+def rank_get_wide(tbl: torch.Tensor, pos: torch.Tensor, row0=0):
+    """rank_get over the wide tier's [W, 3] rows. The count is
+    (high << 32) | low with the low half taken as unsigned: sign-extending
+    it would corrupt every count whose bit 31 is set."""
+    pos = pos.long()
+    row = tbl[row0 + (pos >> 5)]
+    o = pos & 31
+    word = word_u32(row[..., 0])
+    cum = (row[..., 2].long() << 32) | word_u32(row[..., 1])
+    return cum + popcount32(word & ((1 << o) - 1)), (word >> o) & 1
 
 
 def rank(tbl: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:

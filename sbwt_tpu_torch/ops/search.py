@@ -2,13 +2,17 @@
 
 The port of sbwt_tpu/ops/search.py (``lf_step``, ``update_interval_batch``,
 ``search_batch``, ``extend_from_column``, ``forward_batch``,
-``streaming_chain`` and ``streaming_search``) as plain PyTorch over int64
-lanes, written against the rank interface (``rank_c``, ``extend_rank``,
-``sg_start``) that the plain-matrix ``MatrixIndex`` and the compressed
-variants' ``GenericIndex`` share. On a CUDA index, ``search_batch``
-launches K1 and ``streaming_search`` K14, each the instance of the
-index's variant (csrc/lf_stream.cuh); the plain versions serve CPU tensors and are what the kernels are
-checked against.
+``streaming_chain``, ``streaming_search`` and ``partial_search_batch``) as
+plain PyTorch over int64 lanes, written against the rank interface
+(``rank_c``, ``extend_rank``, ``sg_start``) that the plain-matrix
+``MatrixIndex``, the wide ``WideMatrixIndex`` and the compressed variants'
+``GenericIndex`` share. Results take the index's position type
+(``pos_dtype``: int32, or int64 on the wide tier). On a CUDA index,
+``search_batch`` launches K1, ``streaming_search`` K14,
+``partial_search_batch`` the partial_search kernel and ``forward_batch``
+K2's succ1 over the given columns, each the instance of the index's rank
+type (csrc/rank_ops.cuh); the plain versions serve CPU tensors and are
+what the kernels are checked against.
 """
 from __future__ import annotations
 
@@ -41,7 +45,7 @@ def update_interval_batch(index, codes, l0, r0):
 
 
 def search_batch_plain(index, codes):
-    """Plain version of K1's k-mer search: int32 [B] colex ranks or -1.
+    """Plain version of K1's k-mer search: [B] colex ranks or -1.
     Only codes 0..3 are valid characters (SBWT.hh:426-427)."""
     B, k = codes.shape
     codes = codes.long()
@@ -61,7 +65,7 @@ def search_batch_plain(index, codes):
     for j in range(p, k):
         l, r, alive = lf_step(index, l, r, cc[:, j], alive)
     # a found k-mer interval is always a singleton (SBWT.hh:410-414)
-    return torch.where(valid & alive, l, -1).int()
+    return torch.where(valid & alive, l, -1).to(index.pos_dtype)
 
 
 def search_batch(index, codes):
@@ -84,8 +88,15 @@ def extend_from_column(index, col, c):
 
 
 def forward_batch(index, nodes, c):
-    """Vectorized SBWT::forward (SBWT.hh:369-381)."""
-    return extend_from_column(index, nodes, c)
+    """Vectorized SBWT::forward (SBWT.hh:369-381): the successor of each
+    node by its char c (0..3), or -1. CUDA nodes launch K2's succ1 over
+    them, which gives all four successors of each; c picks one."""
+    if nodes.device.type != "cuda":
+        return extend_from_column(index, nodes, c).to(index.pos_dtype)
+    succ = kernels.succ1(index.variant, index.kernel_desc(nodes.device), index.sgs_tbl, index.C,
+                         index.n_nodes, cols=nodes.to(index.pos_dtype).contiguous(),
+                         row_major=True)
+    return succ.gather(1, c.long()[:, None])[:, 0]
 
 
 def streaming_search_plain(index, codes, lengths, chunk: int = 1 << 20):
@@ -118,13 +129,13 @@ def streaming_search_plain(index, codes, lengths, chunk: int = 1 << 20):
     for s in range(0, len(lane), chunk):
         ln, ps = lane[s : s + chunk], pos[s : s + chunk]
         ans[ln, ps] = search_batch_plain(index, codes[ln[:, None], ps[:, None] + window]).long()
-    return torch.where(pos_ok, ans, -1).int()
+    return torch.where(pos_ok, ans, -1).to(index.pos_dtype)
 
 
 def streaming_search(index, codes, lengths=None):
     """Exact LF streaming search of codes [B, L] (padded with -1; ACGT =
-    0..3, acgt = 4..7, other = -1) with valid lengths [B]: int32
-    [B, L - k + 1], equal at every position to the JAX engine's
+    0..3, acgt = 4..7, other = -1) with valid lengths [B]:
+    [B, L - k + 1] in the index's position type, equal at every position to the JAX engine's
     streaming_search (SBWT.hh:545-581); positions past a read's length
     are -1. The index needs streaming support. CUDA codes must be int8,
     are read in place, and launch K14."""
@@ -140,3 +151,43 @@ def streaming_search(index, codes, lengths=None):
     return kernels.lf_stream(index.variant, index.kernel_desc(codes.device), index.sgs_tbl,
                              index.C, index.precalc, index.precalc_k, index.k, index.n_nodes,
                              codes, lengths.to(device=codes.device, dtype=torch.int32))
+
+
+def partial_search_plain(index, codes, lengths, start=None):
+    """Plain version of the partial_search kernel: a lockstep loop of LF
+    steps over all lanes. Returns (l, r) in the index's position type and
+    the matched length int32."""
+    B, L = codes.shape
+    codes = codes.long()
+    if start is None:
+        l = torch.zeros(B, dtype=torch.long, device=codes.device)
+        r = torch.full_like(l, index.n_nodes - 1)
+    else:
+        l, r = start[:, 0].long(), start[:, 1].long()
+    alive = torch.ones(B, dtype=torch.bool, device=codes.device)
+    mlen = torch.zeros(B, dtype=torch.int32, device=codes.device)
+    for t in range(L):
+        ct = codes[:, t]
+        l, r, alive = lf_step(index, l, r, ct.clamp(min=0) & 3,
+                              alive & (ct >= 0) & (t < lengths))
+        mlen = torch.where(alive, t + 1, mlen)
+    return l.to(index.pos_dtype), r.to(index.pos_dtype), mlen
+
+
+def partial_search_batch(index, codes, lengths=None, start=None):
+    """Vectorized SBWT::partial_search (SBWT.hh:526-537): the interval of
+    the longest prefix of each lane's codes [B, L] (lowercase as its base)
+    that the index matches, as (l, r, matched length). ``start`` [B, 2]
+    gives each lane an interval to go on from instead of the full one
+    (SBWT::update_sbwt_interval, SBWT.hh:423-437). CUDA codes must be int8
+    and launch the partial_search kernel of the index's rank type."""
+    B, L = codes.shape
+    if lengths is None:
+        lengths = torch.full((B,), L, dtype=torch.int32, device=codes.device)
+    lengths = lengths.to(device=codes.device, dtype=torch.int32)
+    if start is not None:
+        start = start.to(device=codes.device, dtype=index.pos_dtype).contiguous()
+    if codes.device.type != "cuda":
+        return partial_search_plain(index, codes, lengths, start)
+    return kernels.partial_search(index.variant, index.kernel_desc(codes.device), index.C,
+                                  index.n_nodes, codes, lengths, start)

@@ -1,7 +1,8 @@
 """Turbo query engine: de Bruijn successor tables of arity 1, 2 or 3.
 
-The port of the narrow (int32) engine of sbwt_tpu/ops/turbo.py. The
-successor table gives, per column and per string of A chars, the columns
+The port of sbwt_tpu/ops/turbo.py: the narrow (int32) engine over a
+plain-matrix index or any compressed variant's, and the wide (int64)
+arity-1 tier. The successor table gives, per column and per string of A chars, the columns
 reached after 1..A out-edges (SBWT.hh:566-577), with -1 propagated:
 
     arity 1: tbl int32 [n, 4]       row col: its 4 successors
@@ -9,13 +10,18 @@ reached after 1..A out-edges (SBWT.hh:566-577), with -1 propagated:
     arity 3: tbl int32 [n * 64, 4]  row col * 64 + c1 * 16 + c2 * 4 + c3: (s1, s2, s3, 0)
 
 (The JAX tables for arity 2 and 3 carry pad rows past n * 4^A that no
-query reads; these tables have none.) ``seed_bits`` packs, for every
+query reads; these tables have none.) The table is built from the index's
+own ranks and does not depend on the variant. A wide index has arity 1
+only, as in the JAX package, and holds its successors as one int64 [n, 4]
+table: the JAX package's pair of int32 tables (low and high words) and its
+low-word-only path exist because the TPU has no 64-bit lanes. ``seed_bits`` packs, for every
 (p+1)-mer m, bit0 = precalc row m mod 4^p non-empty and bit1 = precalc
 row m >> 2 non-empty, 16 two-bit entries per 32-bit word, stored as int32.
 
-On CUDA tensors the table build launches K2 (csrc/succ_table.cu), the
-seed table K3 (csrc/seed_bits.cu) and the streaming search K4
-(csrc/turbo_stream.cu); CPU tensors run the plain versions below.
+On CUDA tensors the table build launches K2 (succ1 of the index's rank
+type, csrc/succ_table.cuh, then csrc/succ_table.cu), the seed table K3
+(csrc/seed_bits.cu) and the streaming search K4 of the index's rank type
+(csrc/turbo_stream.cuh); CPU tensors run the plain versions below.
 """
 from __future__ import annotations
 
@@ -43,6 +49,11 @@ class TurboIndex(nn.Module):
         self.arity = int(arity)
 
 
+class WideTurboIndex(TurboIndex):
+    """The arity-1 tier of a wide index: tbl int64 [n, 4] (32 B a column),
+    precalc int64 [4^p, 2], C int64 [4]."""
+
+
 def turbo_from_numpy_state(state: dict, device) -> TurboIndex:
     """A TurboIndex from the fields of a JAX TurboIndex as numpy arrays
     (tbl, precalc, C, seed_bits or None) and its metadata (n_nodes, k,
@@ -56,6 +67,24 @@ def turbo_from_numpy_state(state: dict, device) -> TurboIndex:
         torch.as_tensor(np.array(state["C"], dtype=np.int32), device=device),
         None if sb is None else torch.as_tensor(np.array(sb).view(np.int32), device=device),
         n_nodes=n, k=state["k"], precalc_k=state["precalc_k"], arity=A,
+    )
+
+
+def wide_turbo_from_numpy_state(state: dict, device) -> WideTurboIndex:
+    """A WideTurboIndex from the fields of a JAX WideTurboIndex as numpy
+    arrays (tbl and tbl_hi, the low and high int32 words of the
+    successors, padded past n_nodes rows; precalc, C, seed_bits or None)
+    and its metadata (n_nodes, k, precalc_k)."""
+    n = state["n_nodes"]
+    lo = np.asarray(state["tbl"])[:n].view(np.uint32).astype(np.int64)
+    hi = np.asarray(state["tbl_hi"])[:n].astype(np.int64)
+    sb = state.get("seed_bits")
+    return WideTurboIndex(
+        torch.as_tensor((hi << 32) | lo, device=device),
+        torch.as_tensor(np.array(state["precalc"], dtype=np.int64), device=device),
+        torch.as_tensor(np.array(state["C"], dtype=np.int64), device=device),
+        None if sb is None else torch.as_tensor(np.array(sb).view(np.int32), device=device),
+        n_nodes=n, k=state["k"], precalc_k=state["precalc_k"], arity=1,
     )
 
 
@@ -80,10 +109,13 @@ def check_turbo_index_range(n_nodes: int, arity: int, what: str = "turbo table")
 # ---------------------------------------------------------------------------
 
 
-def succ1_plain(index) -> torch.Tensor:
-    """int32 [4, n]: succ[c, col] = successor of col's suffix group by c, or -1."""
-    cols = torch.arange(index.n_nodes, device=index.device)
-    return torch.stack([extend_from_column(index, cols, c) for c in range(4)]).int()
+def succ1_plain(index, cols=None) -> torch.Tensor:
+    """[4, B] in the index's position type: succ[c, i] = successor of
+    column i's suffix group by c, or -1, over ``cols`` or all columns."""
+    if cols is None:
+        cols = torch.arange(index.n_nodes, device=index.device)
+    return torch.stack([extend_from_column(index, cols, c)
+                        for c in range(4)]).to(index.pos_dtype)
 
 
 def compose_plain(succ: torch.Tensor, arity: int, chunk: int = 1 << 18) -> torch.Tensor:
@@ -131,23 +163,50 @@ def build_seed_bits(precalc: torch.Tensor, p: int) -> torch.Tensor:
     return seed_bits_plain(precalc, p)
 
 
-def build_turbo(index, arity: int = 2) -> TurboIndex:
-    """Build the successor table (K2) and seed bits (K3) of a plain-matrix
-    index. Memory per column: 16 B (arity 1), 128 B (2), 1 KiB (3)."""
+def succ1(index, cols=None, row_major: bool = False) -> torch.Tensor:
+    """K2's succ1 over the index's own ranks: the kernel of its rank type
+    on a CUDA index, the plain version on a CPU one."""
+    if index.device.type == "cuda":
+        return kernels.succ1(index.variant, index.kernel_desc(index.device), index.sgs_tbl,
+                             index.C, index.n_nodes, cols, row_major)
+    succ = succ1_plain(index, cols)
+    return succ.t().contiguous() if row_major else succ
+
+
+def _check_can_have_turbo(index) -> None:
     if not index.has_streaming:
         raise TurboUnavailable("turbo engine requires streaming support (suffix group marks)")
     if index.precalc_k <= 0:
         # the singleton-seed fast path is the whole engine
         raise ValueError("turbo engine requires a precalc table (precalc_k > 0)")
+
+
+def build_turbo_wide(index) -> WideTurboIndex:
+    """The arity-1 successor table of a wide index (K2's succ1 at int64,
+    written row by row) and its seed bits (K3): 32 B of device memory a
+    column."""
+    _check_can_have_turbo(index)
+    p = index.precalc_k
+    return WideTurboIndex(succ1(index, row_major=True), index.precalc, index.C,
+                          build_seed_bits(index.precalc, p) if p <= 14 else None,
+                          n_nodes=index.n_nodes, k=index.k, precalc_k=p, arity=1)
+
+
+def build_turbo(index, arity: int = 2) -> TurboIndex:
+    """Build the successor table (K2) and seed bits (K3) of an index from
+    its own ranks: a plain-matrix index or any compressed variant's (the
+    table is the same). Memory per column: 16 B (arity 1), 128 B (2),
+    1 KiB (3). A wide index has the arity-1 tier only, whatever arity is
+    asked (sbwt_tpu/ops/turbo.py:406-409)."""
+    _check_can_have_turbo(index)
     if arity not in (1, 2, 3):
         raise ValueError("turbo arity must be 1, 2 or 3")
+    if index.pos_dtype == torch.int64:
+        return build_turbo_wide(index)
     check_turbo_index_range(index.n_nodes, arity)
-    if index.device.type == "cuda":
-        succ = kernels.succ1(index.rank_tbl, index.n_words, index.sgs_tbl, index.C,
-                             index.n_nodes)
-        tbl = kernels.succ_compose(succ, arity)
-    else:
-        tbl = compose_plain(succ1_plain(index), arity)
+    succ = succ1(index)
+    tbl = kernels.succ_compose(succ, arity) if succ.device.type == "cuda" \
+        else compose_plain(succ, arity)
     p = index.precalc_k
     # p <= 14 keeps the (p+1)-mer pair index inside int32 (4^15 = 2^30)
     seed_bits = build_seed_bits(index.precalc, p) if p <= 14 else None
@@ -173,9 +232,9 @@ def _succ_step(turbo: TurboIndex, col, c):
 
 def fast_search(turbo: TurboIndex, codes):
     """Singleton-seed search of k-mer rows codes [..., k] (plain PyTorch).
-    Returns (ans int32, needs_slow): ans is the colex rank or -1 where
-    needs_slow is False; needs_slow marks live non-singleton seeds, which
-    only exact LF steps can answer. Only codes 0..3 are valid."""
+    Returns (ans in the table's type, needs_slow): ans is the colex rank or
+    -1 where needs_slow is False; needs_slow marks live non-singleton
+    seeds, which only exact LF steps can answer. Only codes 0..3 are valid."""
     k, p = turbo.k, turbo.precalc_k
     shape = codes.shape[:-1]
     codes = codes.reshape(-1, k).long()
@@ -189,7 +248,7 @@ def fast_search(turbo: TurboIndex, codes):
     col = torch.where(dead, -1, l)
     for j in range(p, k):
         col = _succ_step(turbo, col, cc[:, j])
-    ans = torch.where(needs_slow, -1, col).int()
+    ans = torch.where(needs_slow, -1, col).to(turbo.tbl.dtype)
     return ans.reshape(shape), needs_slow.reshape(shape)
 
 
@@ -206,7 +265,7 @@ def turbo_streaming_search_plain(turbo: TurboIndex, index, codes, lengths):
     B, L = codes.shape
     k = turbo.k
     P = L - k + 1
-    ans = torch.full((B, P), -1, dtype=torch.int32, device=codes.device)
+    ans = torch.full((B, P), -1, dtype=turbo.tbl.dtype, device=codes.device)
     prev = torch.full((B,), -1, dtype=torch.long, device=codes.device)
     lenient = torch.ones(B, dtype=torch.bool, device=codes.device)
     for i in range(P):
@@ -217,7 +276,7 @@ def turbo_streaming_search_plain(turbo: TurboIndex, index, codes, lengths):
         if len(lanes):
             cur[lanes] = search_batch_plain(index, codes[lanes, i : i + k]).long()
         lenient &= cur >= 0
-        ans[:, i] = cur.int()
+        ans[:, i] = cur
         prev = cur
     pos_ok = torch.arange(P, device=codes.device)[None, :] <= (lengths.long()[:, None] - k)
     return torch.where(pos_ok, ans, -1)
@@ -225,12 +284,15 @@ def turbo_streaming_search_plain(turbo: TurboIndex, index, codes, lengths):
 
 def turbo_streaming_search(turbo: TurboIndex, index, codes, lengths=None):
     """Exact streaming search of codes [B, L] (padded with -1; ACGT = 0..3,
-    acgt = 4..7, other = -1) with valid lengths [B]. Returns int32
-    [B, L - k + 1], equal to the JAX engine's turbo_streaming_search;
-    positions past a read's length are -1. ``index`` is the base
-    MatrixIndex, read for the exact LF steps of non-singleton seeds.
+    acgt = 4..7, other = -1) with valid lengths [B]. Returns
+    [B, L - k + 1] in the index's position type, equal to the JAX engine's
+    turbo_streaming_search; positions past a read's length are -1.
+    ``index`` is the index the table was built from (plain-matrix, wide or
+    a compressed variant's), whose ranks take the exact LF steps of
+    non-singleton seeds.
 
-    CUDA codes must be int8, are read in place, and launch K4."""
+    CUDA codes must be int8, are read in place, and launch K4 of the
+    index's rank type."""
     B, L = codes.shape
     if L < turbo.k:
         raise ValueError(f"read length {L} < k = {turbo.k}")
@@ -238,8 +300,8 @@ def turbo_streaming_search(turbo: TurboIndex, index, codes, lengths=None):
         lengths = torch.full((B,), L, dtype=torch.int32, device=codes.device)
     if codes.device.type == "cuda":
         return kernels.turbo_stream(
-            turbo.tbl, turbo.arity, index.rank_tbl, index.n_words, turbo.C,
+            index.variant, index.kernel_desc(codes.device), turbo.tbl, turbo.arity, turbo.C,
             turbo.precalc, turbo.precalc_k, turbo.seed_bits, codes,
-            lengths.to(device=codes.device, dtype=torch.int32), turbo.k,
+            lengths.to(device=codes.device, dtype=torch.int32), turbo.k, turbo.n_nodes,
         )
     return turbo_streaming_search_plain(turbo, index, codes, lengths)

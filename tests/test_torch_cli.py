@@ -2,9 +2,10 @@
 
 The port runs with ``--device cpu`` (the kernels' plain versions). Its
 search output must give the reference golden bytes of tests/test_cli.py,
-equal the JAX CLI's output on a random corpus for every engine and all
-ten variants, and come out the same from index files written by either
-CLI in either format.
+equal the JAX CLI's output on a random corpus for every engine (the turbo
+engines too, built from a compressed variant's own ranks) and all ten
+variants, and come out the same from index files written by either CLI in
+either format.
 """
 import gzip
 
@@ -229,7 +230,7 @@ def test_golden_bytes_on_every_variant(golden_index, tmp_path, variant):
     assert port_cli(["build-variant", "-i", str(golden_index), "-o", str(index),
                      "--variant", variant, *CPU]) == 0
     q = _write(tmp_path / "q.fq", QUERIES)
-    for engine in ("lf", "auto"):
+    for engine in ("lf", "auto", "turbo3"):
         out = tmp_path / f"o_{engine}.txt"
         assert port_cli(["search", "-i", str(index), "-q", str(q), "-o", str(out),
                          "--engine", engine, *CPU]) == 0
@@ -239,7 +240,8 @@ def test_golden_bytes_on_every_variant(golden_index, tmp_path, variant):
 @pytest.mark.parametrize("variant,fmt", [("mef-split", "cpp"), ("rrr-subsetwt", "native")])
 def test_build_with_variant_matches_jax(corpus, variant, fmt, capsys):
     """build --variant fills the precalc table over the variant's own ranks
-    (K1's variant instance); auto then runs LF and says so."""
+    (K1's variant instance); auto then builds the turbo table from them
+    and says so."""
     tmp, genome, queries, _, jax_bytes = corpus
     common = ["-i", str(genome), "-k", "31", "-p", "5", "--temp-dir", str(tmp),
               "--variant", variant, "--format", fmt]
@@ -250,19 +252,55 @@ def test_build_with_variant_matches_jax(corpus, variant, fmt, capsys):
     out = tmp / f"built_{variant}.txt"
     capsys.readouterr()
     assert port_cli(["search", "-i", str(port_file), "-q", str(queries), "-o", str(out), *CPU]) == 0
-    assert f"Turbo engine on variant {variant} is not yet ported; using LF engine" in \
-        capsys.readouterr().err
+    assert "Turbo successor engine enabled (arity 3)" in capsys.readouterr().err
+    assert out.read_bytes() == jax_bytes
+
+
+@pytest.mark.parametrize("engine", ["turbo", "turbo1", "turbo2", "turbo3", "auto"])
+@pytest.mark.parametrize("variant", ["rrr-matrix", "mef-split", "plain-concat", "rrr-subsetwt"])
+def test_turbo_on_variant_matches_jax_cli(corpus, variant_files, capsys, variant, engine):
+    """search with a turbo engine on a compressed-variant file: exit 0 and
+    the JAX CLI's bytes, which depend neither on the engine nor on the
+    variant (tests/test_variant_turbo.py; test_jax_cli_turbo_on_variant
+    runs the JAX CLI itself on one)."""
+    tmp, _, queries, _, jax_bytes = corpus
+    out = tmp / f"turbo_{variant}_{engine}.txt"
+    capsys.readouterr()
+    assert port_cli(["search", "-i", str(variant_files[variant][0]), "-q", str(queries),
+                     "-o", str(out), "--engine", engine, *CPU]) == 0
+    arity = {"turbo1": 1, "turbo2": 2}.get(engine, 3)
+    assert f"Turbo successor engine enabled (arity {arity})" in capsys.readouterr().err
+    assert out.read_bytes() == jax_bytes
+
+
+def test_jax_cli_turbo_on_variant(corpus, variant_files):
+    """The JAX CLI on a compressed variant with a turbo engine: exit 0 and
+    the same bytes as on plain-matrix, which the test above holds the port to."""
+    tmp, _, queries, _, jax_bytes = corpus
+    ref = tmp / "jax_turbo1_rrr-matrix.txt"
+    assert jax_cli(["search", "-i", str(variant_files["rrr-matrix"][1]), "-q", str(queries),
+                    "-o", str(ref), "--engine", "turbo1"]) == 0
+    assert ref.read_bytes() == jax_bytes
+
+
+def test_turbo_on_variant_without_room_degrades_to_lf(corpus, variant_files, monkeypatch, capsys):
+    from sbwt_tpu_torch.models import sbwt as facade
+
+    monkeypatch.setattr(facade, "device_free_bytes", lambda device: 1 << 10)
+    tmp, _, queries, _, jax_bytes = corpus
+    out = tmp / "variant_no_room.txt"
+    assert port_cli(["search", "-i", str(variant_files["mef-concat"][0]), "-q", str(queries),
+                     "-o", str(out), "--engine", "turbo", *CPU]) == 0
+    assert "Turbo table exceeds free device memory; using LF engine" in capsys.readouterr().err
     assert out.read_bytes() == jax_bytes
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["search", "--engine", "turbo3"], "not yet ported"),
     (["build", "--variant", "nope"], "unknown variant"),
     (["build-variant", "--variant", "nope"], "unknown variant"),
     (["build-variant", "--variant", "rrr-split"], "not a plain-matrix"),
     (["ascii-export"], "not yet ported"),
-], ids=["turbo-on-variant", "unknown-variant", "build-variant-unknown", "build-variant-input",
-        "ascii-export"])
+], ids=["unknown-variant", "build-variant-unknown", "build-variant-input", "ascii-export"])
 def test_not_ported_paths_exit_1(corpus, variant_files, capsys, argv, message):
     tmp, genome, queries, jax_index, _ = corpus
     compressed = str(variant_files["mef-concat"][0])

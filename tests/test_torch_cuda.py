@@ -13,6 +13,8 @@ from sbwt_tpu_torch import kernels
 from sbwt_tpu_torch.construct import device as td
 from sbwt_tpu_torch.models import matrix as tm
 from sbwt_tpu_torch.models.sbwt import SBWT, VARIANT_NAMES
+from sbwt_tpu_torch.models.wide import WideMatrixIndex, from_packed_rows_wide
+from sbwt_tpu_torch.ops import bitvector as bv
 from sbwt_tpu_torch.ops import search as ts
 from sbwt_tpu_torch.ops import turbo as tt
 from sbwt_tpu_torch.utils.dna import encode_query
@@ -57,7 +59,7 @@ def test_kernels_equal_plain_versions(cuda, k, p):
     c, n = torch.from_numpy(codes).to(cuda), torch.from_numpy(lengths).to(cuda)
     km = c[:, :k].contiguous()
     assert torch.equal(ts.search_batch(di, km), ts.search_batch_plain(di, km))
-    succ = kernels.succ1(di.rank_tbl, di.n_words, di.sgs_tbl, di.C, di.n_nodes)
+    succ = tt.succ1(di)
     assert torch.equal(succ, tt.succ1_plain(di))
     assert torch.equal(tt.build_seed_bits(di.precalc, p), tt.seed_bits_plain(di.precalc, p))
     for arity in (1, 2, 3):
@@ -87,6 +89,106 @@ def test_lf_kernels_equal_plain_versions(cuda, variant, k, p):
     ref = tm.precalc_fill_plain(di, q)
     tm.with_precalc(di, q)
     assert torch.equal(di.precalc, ref)
+
+
+def _rank_op_checks(di, c, n, rng):
+    """partial_search (from the full interval and from given ones), succ1
+    (all columns, a sample, both layouts) and forward against their plain
+    versions on one index."""
+    got = ts.partial_search_batch(di, c, n)
+    want = ts.partial_search_plain(di, c, n)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    start = torch.stack(got[:2], dim=1)
+    tail = c[:, 3:].contiguous()
+    for g, w in zip(ts.partial_search_batch(di, tail, n, start),
+                    ts.partial_search_plain(di, tail, n, start)):
+        assert torch.equal(g, w)
+    succ = tt.succ1(di)
+    assert succ.dtype == di.pos_dtype and torch.equal(succ, tt.succ1_plain(di))
+    assert torch.equal(tt.succ1(di, row_major=True), succ.t())
+    cols = torch.from_numpy(rng.integers(0, di.n_nodes, size=999)).to(di.device)
+    chars = torch.from_numpy(rng.integers(0, 4, size=999)).to(di.device)
+    fwd = ts.forward_batch(di, cols, chars)
+    assert fwd.dtype == di.pos_dtype
+    assert torch.equal(fwd, ts.extend_from_column(di, cols, chars).to(di.pos_dtype))
+
+
+@pytest.mark.parametrize("variant", VARIANT_NAMES)
+@pytest.mark.parametrize("k,p", [(14, 6), (9, 9), (36, 3)])
+def test_variant_turbo_kernels_equal_plain_versions(cuda, variant, k, p):
+    """succ1, turbo_stream and partial_search of every variant's rank type
+    against their plain versions, and the table against plain-matrix's."""
+    rng = np.random.default_rng(500 + k + p)
+    g = "".join(rng.choice(list("ACGT"), size=3000)) + "ACGT" * 60
+    plain = SBWT.build([g], k, cuda, precalc_k=p)
+    sb = plain.to_variant(variant)
+    di = sb.device_index
+    codes, lengths = _reads(g, rng, 1024, k + 40, k)
+    c, n = torch.from_numpy(codes).to(cuda), torch.from_numpy(lengths).to(cuda)
+    _rank_op_checks(di, c, n, rng)
+    lf = ts.streaming_search(di, c, n)
+    for arity in (1, 2, 3):
+        assert sb.enable_turbo(arity) == arity
+        assert torch.equal(sb._turbo.tbl, tt.build_turbo(plain.device_index, arity).tbl)
+        got = tt.turbo_streaming_search(sb._turbo, di, c, n)
+        torch.cuda.synchronize()
+        assert torch.equal(got, tt.turbo_streaming_search_plain(sb._turbo, di, c, n))
+        assert torch.equal(got, lf)
+    counters = [kernels.lf_counter(op, variant) for op in ("succ1", "turbo_stream", "partial_search")]
+    assert all(kernels.LAUNCHES[name] > 0 for name in counters)
+
+
+def _offset_counts(wide, offset):
+    """The same index with every cumulative count raised by ``offset``: its
+    ranks are the real ones plus the offset, past 32 bits."""
+    tbl = wide.rank_tbl.clone()
+    cum = ((tbl[:, 2].long() << 32) | (tbl[:, 1].long() & 0xFFFFFFFF)) + offset
+    low = cum & 0xFFFFFFFF
+    tbl[:, 1] = torch.where(low >= 2**31, low - 2**32, low).int()
+    tbl[:, 2] = (cum >> 32).int()
+    return WideMatrixIndex(tbl, wide.sgs_tbl, wide.C, wide.precalc, n_nodes=wide.n_nodes,
+                           n_kmers=wide.n_kmers, k=wide.k, precalc_k=wide.precalc_k,
+                           n_words=wide.n_words, has_streaming=wide.has_streaming)
+
+
+@pytest.mark.parametrize("k,p", [(14, 6), (9, 9), (31, 13), (36, 3)])
+def test_wide_kernels_equal_plain_versions_and_narrow(cuda, k, p):
+    """The WideMatrix instances against their plain versions and against
+    the narrow plain-matrix kernels on the same bits."""
+    rng = np.random.default_rng(600 + k + p)
+    g = "".join(rng.choice(list("ACGT"), size=5000)) + "ACGT" * 60
+    sb = SBWT.build([g], k, cuda, precalc_k=p)
+    narrow = sb.device_index
+    words = np.stack([bv.pack_bits_host(row) for row in sb.bits])
+    wide = from_packed_rows_wide(words, narrow.n_nodes, bv.pack_bits_host(sb.suffix_group_starts),
+                                 k, narrow.n_kmers, cuda, precalc_k=p)
+    assert wide.precalc.dtype == torch.int64 and torch.equal(wide.precalc, narrow.precalc.long())
+    assert torch.equal(wide.precalc, tm.precalc_fill_plain(wide, p))
+    codes, lengths = _reads(g, rng, 2048, k + 60, k)
+    c, n = torch.from_numpy(codes).to(cuda), torch.from_numpy(lengths).to(cuda)
+    km = c[:, :k].contiguous()
+    got = ts.search_batch(wide, km)
+    assert got.dtype == torch.int64 and torch.equal(got, ts.search_batch_plain(wide, km))
+    assert torch.equal(got, ts.search_batch(narrow, km).long())
+    lf = ts.streaming_search(wide, c, n)
+    torch.cuda.synchronize()
+    assert lf.dtype == torch.int64 and torch.equal(lf, ts.streaming_search_plain(wide, c, n))
+    assert torch.equal(lf, ts.streaming_search(narrow, c, n).long())
+    _rank_op_checks(wide, c, n, rng)
+    turbo = tt.build_turbo(wide, 3)
+    assert isinstance(turbo, tt.WideTurboIndex) and turbo.arity == 1
+    assert torch.equal(turbo.tbl, tt.build_turbo(narrow, 1).tbl.long())
+    assert torch.equal(turbo.seed_bits, tt.seed_bits_plain(wide.precalc, p))
+    got = tt.turbo_streaming_search(turbo, wide, c, n)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tt.turbo_streaming_search_plain(turbo, wide, c, n))
+    assert torch.equal(got, lf)
+    for offset in (2**31 - 3, 2**32 - 1, 2**33 + 2**31 + 9):
+        shifted = _offset_counts(wide, offset)
+        fill = kernels.precalc_fill(kernels.WIDE, shifted.kernel_desc(cuda), shifted.C,
+                                    shifted.n_nodes, 1)
+        assert torch.equal(fill, tm.precalc_fill_plain(shifted, 1)) and int(fill.max()) > 2**31
 
 
 def _same(got, want):

@@ -162,21 +162,35 @@ def _rank_desc(variant="rrr-split"):
     return sb.device_index.kernel_desc(torch.device("cpu"))
 
 
+def _wide_desc():
+    return kernels.WideMatrixDesc(0, 1)
+
+
 @pytest.mark.parametrize("call", [
     lambda t: kernels.precalc_fill("plain-matrix", _rank_desc("plain-matrix"), t["C"], 10, 2),
     lambda t: kernels.kmer_search("plain-matrix", _rank_desc("plain-matrix"), t["C"], 10,
                                   t["pre"], 0, t["codes"]),
-    lambda t: kernels.succ1(t["rank"], 1, t["sgs"], t["C"], 10),
+    lambda t: kernels.succ1("plain-matrix", _rank_desc("plain-matrix"), t["sgs"], t["C"], 10),
     lambda t: kernels.succ_compose(torch.zeros((4, 10), dtype=torch.int32), 3),
     lambda t: kernels.seed_bits(t["pre"], 1),
-    lambda t: kernels.turbo_stream(t["rank"], 1, t["rank"], 1, t["C"], t["pre"], 1, None,
-                                   t["codes"], torch.full((2,), 5, dtype=torch.int32), 5),
+    lambda t: kernels.turbo_stream("plain-matrix", _rank_desc("plain-matrix"), t["rank"], 1,
+                                   t["C"], t["pre"], 1, None, t["codes"],
+                                   torch.full((2,), 5, dtype=torch.int32), 5, 1),
     lambda t: kernels.lf_stream("rrr-split", _rank_desc(), t["sgs"], t["C"], t["pre"], 1, 5, 10,
                                 t["codes"], torch.full((2,), 5, dtype=torch.int32)),
     lambda t: kernels.precalc_fill("rrr-split", _rank_desc(), t["C"], 10, 2),
     lambda t: kernels.kmer_search("rrr-split", _rank_desc(), t["C"], 10, t["pre"], 1, t["codes"]),
+    lambda t: kernels.partial_search("rrr-split", _rank_desc(), t["C"], 10, t["codes"],
+                                     torch.full((2,), 5, dtype=torch.int32)),
+    lambda t: kernels.succ1("mef-concat", _rank_desc("mef-concat"), t["sgs"], t["C"], 10),
+    lambda t: kernels.turbo_stream("rrr-subsetwt", _rank_desc("rrr-subsetwt"), t["rank"], 1,
+                                   t["C"], t["pre"], 1, None, t["codes"],
+                                   torch.full((2,), 5, dtype=torch.int32), 5, 1),
+    lambda t: kernels.seed_bits(t["pre"].long(), 1),
+    lambda t: kernels.precalc_fill(kernels.WIDE, _wide_desc(), t["C"].long(), 10, 2),
 ], ids=["precalc_fill", "kmer_search", "succ1", "succ_compose", "seed_bits", "turbo_stream",
-        "lf_stream", "variant_precalc_fill", "variant_kmer_search"])
+        "lf_stream", "variant_precalc_fill", "variant_kmer_search", "variant_partial_search",
+        "variant_succ1", "variant_turbo_stream", "wide_seed_bits", "wide_precalc_fill"])
 def test_wrappers_refuse_cpu_tensors(call):
     tensors = {
         "rank": torch.zeros((4, 2), dtype=torch.int32),
@@ -193,10 +207,16 @@ def test_wrappers_refuse_cpu_tensors(call):
 
 def test_launch_counters_name_every_lf_instance():
     lf = [name for name in kernels.LAUNCHES if "[" in name]
-    assert len(lf) == 3 * 10
+    # six ops on eleven rank types; the wide tier's seed bits have a counter
+    # of their own
+    assert len(lf) == 6 * 11 + 1
     for op in kernels.LF_OPS:
-        assert kernels.lf_counter(op, "plain-matrix") in lf
-    assert set(kernels.RANK_DESCS) == set(kernels.VARIANTS) == set(kernels.FAMILY)
+        assert kernels.lf_counter(op, "rrr-split") in lf
+        assert kernels.lf_counter(op, kernels.WIDE) in lf
+        assert kernels.lf_counter(op, "plain-matrix") in kernels.LAUNCHES
+    assert kernels.lf_counter("succ1", "plain-matrix") == "succ1[plain-matrix]"
+    assert set(kernels.RANK_DESCS) == set(kernels.RANK_TYPES) == set(kernels.FAMILY)
+    assert kernels.RANK_TYPES == kernels.VARIANTS + (kernels.WIDE,)
     for fam in set(kernels.FAMILY.values()):
         src = "lf_stream.cu" if fam == "matrix" else f"lf_{fam}.cu"
         assert f"sbwt_lf_{fam}(" in (kernels.CSRC / src).read_text()

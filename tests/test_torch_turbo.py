@@ -201,6 +201,26 @@ def test_turbo_from_numpy_state(main_case):
     np.testing.assert_array_equal(got, ref)
 
 
+def test_succ1_layouts_and_columns(main_case):
+    """succ1's plain version: [4, n] as the JAX _succ1, [n, 4] row by row,
+    and over a list of columns (what forward asks for)."""
+    import jax
+
+    from sbwt_tpu.ops.turbo import _succ1
+
+    ref = np.asarray(jax.jit(_succ1)(main_case.js.device_index))
+    ti = main_case.ti
+    succ = tt.succ1(ti)
+    assert succ.dtype == torch.int32
+    np.testing.assert_array_equal(succ.numpy(), ref)
+    np.testing.assert_array_equal(tt.succ1(ti, row_major=True).numpy(), ref.T)
+    cols = torch.from_numpy(np.random.default_rng(6).integers(0, ti.n_nodes, size=300))
+    np.testing.assert_array_equal(tt.succ1(ti, cols).numpy(), ref[:, cols.numpy()])
+    np.testing.assert_array_equal(tt.succ1(ti, cols, row_major=True).numpy(), ref[:, cols.numpy()].T)
+    # the arity-1 table is succ row by row
+    assert torch.equal(main_case.run(1)[3].tbl, tt.succ1(ti, row_major=True))
+
+
 def test_fast_search_matches_jax(main_case):
     _, _, jt, pt = main_case.run(3)
     wins = np.lib.stride_tricks.sliding_window_view(main_case.codes, 14, axis=1)

@@ -1,6 +1,8 @@
 """Port parity: the nine compressed variants (K17's plain versions), their
 precalc fill and k-mer search (K1's variant instances), the LF streaming
-engine on every variant (K14's plain version), and their index files.
+engine on every variant (K14's plain version), the turbo engine built from
+each variant's own ranks (K2's succ1 and K4 over a variant), the facade's
+partial_search / forward / update_sbwt_interval, and their index files.
 
 One JAX plain-matrix index of a numpy-seeded genome (k = 14) is re-encoded
 into each variant by both packages; every comparison is of integers and
@@ -21,11 +23,16 @@ from sbwt_tpu.models.matrix import with_precalc as jax_with_precalc
 from sbwt_tpu.models.sbwt import SBWT as JaxSBWT
 from sbwt_tpu.models.subsetrank import build_struct as jax_build_struct
 from sbwt_tpu.ops.search import search_jit, streaming_search_jit
+from sbwt_tpu.ops.turbo import _succ1 as jax_succ1
+from sbwt_tpu.ops.turbo import build_turbo as jax_build_turbo
+from sbwt_tpu.ops.turbo import turbo_streaming_jit
 from sbwt_tpu.utils.dna import encode_query
 from sbwt_tpu_torch.io import serialize as port_io
 from sbwt_tpu_torch.models import subsetrank as tsr
 from sbwt_tpu_torch.models.matrix import from_host_arrays, with_precalc
 from sbwt_tpu_torch.models.sbwt import SBWT, VARIANT_NAMES
+from sbwt_tpu_torch.models.variants import build_generic_index
+from sbwt_tpu_torch.ops import turbo as tt
 from test_torch_bv import assert_payload_equal
 from torch_state import generic_from_jax, main_corpora
 
@@ -262,3 +269,185 @@ def test_dense_concat_rank_pair_agrees_with_oracle():
     jst = jax_build_struct("plain-concat", bits)
     _, j2 = jst.rank_pair(jnp.zeros(n, jnp.int32), jnp.arange(n, dtype=jnp.int32))
     assert (np.asarray(j2) != r2.numpy()).any()
+
+
+# ---------------------------------------------------------------------------
+# turbo from a variant's own ranks
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def jax_turbo(jax_plain):
+    """arity -> (the JAX table without its pad rows, its seed bits). The JAX
+    table does not depend on the variant it was built from
+    (tests/test_variant_turbo.py, and test_jax_table_from_a_variant below),
+    so the plain-matrix one serves all nine."""
+    cache = {}
+
+    def get(arity):
+        if arity not in cache:
+            jt = jax_build_turbo(jax_plain.device_index, arity=arity)
+            rows = jax_plain.number_of_subsets() * 4**arity
+            cache[arity] = (jt, np.asarray(jt.tbl)[:rows], np.asarray(jt.seed_bits))
+        return cache[arity]
+
+    return get
+
+
+@pytest.mark.parametrize("arity", [1, 2, 3])
+@pytest.mark.parametrize("variant", COMPRESSED)
+def test_variant_turbo_matches_jax(variants, jax_turbo, jax_answers, corpora, variant, arity):
+    """The table built from the variant's ranks is the JAX table byte for
+    byte, and K4's plain version over the variant gives the JAX streaming
+    answers on the adversarial corpora."""
+    ps = variants(variant)[1]
+    _, ref_tbl, ref_bits = jax_turbo(arity)
+    try:
+        assert ps.enable_turbo(arity) == arity
+        turbo = ps._turbo
+        assert type(turbo) is tt.TurboIndex and turbo.tbl.dtype == torch.int32
+        assert turbo.tbl.numpy().tobytes() == ref_tbl.tobytes()
+        assert turbo.seed_bits.numpy().tobytes() == ref_bits.tobytes()
+        got = ps.streaming_search_batch(*corpora)
+    finally:
+        ps._turbo = None  # the LF tests share this index
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, jax_answers)
+
+
+def test_jax_turbo_answers_equal_jax_lf_answers(jax_plain, jax_turbo, jax_answers, corpora):
+    """What ties the reference of the test above to the JAX turbo engine."""
+    codes, lengths = corpora
+    got = np.asarray(turbo_streaming_jit(jax_turbo(2)[0], jax_plain.device_index,
+                                         jnp.asarray(codes), jnp.asarray(lengths)))
+    np.testing.assert_array_equal(got, jax_answers)
+
+
+def test_jax_table_from_a_variant(variants, jax_turbo):
+    """The JAX build over a variant's GenericIndex gives the plain-matrix table."""
+    jt = jax_build_turbo(variants("rrr-matrix")[0].device_index, arity=1)
+    np.testing.assert_array_equal(np.asarray(jt.tbl), jax_turbo(1)[1])
+
+
+@pytest.mark.parametrize("variant", COMPRESSED)
+def test_variant_succ1_matches_jax(variants, jax_plain, variant):
+    """succ1's plain version over the variant's ranks, both layouts and over
+    a list of columns, against the JAX _succ1 of the plain-matrix index."""
+    ref = np.asarray(jax.jit(jax_succ1)(jax_plain.device_index))
+    di = variants(variant)[1].device_index
+    succ = tt.succ1(di)
+    assert succ.dtype == torch.int32 and tuple(succ.shape) == ref.shape
+    np.testing.assert_array_equal(succ.numpy(), ref)
+    np.testing.assert_array_equal(tt.succ1(di, row_major=True).numpy(), ref.T)
+    cols = torch.from_numpy(np.random.default_rng(15).integers(0, di.n_nodes, size=200))
+    np.testing.assert_array_equal(tt.succ1(di, cols).numpy(), ref[:, cols.numpy()])
+
+
+def test_variant_turbo_auto_and_preconditions(variants, port_plain):
+    ps = variants("mef-split")[1]
+    try:
+        assert ps.enable_turbo(None, free_bytes=1 << 10) is None and ps._turbo is None
+        assert ps.enable_turbo(None, free_bytes=1 << 40) == 3
+        assert torch.equal(ps._turbo.tbl, tt.build_turbo(port_plain.device_index, 3).tbl)
+    finally:
+        ps._turbo = None
+    bare = SBWT.from_bits(port_plain.bits, None, K, port_plain.number_of_kmers(), "cpu", P,
+                          "rrr-matrix")
+    with pytest.raises(tt.TurboUnavailable, match="streaming support"):
+        bare.enable_turbo(2)
+
+
+def test_variant_turbo_fills_a_missing_precalc(port_plain):
+    """Without a precalc table, enable_turbo fills one over the variant's ranks."""
+    vs = SBWT.from_bits(port_plain.bits, port_plain.suffix_group_starts, K,
+                        port_plain.number_of_kmers(), "cpu", 0, "plain-subsetwt")
+    assert vs.get_precalc_k() == 0 and vs.enable_turbo(1) == 1
+    assert vs.get_precalc_k() == 8
+    ref = SBWT.from_bits(port_plain.bits, port_plain.suffix_group_starts, K,
+                         port_plain.number_of_kmers(), "cpu", 8)
+    assert torch.equal(vs.device_index.precalc, ref.device_index.precalc)
+
+
+def test_dense_concat_successors_agree_with_oracle():
+    """F1 again, one level up: succ1 over a fully dense plain-concat (every
+    column its own suffix group) is held to the string oracle's ranks, where
+    the JAX package's rank_pair, and so its _succ1, is wrong."""
+    n = 256
+    bits = np.ones((4, n), dtype=bool)
+    orc = OracleIndex.__new__(OracleIndex)
+    orc.bits = {ch: [True] * n for ch in "ACGT"}
+    di = build_generic_index("plain-concat", bits, np.ones(n, dtype=bool), 3, 0, "cpu")
+    succ = tt.succ1(di)
+    C = di.C.tolist()
+    for c, ch in enumerate("ACGT"):
+        assert succ[c].tolist() == [C[c] + orc.rank(i, ch) for i in range(n)]
+    plain = from_host_arrays(bits, np.ones(n, dtype=bool), 3, 0, "cpu")
+    assert torch.equal(succ, tt.succ1(plain))
+
+
+# ---------------------------------------------------------------------------
+# the facade's partial_search, forward and update_sbwt_interval
+# ---------------------------------------------------------------------------
+
+FACADE_VARIANTS = ["plain-matrix", "rrr-split", "mef-concat"]
+
+
+def _facade_texts(genome):
+    """Texts of one length (one JAX program per variant): genomic, genomic
+    with a mismatch, lowercase inside, an N inside, random."""
+    g = genome[300:324]
+    rnd = "".join(np.random.default_rng(16).choice(list("ACGT"), size=24))
+    return [g, g[:9] + ("A" if g[9] != "A" else "C") + g[10:], g[:5] + g[5:9].lower() + g[9:],
+            g[:13] + "N" + g[14:], rnd]
+
+
+@pytest.mark.parametrize("variant", FACADE_VARIANTS)
+def test_facade_partial_search_matches_jax(variants, jax_plain, port_plain, genome, variant):
+    js, ps = (jax_plain, port_plain) if variant == "plain-matrix" else variants(variant)
+    seen = set()
+    for text in _facade_texts(genome):
+        want = js.partial_search(text)
+        assert ps.partial_search(text) == want, text
+        seen.add(want[1])
+    assert len(seen) >= 3 and 24 in seen
+
+
+@pytest.mark.parametrize("variant", FACADE_VARIANTS)
+def test_facade_update_sbwt_interval_matches_jax(variants, jax_plain, port_plain, genome, variant):
+    js, ps = (jax_plain, port_plain) if variant == "plain-matrix" else variants(variant)
+    n = js.number_of_subsets()
+    outcomes = set()
+    for s in (genome[500:506], genome[500:503] + "n" + genome[504:506], "ACGTAC", "acgtac"):
+        for interval in ((0, n - 1), (n // 3, 2 * n // 3), (-1, -1)):
+            want = js.update_sbwt_interval(s, interval)
+            assert ps.update_sbwt_interval(s, interval) == want, (s, interval)
+            outcomes.add(want[0] == -1)
+    assert outcomes == {True, False}
+
+
+@pytest.mark.parametrize("variant", FACADE_VARIANTS)
+def test_facade_forward_matches_jax(variants, jax_plain, port_plain, variant):
+    js, ps = (jax_plain, port_plain) if variant == "plain-matrix" else variants(variant)
+    n = js.number_of_subsets()
+    hits = 0
+    for node in (0, 1, 7, n // 2, n - 2, n - 1):
+        for c in "ACGTNa":
+            want = js.forward(node, c)
+            assert ps.forward(node, c) == want, (node, c)
+            hits += want >= 0
+    assert hits >= 4
+    nodes = np.random.default_rng(17).integers(0, n, size=300)
+    chars = np.random.default_rng(18).integers(0, 4, size=300)
+    np.testing.assert_array_equal(ps.forward_batch(nodes, chars),
+                                  port_plain.forward_batch(nodes, chars))
+
+
+def test_facade_partial_search_batch_agrees_across_variants(variants, port_plain, corpora):
+    codes, lengths = corpora
+    ref = port_plain.partial_search_batch(codes, lengths)
+    assert ref[0].dtype == ref[1].dtype == ref[2].dtype == np.int32
+    assert len(set(ref[2].tolist())) > 10
+    for v in COMPRESSED:
+        got = variants(v)[1].partial_search_batch(codes, lengths)
+        for a, b in zip(got, ref):
+            np.testing.assert_array_equal(a, b, err_msg=v)
