@@ -7,7 +7,7 @@ the bench's real size, every kernel against its plain PyTorch version.
 Phases, one line each; any failure exits nonzero:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: nvcc compiles K1-K4, K14, K18 and K19 from sbwt_tpu_torch/csrc,
+2. build: nvcc compiles K1-K4, K14, K18-K21 from sbwt_tpu_torch/csrc,
    one process per source;
 3. main path (launches counted): ``SBWT.build`` of a 4 Mbp uniform random
    genome (numpy seed 20260817, as bench.py) at k = 30 with precalc_k = 13
@@ -47,7 +47,24 @@ Phases, one line each; any failure exits nonzero:
    answers to the hit98 batch must equal phase 3's; then of the first
    200,000 reads of the hit98 batch as separate sequences, equal to the
    host build of the same reads;
-9. kernels against their plain versions on the card, at the main path's
+9. parallel (launches counted): the five steps of the JAX package's
+   multichip dry run (``__graft_entry__.py:32-95``) through
+   ``sbwt_tpu_torch.parallel.sharded`` on the main path's index and both
+   1M-read batches, slots round-robin over the cards (each slot's device
+   printed): DP ``dp_search`` (the 1M 30-mers), ``dp_streaming_search`` and
+   ``dp_turbo_streaming_search`` over a (2, 1) mesh; over a (2, 4) mesh TP
+   ``tp_search`` and ``tp_streaming_search`` (K20a), then
+   ``tp_turbo_streaming_search`` (K20b) over ``shard_turbo_rows`` of the
+   arity-3 table and over ``build_turbo_sharded(arity=3)`` (K20c), whose real
+   rows must be byte-equal to the table; every answer equal to the main
+   path's. At most two 4.1 GB tables are alive at once. Then K20a-c against
+   their plain versions, and one ``tp_streaming_search`` under the port's
+   ``utils.profiling.trace`` (its top device ops);
+10. probe (launches counted): ``ops.gather_chain`` (K21) at
+   scratch/gather_bench.py's shapes (B = 65,536 lanes, 64 steps, [2M, 2] and
+   [2M, 8] tables) and over 2^26-row tables past L2 (and a table on a second
+   card, if there is one), each against its plain version, with gathers/s;
+11. kernels against their plain versions on the card, at the main path's
    shapes, with times: K1 on plain-matrix (the p = 13 fill, the 1M
    30-mers), K2, K3, K4 on each whole 1M-read batch; K14 of each variant
    on the first 2^16 reads of each mix and on a batch with lowercase, N
@@ -59,7 +76,7 @@ Phases, one line each; any failure exits nonzero:
    at the 4M-column index (whole batches, beside the narrow times) and at
    the giant's size (K14 on 2^16 reads, the others on 1M lanes; the giant
    can have no table, so wide K4 is held at 4M columns only);
-10. the CLI (``python -m sbwt_tpu_torch build`` / ``build-variant`` /
+12. the CLI (``python -m sbwt_tpu_torch build`` / ``build-variant`` /
    ``search``) on the reference's golden inputs, byte-equal to the golden
    output, on plain-matrix (turbo) and rrr-split (LF, turbo3 and auto).
 
@@ -122,6 +139,12 @@ WIDE = "wide-matrix"  # the rank type of the int64 tier (kernels.WIDE)
 GIANT_K = 16  # the complete order-16 de Bruijn graph: 4^16 + 1 columns
 GIANT_P = 8  # the reference's default prefix length (sbwt_build.cpp -p 8)
 TURBO_PLAIN_READS = {"hit98": 1 << 16, "hit0": 1 << 14}  # reads K4's plain version answers per variant
+DP_MESH = (2, 1)  # (n_data, n_model) of the parallel phase's data-parallel steps
+TP_MESH = (2, 4)  # and of its row-sharded steps; slots go round-robin over the cards
+# the gather probe at scratch/gather_bench.py's shapes (a [4N, 2] table of
+# 16 MB, inside the 50 MB L2), and at a table of 2^26 rows, past it
+PROBE_N, PROBE_B, PROBE_STEPS = 500_000, 65_536, 64
+PROBE_BIG_ROWS = 1 << 26
 
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s, and the float32 rate outside the
 # tensor cores, which stands in for the integer ALU rate of these kernels
@@ -182,11 +205,26 @@ WIDE_KERNELS = {
 GIANT_KERNELS = [f"{op}[{WIDE}]" for op in
                  ("precalc_fill", "kmer_search", "lf_stream", "partial_search", "succ1")]
 
+# K20, the row-sharded (TP) path (csrc/lf_sharded.cu, succ_table.cu), and
+# K21, the gather probe (csrc/gather_chain.cu)
+PARALLEL_KERNELS = {
+    "kmer_search[sharded-matrix]": ("sbwt_tpu_torch/csrc/lf_sharded.cu",
+                                    "sbwt_tpu/parallel/sharded.py:208"),
+    "lf_stream[sharded-matrix]": ("sbwt_tpu_torch/csrc/lf_sharded.cu",
+                                  "sbwt_tpu/parallel/sharded.py:478"),
+    "turbo_stream[plain-matrix/sharded-table]": ("sbwt_tpu_torch/csrc/lf_sharded.cu",
+                                                 "sbwt_tpu/parallel/sharded.py:233"),
+    "succ_compose[column-range]": ("sbwt_tpu_torch/csrc/succ_table.cu",
+                                   "sbwt_tpu/parallel/sharded.py:343"),
+}
+PROBE_KERNELS = {"gather_chain": ("sbwt_tpu_torch/csrc/gather_chain.cu", "scratch/gather_bench.py:58")}
+
 # plain-matrix's succ1 and K4 keep, in this script's output, the bare names
 # they had as the only instances; their launch counters are named as the others'
 COUNTER = {"succ1": "succ1[plain-matrix]", "turbo_stream": "turbo_stream[plain-matrix]"}
 
-ALL_KERNELS = {**KERNELS, **LF_KERNELS, **BUILD_KERNELS, **VARIANT_TURBO_KERNELS, **WIDE_KERNELS}
+ALL_KERNELS = {**KERNELS, **LF_KERNELS, **BUILD_KERNELS, **VARIANT_TURBO_KERNELS, **WIDE_KERNELS,
+               **PARALLEL_KERNELS, **PROBE_KERNELS}
 
 
 class SmokeFailure(Exception):
@@ -779,6 +817,14 @@ def profile_build(dev, codes):
         say("build_profile", unavailable=repr(e)[:200])
 
 
+def radix_sort_bytes(rows: int, columns: int) -> int:
+    """The compulsory bytes of ``columns`` stable radix sorts of int64 keys
+    with int64 indices over ``rows`` rows (colex_order: one sort a column):
+    8 passes of 8-bit digits, each reading and writing every 16-byte
+    (key, index) pair, after one histogram read of the keys."""
+    return columns * rows * (8 + 8 * 2 * 16)
+
+
 def compare_build_kernels(dev, genome, record):
     """K19's four kernels against their plain versions at the genome
     build's shapes, the build's sorts timed alone, and the whole build's
@@ -796,6 +842,7 @@ def compare_build_kernels(dev, genome, record):
            nbytes(codes, keys, valid), keys.shape[0] * K * 4, shape=tuple(keys.shape))
     valid_keys = keys[valid]
     sort_kmers_ms = cuda_ms(lambda: td.colex_order(valid_keys), 3)
+    sort_kmers_bound_ms = radix_sort_bytes(valid_keys.shape[0], -(-W // 2)) / HBM_BYTES_PER_S * 1e3
     del keys, valid, plain
 
     dv = td.sorted_distinct_kmers(codes, K)
@@ -831,6 +878,7 @@ def compare_build_kernels(dev, genome, record):
 
     nodes = td.merged_nodes(td.dummy_nodes(src, K), dv, probe[0], K)
     sort_nodes_ms = cuda_ms(lambda: td.colex_order(nodes[0], nodes[1]), 3)
+    sort_nodes_bound_ms = radix_sort_bytes(nodes[0].shape[0], -(-W // 2) + 1) / HBM_BYTES_PER_S * 1e3
     tables = kernels.finalize_tables(*nodes, K, True)
     plain = td.finalize_tables_plain(*nodes, K, True)
     record("finalize_tables", sum(max_abs_err(a, b) for a, b in zip(tables, plain)),
@@ -851,7 +899,8 @@ def compare_build_kernels(dev, genome, record):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     say("build_time", input="genome, codes on the card, no precalc", wall_ms=[round(w * 1e3, 3) for w in walls],
-        device_ms=cuda_ms(build, 3), sort_kmers_ms=sort_kmers_ms, sort_nodes_ms=sort_nodes_ms)
+        device_ms=cuda_ms(build, 3), sort_kmers_ms=sort_kmers_ms, sort_nodes_ms=sort_nodes_ms,
+        sort_kmers_radix_bound_ms=sort_kmers_bound_ms, sort_nodes_radix_bound_ms=sort_nodes_bound_ms)
     profile_build(dev, codes)
 
 
@@ -1216,6 +1265,245 @@ def compare_giant_kernels(dev, sb, reads, with_n, prefix_len, record):
            n_columns=di.n_nodes, columns="1M sampled")
 
 
+def card_list() -> list:
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def run_parallel_path(sbwt, runs):
+    """The five steps of the JAX package's multichip dry run
+    (``__graft_entry__.py:32-95``) through the port's parallel entry points,
+    on the main path's index, arity-3 table and whole 1M-read batches, each
+    held to the main path's answers exactly. Returns the TP mesh, the
+    row-sharded index and the table built sharded."""
+    from sbwt_tpu_torch.parallel import sharded
+
+    dev = sbwt.device
+    di, turbo = sbwt.device_index, sbwt._turbo
+    n = di.n_nodes
+    dp = sharded.make_mesh(*DP_MESH, card_list())
+    tp = sharded.make_mesh(*TP_MESH, card_list())
+    for name, mesh in (("dp", dp), ("tp", tp)):
+        say("parallel", mesh=name, shape=mesh.shape,
+            slots=[[str(d) for d in row] for row in mesh.devices])
+    want = {mix: torch.from_numpy(ans).to(dev) for mix, (_, ans) in runs.items()}
+    km = np.ascontiguousarray(runs["hit98"][0][:, :K])
+
+    def step(name, fn, mixes=tuple(MIXES)):
+        fields = {}
+        for mix in mixes:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = fn(runs[mix][0])
+            torch.cuda.synchronize()
+            fields[f"{mix}_host_seconds"] = round(time.perf_counter() - t0, 4)
+            check(torch.equal(got, want[mix]), f"parallel {name} {mix}: answers differ from the main path's")
+            del got
+        say("parallel", step=name, answers="equal to the main path's", **fields)
+
+    # 1. DP: replicated index, rows cut over the data axis
+    index = sharded.replicate_index(di, dp)
+    got = sharded.dp_search(index, km, dp)
+    check(torch.equal(got, want["hit98"][:, 0]), "parallel dp_search: differs from K4's position 0")
+    say("parallel", step="dp_search", kmers=len(km), answers="equal to the main path's")
+    step("dp_streaming_search", lambda codes: sharded.dp_streaming_search(index, codes, None, dp))
+    # 2. DP turbo: the arity-3 table replicated
+    step("dp_turbo_streaming_search",
+         lambda codes: sharded.dp_turbo_streaming_search(turbo, index, codes, None, dp))
+    # 3. TP: rank and suffix-group tables row-sharded over `model` (K20a)
+    placed = sharded.shard_index_rows(di, tp)
+    check(sharded.shard_index_rows(placed, tp) is placed, "shard_index_rows: placed again")
+    got = sharded.tp_search(placed, km, tp)
+    check(torch.equal(got, want["hit98"][:, 0]), "parallel tp_search: differs from K4's position 0")
+    say("parallel", step="tp_search", kmers=len(km), answers="equal to the main path's",
+        rank_rows_per_shard=placed.views[0].rank_shard_0.shape[0])
+    step("tp_streaming_search", lambda codes: sharded.tp_streaming_search(placed, codes, None, tp))
+    # 4. TP turbo over the table placed sharded (K20b): whole shards are views
+    # of the main path's table, the padded last one a copy
+    on_rows = sharded.shard_turbo_rows(turbo, tp)
+    step("tp_turbo_streaming_search[placed]",
+         lambda codes: sharded.tp_turbo_streaming_search(on_rows, di, codes, None, tp))
+    del on_rows
+    torch.cuda.empty_cache()
+    # 5. TP turbo over the table built sharded (K20c): each shard composed
+    # into its own allocation; real rows byte-equal to the main path's table
+    t0 = time.perf_counter()
+    built = sharded.build_turbo_sharded(di, tp, arity=ARITY)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cols, rpc = built.views[0].cols, 4**ARITY
+    for m, shard in enumerate(built.views[0].tbl_shards):
+        real = max(0, min(n, (m + 1) * cols) - m * cols) * rpc
+        check(torch.equal(shard[:real], turbo.tbl[m * cols * rpc :][:real]),
+              f"build_turbo_sharded: shard {m}'s rows differ from enable_turbo's table")
+        check(not bool(shard[real:].any()), f"build_turbo_sharded: shard {m}'s pad rows not zero")
+    say("parallel", step="build_turbo_sharded", arity=ARITY, cols_per_shard=cols,
+        shard_bytes=[nbytes(t) for t in built.views[0].tbl_shards],
+        real_rows="byte-equal to enable_turbo's table", seconds=round(build_s, 4))
+    step("tp_turbo_streaming_search[built]",
+         lambda codes: sharded.tp_turbo_streaming_search(built, di, codes, None, tp))
+    return tp, placed, built
+
+
+def compare_parallel_kernels(dev, sbwt, runs, parallel, record, card):
+    """K20a-c against their plain versions at the main path's shapes: K20a's
+    kmer_search on the 1M 30-mers and lf_stream on the first PLAIN_READS
+    reads of each mix (and on each whole batch, beside flat K14), K20b on
+    the first PLAIN_READS reads of each mix (and on each whole batch,
+    beside flat K4), K20c on one whole shard (the last, with its pad
+    columns); then one tp_streaming_search under utils.profiling.trace."""
+    from sbwt_tpu_torch import kernels
+    from sbwt_tpu_torch.ops import search as ts
+    from sbwt_tpu_torch.ops import turbo as tt
+    from sbwt_tpu_torch.parallel import sharded
+
+    tp, placed, built = parallel
+    di, turbo = sbwt.device_index, sbwt._turbo
+    view, tview = placed.views[0], built.views[0]
+    km = torch.from_numpy(np.ascontiguousarray(runs["hit98"][0][:, :K])).to(dev)
+    k_km = lambda: ts.search_batch(view, km)
+    plain, plain_ms = timed_ms(lambda: ts.search_batch_plain(view, km))
+    record("kmer_search[sharded-matrix]", max_abs_err(k_km(), plain), cuda_ms(k_km, 5), plain_ms,
+           *search_work(di.size_in_bytes(), *km.shape), shape=tuple(km.shape),
+           shards=view.n_shards, flat_ms=cuda_ms(lambda: ts.search_batch(di, km), 5))
+    del plain
+    for mix, (codes_np, ans_np) in runs.items():
+        codes = torch.from_numpy(codes_np).to(dev)
+        lengths = torch.full((len(codes),), READ_LEN, dtype=torch.int32, device=dev)
+        sc, sl = codes[:PLAIN_READS], lengths[:PLAIN_READS]
+        answers = ans_np.size
+        for name, fn, flat, plain_fn in (
+            ("lf_stream[sharded-matrix]", lambda c, n: ts.streaming_search(view, c, n),
+             lambda: ts.streaming_search(di, codes, lengths),
+             lambda: ts.streaming_search_plain(view, sc, sl)),
+            (kernels.TURBO_SHARDED, lambda c, n: sharded.tp_turbo_block(tview, di, c, n),
+             lambda: tt.turbo_streaming_search(turbo, di, codes, lengths),
+             lambda: tt.turbo_streaming_search_plain(tview, di, sc, sl)),
+        ):
+            got = fn(sc, sl)
+            check(torch.equal(got.cpu(), torch.from_numpy(ans_np[:PLAIN_READS])),
+                  f"{name} {mix}: sample differs from the main path's answers")
+            plain, plain_ms = timed_ms(plain_fn)
+            err = max_abs_err(got, plain)
+            del got, plain
+            ms_full = cuda_ms(lambda: fn(codes, lengths), 3)
+            extra = dict(mix=mix, shape=tuple(sc.shape), shards=tp.shape["model"],
+                         full_batch_ms=ms_full, flat_full_batch_ms=cuda_ms(flat, 3),
+                         answers_per_s=answers / (ms_full / 1e3))
+            if mix == "hit98":
+                record(name, err, cuda_ms(lambda: fn(sc, sl), 3), plain_ms,
+                       *stream_work(PLAIN_READS, READ_LEN, K), **extra)
+            else:
+                check(err == 0, f"{name} {mix}: kernel differs from its plain version")
+                say("kernel", name=name, max_abs_err=err, ms=cuda_ms(lambda: fn(sc, sl), 3),
+                    plain_ms=plain_ms, **extra)
+        del codes, lengths
+
+    succ = tt.succ1(di)
+    m = tview.n_shards - 1
+    cols = tview.cols
+    k_c = lambda: kernels.succ_compose(succ, ARITY, m * cols, cols)
+    plain, plain_ms = timed_ms(lambda: tt.compose_plain(succ, ARITY, col0=m * cols, n_cols=cols))
+    out = k_c()
+    err = max_abs_err(out, plain) + max_abs_err(out, tview.tbl_shards[m])
+    del plain
+    record("succ_compose[column-range]", err, cuda_ms(k_c, 3), plain_ms, nbytes(succ, out),
+           out.numel(), shape=tuple(out.shape), shard=m, cols=cols,
+           real_cols=di.n_nodes - m * cols)
+    del out, succ
+    trace_tp_streaming(dev, tp, placed, runs)
+
+
+def trace_tp_streaming(dev, tp, placed, runs):
+    """One tp_streaming_search of the hit98 batch under the port's own
+    utils.profiling.trace: its device time by op, the top ops named."""
+    from sbwt_tpu_torch.parallel import sharded
+    from sbwt_tpu_torch.utils.profiling import annotate, trace
+
+    codes = torch.from_numpy(runs["hit98"][0]).to(dev)
+    sharded.tp_streaming_search(placed, codes, None, tp)  # warm
+    torch.cuda.synchronize()
+    span = "chip_smoke.tp_streaming_search"
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        with trace(d) as prof, annotate(span):
+            sharded.tp_streaming_search(placed, codes, None, tp)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        trace_bytes = (Path(d) / "trace.json").stat().st_size
+    top = []
+    for ev in prof.key_averages():
+        # the span itself shows on the device timeline too: not an op
+        if ev.device_type != torch.autograd.DeviceType.CUDA or ev.key == span:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        us = ev.self_cuda_time_total if us is None else us
+        top.append((us / 1e3, ev.count, ev.key[:60]))
+    top.sort(reverse=True)
+    device_ms = sum(ms for ms, _, _ in top)
+    check(device_ms > 0, "trace: no device time in the profile")
+    say("trace", call="tp_streaming_search, hit98, 1M reads", mesh=tp.shape,
+        wall_ms_with_profiler_start_and_export=round(wall * 1e3, 3), device_ms=round(device_ms, 4),
+        trace_json_bytes=trace_bytes,
+        top_device_ops=[{"op": key, "ms": round(ms, 4), "count": count} for ms, count, key in top[:5]])
+
+
+def probe_tables(dev):
+    """The probe's tables, made on the card from a seed: [4N, 2] and [4N, 8]
+    at scratch/gather_bench.py's N, and [2^26, 2] and [2^26, 8] past L2; the
+    B start indices in [0, N)."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    tables = {}
+    for rows in (4 * PROBE_N, PROBE_BIG_ROWS):
+        for width in (2, 8):
+            tables[(rows, width)] = torch.randint(0, 2**31 - 1, (rows, width), dtype=torch.int32,
+                                                  device=dev, generator=g)
+    idx0 = torch.randint(0, PROBE_N, (PROBE_B,), dtype=torch.int32, device=dev, generator=g)
+    return tables, idx0
+
+
+def run_probe_path(dev):
+    """gather_chain at scratch/gather_bench.py's shapes, both widths, through
+    the op a user would call."""
+    from sbwt_tpu_torch.ops import gather_chain as gc
+
+    tables, idx0 = probe_tables(dev)
+    for width in (2, 8):
+        out = gc.gather_chain(tables[(4 * PROBE_N, width)], idx0, PROBE_STEPS)
+        check(out.shape == idx0.shape and bool(((out >= 0) & (out < 4 * PROBE_N)).all()),
+              f"gather_chain width {width}: index out of range")
+    return tables, idx0
+
+
+def compare_probe(dev, tables, idx0, record, card):
+    """K21 against its plain version at each table, with its time,
+    dependent gathers/s and both bounds: bytes (B * steps * row bytes over
+    the HBM rate) and, what really bounds it, latency."""
+    from sbwt_tpu_torch.ops import gather_chain as gc
+
+    gathers = PROBE_B * PROBE_STEPS
+    cases = [(key, tbl, "local") for key, tbl in tables.items()]
+    if torch.cuda.device_count() > 1:  # a table on a second card, read over NVLink
+        peer = torch.device("cuda", 1)
+        cases += [((rows, width), tables[(rows, width)].to(peer), f"peer {peer}")
+                  for rows, width in tables]
+    for (rows, width), tbl, where in cases:
+        k = lambda: gc.gather_chain(tbl, idx0, PROBE_STEPS)
+        plain, plain_ms = timed_ms(lambda: gc.gather_chain_plain(tbl, idx0, PROBE_STEPS))
+        err = max_abs_err(k(), plain)
+        ms = cuda_ms(k, 5)
+        moved = gathers * width * 4 + nbytes(idx0) * 2
+        extra = dict(table=f"[{rows}, {width}]", table_bytes=nbytes(tbl), where=where, lanes=PROBE_B,
+                     steps=PROBE_STEPS, gathers_per_s=gathers / (ms / 1e3),
+                     byte_bound_ms=moved / HBM_BYTES_PER_S * 1e3)
+        if (rows, width, where) == (4 * PROBE_N, 2, "local"):  # pallas_chain's table
+            record("gather_chain", err, ms, plain_ms, moved, gathers * 4, **extra)
+        else:
+            check(err == 0, f"gather_chain {extra['table']} {where}: kernel differs from its plain version")
+            say("kernel", name="gather_chain", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                card=repr(card), **extra)
+        del plain
+
+
 def run_cli(device: str) -> None:
     """The CLI on the golden inputs, in a subprocess, as a user runs it."""
     env = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
@@ -1332,6 +1620,23 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     results, record = recorder(launches, card)
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    parallel = run_parallel_path(sbwt, runs)
+    counted("parallel", PARALLEL_KERNELS, t0)
+    compare_parallel_kernels(dev, sbwt, runs, parallel, record, card)
+    del parallel
+    torch.cuda.empty_cache()
+    say("parallel", seconds_with_kernel_comparisons=round(time.perf_counter() - t0, 3))
+
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    probe = run_probe_path(dev)
+    counted("probe", PROBE_KERNELS, t0)
+    compare_probe(dev, *probe, record, card)
+    del probe
+    torch.cuda.empty_cache()
+
     compare_kernels(dev, genome, sbwt, runs, record, card)
     compare_lf_kernels(dev, genome, sbwt, runs, variants, record)
     compare_variant_turbo_kernels(dev, runs, variants, lanes, record)

@@ -18,6 +18,7 @@ extern "C" int sbwt_lf_matrix(int device, int op, int variant, const void* rank,
 }
 
 // sizeof of each rank descriptor, in kernels.RANK_TYPES order, then LFArgs
+// and K20b's ShardedTable
 extern "C" int sbwt_lf_desc_sizes(long long* out) {
     using namespace sbwt;
     const long long sizes[] = {
@@ -25,7 +26,7 @@ extern "C" int sbwt_lf_desc_sizes(long long* out) {
         sizeof(SplitRank<PlainBV>), sizeof(SplitRank<RRR15>), sizeof(SplitRank<MEF>),
         sizeof(ConcatRank<PlainBV>), sizeof(ConcatRank<RRR15>),
         sizeof(SubsetWTRank<PlainBV>), sizeof(SubsetWTRank<RRR15>), sizeof(WideMatrix),
-        sizeof(LFArgs),
+        sizeof(ShardedMatrix), sizeof(LFArgs), sizeof(ShardedTable),
     };
     for (int i = 0; i < (int)(sizeof(sizes) / sizeof(sizes[0])); ++i) out[i] = sizes[i];
     return 0;

@@ -1,9 +1,11 @@
 // K14 lf_stream, K1 (precalc_fill, kmer_search) and partial_search as
 // templates over the rank type R of subset_rank.cuh, at R's position type:
 // one instance per rank type, in lf_stream.cu (the matrix variants),
-// lf_split.cu, lf_concat.cu, lf_subsetwt.cu and lf_wide.cu (WideMatrix:
+// lf_split.cu, lf_concat.cu, lf_subsetwt.cu, lf_wide.cu (WideMatrix:
 // K18b, the int64 LF programs of sbwt_tpu/models/wide.py:157-177 and of
-// sbwt_tpu/ops/search.py at pos_dtype int64).
+// sbwt_tpu/ops/search.py at pos_dtype int64) and lf_sharded.cu
+// (ShardedMatrix: K20a, the row-sharded TP search of
+// sbwt_tpu/parallel/sharded.py tp_search :208 and tp_streaming_search :478).
 //
 // K14 replaces the XLA programs of sbwt_tpu/ops/search.py streaming_search
 // (:185), streaming_chain (:141), its staged patch with _patch_chunk
@@ -110,12 +112,18 @@ __device__ __forceinline__ bool lf_step_r(const R& rk, const CArray<P>& Cl, int 
     return true;
 }
 
+// Greatest marked column <= col, its row read through the rank type
+template <class R, class P>
+__device__ __forceinline__ P sg_start_r(const R& rk, const int2* __restrict__ sgs_tbl, P col) {
+    return sg_start_in(sg_row(rk, sgs_tbl, (int64_t)(col >> 5)), col);
+}
+
 // Out-edge c of col's suffix group: its successor column, or -1
 // (SBWT.hh:566-577). The edge bit and the rank below it are one rank_pair.
 template <class R, class P = typename R::pos_t>
 __device__ __forceinline__ P successor(const R& rk, const int2* __restrict__ sgs_tbl,
                                        const CArray<P>& Cl, P col, int c) {
-    const auto q = rk.rank_pair(c, sg_start(sgs_tbl, col));
+    const auto q = rk.rank_pair(c, sg_start_r(rk, sgs_tbl, col));
     return q.y > q.x ? Cl[c] + q.x : (P)-1;
 }
 

@@ -1,9 +1,9 @@
 // The launch switch of the kernels that are templates over the rank type:
 // K14 and K1 with partial_search (lf_stream.cuh), K2's succ1
 // (succ_table.cuh) and K4 (turbo_stream.cuh). An instance file
-// (lf_stream.cu, lf_split.cu, lf_concat.cu, lf_subsetwt.cu, lf_wide.cu)
-// calls launch_rank_op<R> for each rank type of its family, which
-// instantiates all six kernels for R.
+// (lf_stream.cu, lf_split.cu, lf_concat.cu, lf_subsetwt.cu, lf_wide.cu,
+// lf_sharded.cu) calls launch_rank_op<R> for each rank type of its family,
+// which instantiates all six kernels for R, K4 over the flat table.
 #pragma once
 
 #include "lf_stream.cuh"
@@ -39,7 +39,7 @@ int launch_rank_op(int op, const void* rank_desc, const LFArgs* args, void* stre
             if (a.arity < 1 || a.arity > (sizeof(typename R::pos_t) == 8 ? 1 : 3)) {
                 return (int)cudaErrorInvalidValue;
             }
-            turbo_stream_kernel<R><<<grid, kBlock, 0, s>>>(rk, a);
+            turbo_stream_kernel<R, FlatTable><<<grid, kBlock, 0, s>>>(rk, a, FlatTable{});
             break;
         default:
             return (int)cudaErrorInvalidValue;

@@ -48,6 +48,13 @@ __device__ __forceinline__ pair_t<P> make_pair_of(P x, P y) {
     return v;
 }
 
+// (rank of pos within its row, bit at pos) of one (word, cum) row.
+__device__ __forceinline__ int rank_in_row(int2 row, int pos, int* bit) {
+    const unsigned o = (unsigned)pos & 31u;
+    *bit = (int)(((unsigned)row.x >> o) & 1u);
+    return row.y + __popc((unsigned)row.x & ((1u << o) - 1u));
+}
+
 // Number of c bits in columns 0..pos-1: one 8-byte row and a masked popcount.
 __device__ __forceinline__ int rank_c(const int2* __restrict__ rank_tbl,
                                       int64_t n_words, int c, int pos) {
@@ -60,24 +67,37 @@ __device__ __forceinline__ int rank_c(const int2* __restrict__ rank_tbl,
 __device__ __forceinline__ int extend_rank(const int2* __restrict__ rank_tbl,
                                            int64_t n_words, int c, int pos,
                                            int* bit) {
-    const int2 row = rank_tbl[(int64_t)c * n_words + (pos >> 5)];
-    const unsigned o = (unsigned)pos & 31u;
-    *bit = (int)(((unsigned)row.x >> o) & 1u);
-    return row.y + __popc((unsigned)row.x & ((1u << o) - 1u));
+    return rank_in_row(rank_tbl[(int64_t)c * n_words + (pos >> 5)], pos, bit);
 }
 
-// Greatest marked column <= col (SBWT.hh:563). A suffix group has at most
-// four columns, so the mark is within 3 and inside the (w, w - 1) pair:
-// seen as one 64-bit window, bit o of word w is window bit 32 + o.
+// Greatest marked column <= col (SBWT.hh:563), from row col >> 5 of the
+// suffix-group table. A suffix group has at most four columns, so the mark
+// is within 3 and inside the (w, w - 1) pair: seen as one 64-bit window,
+// bit o of word w is window bit 32 + o.
 template <class P>
-__device__ __forceinline__ P sg_start(const int2* __restrict__ sgs_tbl, P col) {
-    const int2 row = sgs_tbl[col >> 5];
+__device__ __forceinline__ P sg_start_in(int2 row, P col) {
     const uint64_t win = ((uint64_t)(unsigned)row.x << 32) | (unsigned)row.y;
     const int j = 32 + (int)(col & 31);
     for (int d = 0; d < 3; ++d) {
         if ((win >> (j - d)) & 1u) return col - d;
     }
     return col - 3;
+}
+
+// A table cut into row shards, one pointer each, passed by value: the
+// widest model axis of a mesh (sbwt_tpu_torch/parallel/sharded.py). Shard s
+// is picked by selects over the unrolled list, so the kernel reads the
+// pointers from its parameters and never indexes them dynamically.
+constexpr int kMaxShards = 8;
+
+template <class T>
+__device__ __forceinline__ const T* shard_ptr(const T* const (&shard)[kMaxShards], int s) {
+    const T* t = shard[0];
+#pragma unroll
+    for (int i = 1; i < kMaxShards; ++i) {
+        if (s == i) t = shard[i];
+    }
+    return t;
 }
 
 // Successors after 1, 2 and 3 chars, as one table row gives them.

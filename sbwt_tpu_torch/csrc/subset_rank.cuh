@@ -1,10 +1,13 @@
-// K17: subset rank of the ten variants on the device, and K18a, the
-// plain-matrix rank of the wide (int64) tier. Each type has
+// K17: subset rank of the ten variants on the device, K18a, the
+// plain-matrix rank of the wide (int64) tier, and K20a, the plain-matrix
+// rank over row shards (ShardedMatrix). Each type has
 //   pos_t              the type of a position: int, or int64_t for WideMatrix
 //   rank(c, pos)       count of char c in subsets 0..pos-1, pos in [0, n]
 //   rank_pair(c, pos)  (rank(c, pos), rank(c, pos + 1)), pos in [0, n)
 // and is a plain descriptor passed to a kernel by value (mirrored in
-// Python by sbwt_tpu_torch/kernels). Chars are 0..3.
+// Python by sbwt_tpu_torch/kernels). Chars are 0..3. The kernels read a
+// suffix-group row through sg_row(rk, sgs_tbl, w): the flat table of the
+// launch's arguments, unless the rank type holds its own (ShardedMatrix).
 //
 // Replaces the XLA code of sbwt_tpu/models/subsetrank.py: MatrixRank
 // (:92-104), SplitRank (:179-203), ConcatRank with _select0 /
@@ -33,6 +36,12 @@ namespace sbwt {
 
 __device__ __forceinline__ int pick4(const int (&a)[5], int c) {
     return c == 0 ? a[0] : (c == 1 ? a[1] : (c == 2 ? a[2] : a[3]));
+}
+
+// Row w of the suffix-group table (sbwt_common.cuh sg_start_in)
+template <class R>
+__device__ __forceinline__ int2 sg_row(const R&, const int2* __restrict__ sgs_tbl, int64_t w) {
+    return sgs_tbl[w];
 }
 
 // plain-matrix: the fused (word, cum) rows of sbwt_common.cuh
@@ -257,5 +266,45 @@ struct SubsetWTRank {
         return make_int2(q.x + q.y, q.z + q.w);
     }
 };
+
+// K20a, plain-matrix over row shards: the rank table int2 [4 * n_words]
+// and the suffix-group table int2 [n_words], each zero-padded to a
+// multiple of the model axis and cut into equal row shards that may lie
+// on other cards of the mesh (read over NVLink with peer access on).
+// Replaces sbwt_tpu/parallel/sharded.py TPIndexView (:105-140): there
+// each device gathers the rows of its own shard, zeroes the others and a
+// psum over `model` adds them up, so exactly one term is non-zero; here
+// the thread loads the row from its owning shard (shard = idx / rows,
+// local = idx - shard * rows), the same function with one load.
+struct ShardedMatrix {
+    using pos_t = int;
+    const int2* rank_shard[kMaxShards];
+    const int2* sgs_shard[kMaxShards];
+    long long n_words;
+    int rank_rows;  // rows per shard
+    int sgs_rows;
+
+    __device__ __forceinline__ int2 rank_row(int idx) const {
+        const int s = idx / rank_rows;
+        return shard_ptr(rank_shard, s)[idx - s * rank_rows];
+    }
+    __device__ __forceinline__ int2 sg_row(int w) const {
+        const int s = w / sgs_rows;
+        return shard_ptr(sgs_shard, s)[w - s * sgs_rows];
+    }
+    __device__ __forceinline__ int rank(int c, int pos) const {
+        int bit;
+        return rank_in_row(rank_row(c * (int)n_words + (pos >> 5)), pos, &bit);
+    }
+    __device__ __forceinline__ int2 rank_pair(int c, int pos) const {
+        int bit;
+        const int r = rank_in_row(rank_row(c * (int)n_words + (pos >> 5)), pos, &bit);
+        return make_int2(r, r + bit);
+    }
+};
+
+__device__ __forceinline__ int2 sg_row(const ShardedMatrix& rk, const int2*, int64_t w) {
+    return rk.sg_row((int)w);
+}
 
 }  // namespace sbwt

@@ -14,16 +14,29 @@
 // (column, first char) writes its 4^(A-1) rows as one contiguous run into
 // the preallocated table, so there are no chunk buffers and no pad rows.
 // Row indices are 64-bit (col * 64 overflows int32 past 2^25 columns).
+//
+// K20c: the same kernel over a column range (kRange). A launch writes the
+// rows of columns col0 .. col0 + n_cols - 1 (all < n) into a buffer that
+// starts at col0's first row; a model shard of sbwt_tpu/parallel/sharded.py
+// build_turbo_sharded (:343-421) is its own range in its own allocation,
+// so no card ever holds the whole table. The caller zeroes the rows of the
+// last shard's pad columns (past n, never gathered); the JAX build
+// composes them from zero-padded succ. The whole table keeps an instance
+// without the offset: with it, nvcc schedules the loads otherwise and the
+// arity-3 table of 4M columns took 16% longer on an H100 (PERF.md;
+// tools/compose_ab.py).
 #include "sbwt_common.cuh"
 
 namespace {
 
-// Thread t = col * 4 + c1 writes every table row that starts with col, c1.
-__global__ void compose_kernel(const int* __restrict__ succ, int n_nodes, int arity,
-                               int* __restrict__ tbl) {
+// Thread t = (col - col0) * 4 + c1 writes every table row that starts
+// with col, c1.
+template <bool kRange>
+__global__ void compose_kernel(const int* __restrict__ succ, int n_nodes, int arity, int col0,
+                               int n_cols, int* __restrict__ tbl) {
     const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (t >= (int64_t)n_nodes * 4) return;
-    const int64_t col = t >> 2;
+    if (t >= (int64_t)(kRange ? n_cols : n_nodes) * 4) return;
+    const int64_t col = kRange ? col0 + (t >> 2) : t >> 2;
     const int c1 = (int)(t & 3);
     const int s1 = succ[(int64_t)c1 * n_nodes + col];
     if (arity == 1) {
@@ -50,10 +63,20 @@ __global__ void compose_kernel(const int* __restrict__ succ, int n_nodes, int ar
 
 }  // namespace
 
-extern "C" int sbwt_succ_compose(int device, const void* succ, int n_nodes, int arity,
-                                 void* tbl, void* stream) {
+extern "C" int sbwt_succ_compose(int device, const void* succ, int n_nodes, int arity, int col0,
+                                 int n_cols, void* tbl, void* stream) {
     cudaSetDevice(device);
-    compose_kernel<<<sbwt::grid_for((int64_t)n_nodes * 4), sbwt::kBlock, 0,
-                     (cudaStream_t)stream>>>((const int*)succ, n_nodes, arity, (int*)tbl);
+    if (arity < 1 || arity > 3 || col0 < 0 || n_cols < 1 || (int64_t)col0 + n_cols > n_nodes) {
+        return (int)cudaErrorInvalidValue;
+    }
+    const unsigned grid = sbwt::grid_for((int64_t)n_cols * 4);
+    const cudaStream_t s = (cudaStream_t)stream;
+    if (col0 == 0 && n_cols == n_nodes) {
+        compose_kernel<false><<<grid, sbwt::kBlock, 0, s>>>((const int*)succ, n_nodes, arity, 0,
+                                                            n_nodes, (int*)tbl);
+    } else {
+        compose_kernel<true><<<grid, sbwt::kBlock, 0, s>>>((const int*)succ, n_nodes, arity, col0,
+                                                           n_cols, (int*)tbl);
+    }
     return (int)cudaGetLastError();
 }

@@ -28,7 +28,7 @@ __global__ void succ1_kernel(R rk, LFArgs a) {
     if (i >= a.B) return;
     const CArray<P> Cl(a.C);
     const P col = a.aux != nullptr ? static_cast<const P*>(a.aux)[i] : (P)i;
-    const P s = sg_start(a.sgs_tbl, col);
+    const P s = sg_start_r(rk, a.sgs_tbl, col);
     P* out = static_cast<P*>(a.out);
     for (int c = 0; c < 4; ++c) {
         const auto q = rk.rank_pair(c, s);

@@ -36,18 +36,48 @@
 // reads and the [B, P] answer writes are strided by row (one read per
 // thread), which is correct but not coalesced: staging them through shared
 // memory is left for a later change.
+//
+// The table's layout is a template parameter T: FlatTable, the one table of
+// the launch's arguments, or ShardedTable (K20b), row shards of whole
+// columns that may lie on other cards of the mesh. K20b replaces
+// sbwt_tpu/parallel/sharded.py TPTurboView (:233-287): there each device
+// gathers from its own shard and a psum over `model` adds up the one
+// non-zero row; here the thread loads the row from the owning shard, with
+// the row index rebased per shard as in tbl_row_sub (:278-287):
+// (col - shard * cols) * 4^A + sub, formed in 64 bits by table_row.
 #pragma once
 
 #include "lf_stream.cuh"
 
 namespace sbwt {
 
+// The one flat table of LFArgs::tbl
+struct FlatTable {
+    template <class P>
+    __device__ __forceinline__ const void* locate(const void* tbl, P&) const {
+        return tbl;
+    }
+};
+
+// Row shards of cols columns each (4^A rows a column; 1 at arity 1): the
+// shard that owns col, with col made local to it. Narrow (int) only.
+struct ShardedTable {
+    const void* shard[kMaxShards];
+    int cols;
+
+    __device__ __forceinline__ const void* locate(const void*, int& col) const {
+        const int s = col / cols;
+        col -= s * cols;
+        return shard_ptr(shard, s);
+    }
+};
+
 // Full search of the window at win (its k chars are all 0..3): seed from
 // the precalc row of its first p chars (pidx), then walk the rest with
 // table rows from a singleton seed, or take exact LF steps from a wider one.
-template <class R, class P = typename R::pos_t>
-__device__ __forceinline__ P turbo_restart(const R& rk, const LFArgs& a, const CArray<P>& Cl,
-                                           const int8_t* win, unsigned pidx) {
+template <class R, class T, class P = typename R::pos_t>
+__device__ __forceinline__ P turbo_restart(const R& rk, const T& t, const LFArgs& a,
+                                           const CArray<P>& Cl, const int8_t* win, unsigned pidx) {
     if (a.seed_bits != nullptr &&
         !((a.seed_bits[pidx >> 4] >> (2 * (pidx & 15))) & 1u)) {
         return -1;
@@ -58,7 +88,9 @@ __device__ __forceinline__ P turbo_restart(const R& rk, const LFArgs& a, const C
         P col = seed.x;
         for (int j = a.p; j < a.k && col >= 0; j += a.arity) {
             const int take = min(a.arity, a.k - j);
-            col = component(table_row<P>(a.tbl, a.arity, col, win + j, take), take - 1);
+            P local = col;
+            const void* base = t.locate(a.tbl, local);
+            col = component(table_row<P>(base, a.arity, local, win + j, take), take - 1);
         }
         return col;
     }
@@ -69,8 +101,8 @@ __device__ __forceinline__ P turbo_restart(const R& rk, const LFArgs& a, const C
     return l;
 }
 
-template <class R>
-__global__ void turbo_stream_kernel(R rk, LFArgs a) {
+template <class R, class T>
+__global__ void turbo_stream_kernel(R rk, LFArgs a, T t) {
     using P = typename R::pos_t;
     const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
     if (b >= a.B) return;
@@ -103,13 +135,15 @@ __global__ void turbo_stream_kernel(R rk, LFArgs a) {
     while (pos < n_pos) {
         if (prev < 0) {
             advance(pos);
-            prev = run >= k ? turbo_restart(rk, a, Cl, read + pos, pidx) : (P)-1;
+            prev = run >= k ? turbo_restart(rk, t, a, Cl, read + pos, pidx) : (P)-1;
             ans[pos++] = prev;
             if (prev < 0) lenient = false;
             continue;
         }
         const int take = min(a.arity, n_pos - pos);
-        const Succ3<P> row = table_row<P>(a.tbl, a.arity, prev, read + pos + k - 1, take);
+        P local = prev;
+        const void* base = t.locate(a.tbl, local);
+        const Succ3<P> row = table_row<P>(base, a.arity, local, read + pos + k - 1, take);
         for (int j = 0; j < take; ++j) {
             advance(pos);
             const int c = read[pos + k - 1];

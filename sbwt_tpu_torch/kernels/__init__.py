@@ -32,7 +32,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("succ_table.cu", "seed_bits.cu", "lf_stream.cu", "lf_split.cu", "lf_concat.cu",
-           "lf_subsetwt.cu", "lf_wide.cu", "build_sbwt.cu")
+           "lf_subsetwt.cu", "lf_wide.cu", "build_sbwt.cu", "lf_sharded.cu", "gather_chain.cu")
 HEADERS = ("sbwt_common.cuh", "bv.cuh", "wavelet.cuh", "subset_rank.cuh", "lf_stream.cuh",
            "succ_table.cuh", "turbo_stream.cuh", "rank_ops.cuh")
 NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
@@ -45,15 +45,29 @@ VARIANTS = ("plain-matrix", "rrr-matrix", "mef-matrix", "plain-split", "rrr-spli
             "mef-split", "plain-concat", "mef-concat", "plain-subsetwt", "rrr-subsetwt")
 # the rank type of the wide (int64) tier: plain-matrix rows with 64-bit counts
 WIDE = "wide-matrix"
+# K20a: plain-matrix rows cut into row shards over a mesh's model axis
+# (parallel/sharded.py). A rank type, not a variant: no file holds one.
+SHARDED = "sharded-matrix"
 # every rank type of csrc/subset_rank.cuh, in the order the kernels number them
-RANK_TYPES = VARIANTS + (WIDE,)
+RANK_TYPES = VARIANTS + (WIDE, SHARDED)
 # the source file (and C entry point sbwt_lf_<family>) of each rank type's instances
 FAMILY = {v: v.split("-")[1] for v in VARIANTS}
 FAMILY[WIDE] = "wide"
+FAMILY[SHARDED] = "sharded"
 # the kernels that are templates over the rank type (csrc/rank_ops.cuh), in
 # the order of the LFOp enum: K14, K1's fill and search, partial_search,
 # K2's succ1 and K4
 LF_OPS = ("lf_stream", "precalc_fill", "kmer_search", "partial_search", "succ1", "turbo_stream")
+# the ops each rank type's entry point launches: the sharded type serves the
+# TP search and streaming search only
+RANK_OPS = {v: LF_OPS for v in VARIANTS + (WIDE,)}
+RANK_OPS[SHARDED] = ("lf_stream", "kmer_search")
+# the widest model axis the sharded kernels take (csrc/sbwt_common.cuh kMaxShards)
+MAX_SHARDS = 8
+# K20b: K4 of plain-matrix over a row-sharded successor table
+TURBO_SHARDED = "turbo_stream[plain-matrix/sharded-table]"
+# K20c: K2's composition over one shard's column range
+COMPOSE_RANGE = "succ_compose[column-range]"
 
 
 def pos_dtype(variant: str) -> torch.dtype:
@@ -75,7 +89,10 @@ LAUNCHES = {
     "seed_bits": 0,
     f"seed_bits[{WIDE}]": 0,
     **{op: 0 for op in BUILD_OPS},
-    **{lf_counter(op, v): 0 for op in LF_OPS for v in RANK_TYPES},
+    **{lf_counter(op, v): 0 for op in LF_OPS for v in RANK_TYPES if op in RANK_OPS[v]},
+    TURBO_SHARDED: 0,
+    COMPOSE_RANGE: 0,
+    "gather_chain": 0,
 }
 
 _lib = None
@@ -85,7 +102,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _SIGNATURES = {
-    "sbwt_succ_compose": [_I, _P, _I, _I, _P, _P],
+    # (device, succ, n_nodes, arity, col0, n_cols, tbl, stream)
+    "sbwt_succ_compose": [_I, _P, _I, _I, _I, _I, _P, _P],
     "sbwt_seed_bits": [_I, _P, _I, _I, _P, _P],
     # (device, op, variant, rank descriptor*, LFArgs*, stream)
     **{f"sbwt_lf_{fam}": [_I, _I, _I, _P, _P, _P] for fam in sorted(set(FAMILY.values()))},
@@ -94,6 +112,11 @@ _SIGNATURES = {
     "sbwt_edge_src_probe": [_I, _P, _I, _I, _P, _P, _P, _P],
     "sbwt_emit_dummies": [_I, _P, _LL, _I, _P, _P, _P, _P],
     "sbwt_finalize_tables": [_I, _P, _P, _P, _LL, _I, _LL, _P, _P, _P, _P],
+    # (device, PlainMatrix*, ShardedTable*, LFArgs*, stream)
+    "sbwt_turbo_sharded_table": [_I, _P, _P, _P, _P],
+    "sbwt_enable_peer": [_I, _I],
+    # (device, tbl, R, width, idx0, B, steps, out, stream)
+    "sbwt_gather_chain": [_I, _P, _I, _I, _P, _LL, _I, _P, _P],
 }
 
 
@@ -135,6 +158,11 @@ SUBSETWT_DESCS = {k: _struct(f"SubsetWTRank_{k}", [("acgt", WT_DESCS[k]), ("ac",
                   for k in ("plain", "rrr")}
 PlainMatrixDesc = _struct("PlainMatrix", [("rank_tbl", _P), ("n_words", _LL)])
 WideMatrixDesc = _struct("WideMatrix", [("rank_tbl", _P), ("n_words", _LL)])
+ShardedMatrixDesc = _struct("ShardedMatrix", [
+    ("rank_shard", _P * MAX_SHARDS), ("sgs_shard", _P * MAX_SHARDS), ("n_words", _LL),
+    ("rank_rows", _I), ("sgs_rows", _I),
+])
+ShardedTableDesc = _struct("ShardedTable", [("shard", _P * MAX_SHARDS), ("cols", _I)])
 RANK_DESCS = {
     "plain-matrix": PlainMatrixDesc,
     "rrr-matrix": MATRIX_DESCS["rrr"], "mef-matrix": MATRIX_DESCS["mef"],
@@ -142,7 +170,7 @@ RANK_DESCS = {
     "mef-split": SPLIT_DESCS["mef"],
     "plain-concat": CONCAT_DESCS["plain"], "mef-concat": CONCAT_DESCS["rrr"],
     "plain-subsetwt": SUBSETWT_DESCS["plain"], "rrr-subsetwt": SUBSETWT_DESCS["rrr"],
-    WIDE: WideMatrixDesc,
+    WIDE: WideMatrixDesc, SHARDED: ShardedMatrixDesc,
 }
 LFArgs = _struct("LFArgs", [
     ("sgs_tbl", _P), ("C", _P), ("precalc", _P), ("codes", _P), ("lengths", _P), ("aux", _P),
@@ -222,7 +250,7 @@ def _library():
 
 def _check_desc_sizes(lib) -> None:
     """Raise unless every descriptor has the size the library compiled."""
-    types = [RANK_DESCS[v] for v in RANK_TYPES] + [LFArgs]
+    types = [RANK_DESCS[v] for v in RANK_TYPES] + [LFArgs, ShardedTableDesc]
     sizes = (ctypes.c_longlong * len(types))()
     lib.sbwt_lf_desc_sizes(sizes)
     for t, size in zip(types, sizes):
@@ -261,16 +289,24 @@ def _launch(entry: str, counter: str, device: torch.device, *args) -> None:
     LAUNCHES[counter] += 1
 
 
-def succ_compose(succ, arity: int) -> torch.Tensor:
+def succ_compose(succ, arity: int, col0: int = 0, n_cols: int | None = None) -> torch.Tensor:
     """K2 (succ_table.cu): the arity-A table from succ [4, n]: [n, 4] for
-    A = 1, [n * 16, 2] for A = 2, [n * 64, 4] for A = 3."""
+    A = 1, [n * 16, 2] for A = 2, [n * 64, 4] for A = 3. K20c: given
+    n_cols, the rows of columns col0 .. col0 + n_cols - 1 only, as one model
+    shard holds them (the rows of columns past n zeroed), counted apart."""
     dev = _cuda_device(succ)
     n = succ.shape[1]
-    shape = {1: (n, 4), 2: (n * 16, 2), 3: (n * 64, 4)}[arity]
-    out = torch.empty(shape, dtype=torch.int32, device=dev)
+    counter = "succ_compose" if n_cols is None else COMPOSE_RANGE
+    n_cols = n if n_cols is None else n_cols
+    real = min(n_cols, n - col0)
+    if col0 < 0 or real < 1:
+        raise ValueError(f"succ_compose: columns {col0} + {n_cols} of {n}")
+    rows, width = {1: (1, 4), 2: (16, 2), 3: (64, 4)}[arity]
+    out = torch.empty((n_cols * rows, width), dtype=torch.int32, device=dev)
+    out[real * rows :].zero_()
     _launch(
-        "sbwt_succ_compose", "succ_compose", dev,
-        _check(succ, "succ", torch.int32, dev, (4, n)), n, arity,
+        "sbwt_succ_compose", counter, dev,
+        _check(succ, "succ", torch.int32, dev, (4, n)), n, arity, col0, real,
         _check(out, "tbl", torch.int32, dev, align=16),
     )
     return out
@@ -305,6 +341,8 @@ def ptr(t: torch.Tensor, name: str, device: torch.device, align: int = 4) -> int
 
 
 def _lf_launch(op: str, variant: str, rank_desc, device: torch.device, **fields) -> None:
+    if op not in RANK_OPS[variant]:
+        raise ValueError(f"{variant}: no {op} instance")
     if not isinstance(rank_desc, RANK_DESCS[variant]):
         raise TypeError(f"{variant}: descriptor {type(rank_desc).__name__}, "
                         f"expected {RANK_DESCS[variant].__name__}")
@@ -450,6 +488,108 @@ def turbo_stream(variant: str, rank_desc, tbl, arity: int, C, precalc, p: int, s
         codes=codes_p, lengths=lengths_p, out=_check(out, "out", dt, dev),
         B=B, L=L, k=k, p=p, n_nodes=n_nodes,
     )
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K20: row shards over a mesh's model axis (csrc/lf_sharded.cu). A shard may
+# lie on another card than the one that runs the kernel: peer access is
+# enabled for the pair first, and a pair that cannot reach each other raises.
+# ---------------------------------------------------------------------------
+
+_peers: set = set()
+
+
+def enable_peer_access(device: torch.device, peer: torch.device) -> None:
+    """Let kernels launched on CUDA ``device`` load from memory on CUDA
+    ``peer``; raises if the pair cannot reach each other. Idempotent."""
+    device, peer = _cuda_device_of(device), _cuda_device_of(peer)
+    if device == peer or (device.index, peer.index) in _peers:
+        return
+    err = _library().sbwt_enable_peer(device.index, peer.index)
+    if err != 0:
+        raise RuntimeError(f"{device} cannot load from {peer} (peer access: cudaError {err}); "
+                           "the sharded kernels never copy a table instead")
+    _peers.add((device.index, peer.index))
+
+
+def _cuda_device_of(device) -> torch.device:
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"CUDA kernel called with a tensor on {device}")
+    return device if device.index is not None else torch.device("cuda", torch.cuda.current_device())
+
+
+def shard_ptrs(shards, name: str, device: torch.device, shape: tuple, align: int) -> ctypes.Array:
+    """The checked data pointers of the int32 row shards (each of ``shape``)
+    that a kernel on ``device`` reads, as a descriptor's pointer array;
+    enables peer access to every other card that holds one."""
+    if not 1 <= len(shards) <= MAX_SHARDS:
+        raise ValueError(f"{name}: {len(shards)} shards, the kernels take 1 to {MAX_SHARDS}")
+    ptrs = []
+    for i, t in enumerate(shards):
+        enable_peer_access(device, _cuda_device(t))
+        ptrs.append(_check(t, f"{name}[{i}]", torch.int32, t.device, shape, align))
+    return (_P * MAX_SHARDS)(*ptrs)
+
+
+def turbo_stream_sharded(rank_desc, shards, cols: int, arity: int, C, precalc, p: int,
+                         seed_bits_tbl, codes, lengths, k: int, n_nodes: int) -> torch.Tensor:
+    """K20b (turbo_stream.cuh over a ShardedTable): K4 of plain-matrix with
+    the arity-A successor table cut into row shards of ``cols`` whole
+    columns each (4^A rows a column, 1 at arity 1)."""
+    dev = _cuda_device(codes)
+    B, L = codes.shape
+    out = torch.empty((B, L - k + 1), dtype=torch.int32, device=dev)
+    if B == 0:
+        return out
+    if p <= 0:
+        raise ValueError("turbo_stream needs a precalc table (p > 0)")
+    if not isinstance(rank_desc, PlainMatrixDesc):
+        raise TypeError(f"turbo_stream_sharded: descriptor {type(rank_desc).__name__}, "
+                        "expected PlainMatrix")
+    rows, width = {1: (1, 4), 2: (16, 2), 3: (64, 4)}[arity]
+    if cols * len(shards) < n_nodes:
+        raise ValueError(f"{len(shards)} shards of {cols} columns hold fewer than {n_nodes}")
+    table = ShardedTableDesc(shard_ptrs(shards, "tbl", dev, (cols * rows, width), 16), cols)
+    codes_p, lengths_p = _check_reads(codes, lengths, dev)
+    sb = 0 if seed_bits_tbl is None else _check(seed_bits_tbl, "seed_bits", torch.int32, dev,
+                                                (4 ** (p + 1) // 16,))
+    args = LFArgs(arity=arity, C=_check_C(C, "plain-matrix", dev),
+                  precalc=_check_precalc(precalc, "plain-matrix", p, dev), seed_bits=sb,
+                  codes=codes_p, lengths=lengths_p, out=_check(out, "out", torch.int32, dev),
+                  B=B, L=L, k=k, p=p, n_nodes=n_nodes)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _library().sbwt_turbo_sharded_table(dev.index, ctypes.byref(rank_desc),
+                                              ctypes.byref(table), ctypes.byref(args), stream)
+    if err != 0:
+        raise RuntimeError(f"sbwt_turbo_sharded_table: CUDA launch failed with cudaError {err}")
+    LAUNCHES[TURBO_SHARDED] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K21: the dependent-gather probe (csrc/gather_chain.cu)
+# ---------------------------------------------------------------------------
+
+
+def gather_chain(tbl, idx0, steps: int) -> torch.Tensor:
+    """K21: each lane of idx0 int32 [B] runs ``steps`` dependent loads from
+    the int32 table [R, 2] or [R, 8]: idx <- (xor of row idx & 0x7FFFFFFF)
+    % R. The kernel runs on idx0's card; the table may lie on a peer card."""
+    dev = _cuda_device(idx0)
+    enable_peer_access(dev, _cuda_device(tbl))
+    R, width = tbl.shape
+    if width not in (2, 8):
+        raise ValueError(f"gather_chain: rows of {width} words, expected 2 or 8")
+    B = idx0.shape[0]
+    out = torch.empty(B, dtype=torch.int32, device=dev)
+    if B == 0:
+        return out
+    _launch("sbwt_gather_chain", "gather_chain", dev,
+            _check(tbl, "tbl", torch.int32, tbl.device, align=4 * width if width == 2 else 16),
+            R, width, _check(idx0, "idx0", torch.int32, dev, (B,)), B, steps,
+            _check(out, "out", torch.int32, dev))
     return out
 
 

@@ -78,11 +78,15 @@ class MatrixIndex(nn.Module):
 
 
 def sg_start(sgs_tbl, col):
-    """Greatest marked column <= col (SBWT.hh:563): the mark is within 3
-    columns, inside the (word w, word w - 1) row read as one 64-bit window
-    whose bit 32 + o is bit o of word w; int64."""
+    """Greatest marked column <= col (SBWT.hh:563); int64."""
     col = torch.as_tensor(col, device=sgs_tbl.device).long()
-    row = sgs_tbl[col >> 5]
+    return sg_start_in(sgs_tbl[col >> 5], col)
+
+
+def sg_start_in(row, col):
+    """sg_start from row col >> 5 of the suffix-group table: the mark is
+    within 3 columns, inside the (word w, word w - 1) row read as one 64-bit
+    window whose bit 32 + o is bit o of word w; int64."""
     win = (bv.word_u32(row[..., 0]) << 32) | bv.word_u32(row[..., 1])
     j = 32 + (col & 31)
     delta = torch.full_like(col, 3)

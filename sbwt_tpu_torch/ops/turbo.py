@@ -48,6 +48,17 @@ class TurboIndex(nn.Module):
         self.precalc_k = int(precalc_k)
         self.arity = int(arity)
 
+    @property
+    def pos_dtype(self) -> torch.dtype:
+        return self.tbl.dtype
+
+    def row(self, col, sub=0):
+        """The table row of column col (>= 0) and, for arity >= 2, of the
+        string of chars packed in sub (the row's offset inside the column)."""
+        if self.arity == 1:
+            return self.tbl[col]
+        return self.tbl[col * 4**self.arity + sub]
+
 
 class WideTurboIndex(TurboIndex):
     """The arity-1 tier of a wide index: tbl int64 [n, 4] (32 B a column),
@@ -118,16 +129,24 @@ def succ1_plain(index, cols=None) -> torch.Tensor:
                         for c in range(4)]).to(index.pos_dtype)
 
 
-def compose_plain(succ: torch.Tensor, arity: int, chunk: int = 1 << 18) -> torch.Tensor:
-    """The arity-A table from succ [4, n], built column chunk by chunk."""
+def compose_plain(succ: torch.Tensor, arity: int, chunk: int = 1 << 18, col0: int = 0,
+                  n_cols: int | None = None) -> torch.Tensor:
+    """The arity-A table from succ [4, n], built column chunk by chunk; with
+    n_cols, the rows of columns col0 .. col0 + n_cols - 1 only (one model
+    shard's), columns past n as zero rows."""
     n = succ.shape[1]
+    n_cols = n - col0 if n_cols is None else n_cols
+    real = max(0, min(n, col0 + n_cols) - col0)
     if arity == 1:
-        return succ.t().contiguous()
+        out = torch.zeros((n_cols, 4), dtype=succ.dtype, device=succ.device)
+        out[:real] = succ[:, col0 : col0 + real].t()
+        return out
     width = 2 if arity == 2 else 4
     rows = 4**arity
-    out = torch.empty((n * rows, width), dtype=torch.int32, device=succ.device)
-    for s in range(0, n, chunk):
-        m = min(chunk, n - s)
+    out = torch.empty((n_cols * rows, width), dtype=torch.int32, device=succ.device)
+    out[real * rows :] = 0
+    for s in range(col0, col0 + real, chunk):
+        m = min(chunk, col0 + real - s)
         n1 = succ[:, s : s + m]  # [c1, m]
         n2 = torch.where(n1[None] >= 0, succ[:, n1.clamp(min=0)], -1)  # [c2, c1, m]
         if arity == 2:
@@ -138,7 +157,7 @@ def compose_plain(succ: torch.Tensor, arity: int, chunk: int = 1 << 18) -> torch
             parts = [n1[None, None].expand(4, 4, 4, m), n2[None].expand(4, 4, 4, m), n3,
                      torch.zeros_like(n3)]
             part = torch.stack(parts, dim=-1).permute(3, 2, 1, 0, 4)  # [m, c1, c2, c3, 4]
-        out[s * rows : (s + m) * rows] = part.reshape(m * rows, width)
+        out[(s - col0) * rows : (s - col0 + m) * rows] = part.reshape(m * rows, width)
     return out
 
 
@@ -224,9 +243,9 @@ def _succ_step(turbo: TurboIndex, col, c):
     first entry of its table row; -1 stays -1."""
     safe = col.clamp(min=0)
     if turbo.arity == 1:
-        nxt = turbo.tbl[safe, c]
+        nxt = turbo.row(safe).gather(-1, c.long()[..., None])[..., 0]
     else:
-        nxt = turbo.tbl[safe * 4**turbo.arity + c * 4 ** (turbo.arity - 1), 0]
+        nxt = turbo.row(safe, c * 4 ** (turbo.arity - 1))[..., 0]
     return torch.where(col >= 0, nxt.long(), -1)
 
 
@@ -248,7 +267,7 @@ def fast_search(turbo: TurboIndex, codes):
     col = torch.where(dead, -1, l)
     for j in range(p, k):
         col = _succ_step(turbo, col, cc[:, j])
-    ans = torch.where(needs_slow, -1, col).to(turbo.tbl.dtype)
+    ans = torch.where(needs_slow, -1, col).to(turbo.pos_dtype)
     return ans.reshape(shape), needs_slow.reshape(shape)
 
 
@@ -265,7 +284,7 @@ def turbo_streaming_search_plain(turbo: TurboIndex, index, codes, lengths):
     B, L = codes.shape
     k = turbo.k
     P = L - k + 1
-    ans = torch.full((B, P), -1, dtype=turbo.tbl.dtype, device=codes.device)
+    ans = torch.full((B, P), -1, dtype=turbo.pos_dtype, device=codes.device)
     prev = torch.full((B,), -1, dtype=torch.long, device=codes.device)
     lenient = torch.ones(B, dtype=torch.bool, device=codes.device)
     for i in range(P):

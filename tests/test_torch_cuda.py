@@ -244,3 +244,70 @@ def test_device_build_equals_host_build(cuda, k, n_seqs, size):
     np.testing.assert_array_equal(a._bits_packed, b._bits_packed)
     np.testing.assert_array_equal(a._sgs_packed, b._sgs_packed)
     assert all(kernels.LAUNCHES[op] > 0 for op in kernels.BUILD_OPS)
+
+
+# ---------------------------------------------------------------------------
+# K20, the row-sharded (TP) kernels, and K21, the gather probe. Every model
+# slot lies on the one card: shard selection and rebasing run for real,
+# peer loads do not (a second card would add them).
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n_model", [1, 3, 4, 8])
+def test_sharded_kernels_equal_plain_versions(cuda, n_model):
+    from sbwt_tpu_torch.parallel import sharded
+
+    rng = np.random.default_rng(500 + n_model)
+    k, p = 14, 6
+    g = "".join(rng.choice(list("ACGT"), size=5000))
+    di = SBWT.build([g], k, cuda, precalc_k=p).device_index
+    codes, lengths = _reads(g, rng, 1500, k + 60, k)
+    c, n = torch.from_numpy(codes).to(cuda), torch.from_numpy(lengths).to(cuda)
+    km = c[:, :k].contiguous()
+    mesh = sharded.make_mesh(2, n_model, [cuda])
+    view = sharded.shard_index_rows(di, mesh).views[0]
+    before = dict(kernels.LAUNCHES)
+    got = ts.search_batch(view, km)
+    assert torch.equal(got, ts.search_batch_plain(view, km))
+    assert torch.equal(got, ts.search_batch(di, km))
+    got = ts.streaming_search(view, c, n)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ts.streaming_search_plain(view, c, n))
+    assert torch.equal(got, ts.streaming_search(di, c, n))
+    for arity in (1, 2, 3):
+        turbo = tt.build_turbo(di, arity)
+        flat = tt.turbo_streaming_search(turbo, di, c, n)
+        placed = sharded.shard_turbo_rows(turbo, mesh)
+        got = sharded.tp_turbo_streaming_search(placed, di, c, n, mesh)
+        torch.cuda.synchronize()
+        assert torch.equal(got, flat)
+        assert torch.equal(got[:750], tt.turbo_streaming_search_plain(placed.views[0], di, c[:750],
+                                                                      n[:750]))
+        if arity >= 2:
+            built = sharded.build_turbo_sharded(di, mesh, arity)
+            cols, rows = built.views[0].cols, 4**arity
+            for m, shard in enumerate(built.views[0].tbl_shards):
+                real = max(0, min(di.n_nodes, (m + 1) * cols) - m * cols)
+                assert torch.equal(shard[: real * rows], turbo.tbl[m * cols * rows :][: real * rows])
+                assert not shard[real * rows :].any()
+                assert torch.equal(shard, tt.compose_plain(tt.succ1(di), arity, col0=m * cols,
+                                                           n_cols=cols))
+            assert torch.equal(sharded.tp_turbo_streaming_search(built, di, c, n, mesh), flat)
+    for name in ("kmer_search[sharded-matrix]", "lf_stream[sharded-matrix]",
+                 kernels.TURBO_SHARDED, kernels.COMPOSE_RANGE):
+        assert kernels.LAUNCHES[name] > before[name], name
+
+
+@pytest.mark.parametrize("width", [2, 8])
+def test_gather_chain_equals_plain_version(cuda, width):
+    from sbwt_tpu_torch.ops import gather_chain as gc
+
+    rng = np.random.default_rng(width)
+    tbl = torch.from_numpy(rng.integers(0, 2**31 - 1, size=(40_000, width), dtype=np.int32)).to(cuda)
+    idx0 = torch.from_numpy(rng.integers(0, 40_000, size=5000, dtype=np.int32)).to(cuda)
+    before = kernels.LAUNCHES["gather_chain"]
+    got = gc.gather_chain(tbl, idx0, 64)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["gather_chain"] == before + 1
+    assert torch.equal(got, gc.gather_chain_plain(tbl, idx0, 64))
+    assert torch.equal(gc.gather_chain(tbl, idx0, 0), idx0)

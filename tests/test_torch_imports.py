@@ -77,7 +77,23 @@ with tempfile.TemporaryDirectory() as d:
     save(d + "/dev.sbwt", on_dev)
     device_build &= bool((load(d + "/dev.sbwt", "cpu").search_batch(codes[:, :14])
                           == host.search_batch(codes[:, :14])).all())
+from sbwt_tpu_torch.ops.gather_chain import gather_chain
+from sbwt_tpu_torch.parallel import multihost, sharded
+from sbwt_tpu_torch.utils.profiling import ThroughputMeter, annotate, trace
+mesh = sharded.make_mesh(2, 2, ["cpu"])
+tp = sharded.build_turbo_sharded(sb.device_index, mesh, 3)
+with tempfile.TemporaryDirectory() as d, trace(d), annotate("parallel"):
+    parallel = bool((sharded.tp_streaming_search(sb.device_index, codes, None, mesh).numpy()
+                     == ans).all())
+    parallel &= bool((sharded.tp_turbo_streaming_search(tp, sb.device_index, codes, None, mesh)
+                      .numpy() == ans).all())
+    parallel &= bool((multihost.local_shard(multihost.distributed_streaming_search(
+        sb.device_index, codes, np.full(len(codes), 40, np.int32), mesh)) == ans).all())
+import torch
+parallel &= gather_chain(torch.zeros((8, 2), dtype=torch.int32),
+                         torch.arange(4, dtype=torch.int32), 3).tolist() == [0, 0, 0, 0]
 print(json.dumps({
+    "parallel": parallel,
     "modules": len(mods),
     "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
     "sbwt_tpu": sorted(m for m in sys.modules if m == "sbwt_tpu" or m.startswith("sbwt_tpu.")),
@@ -107,7 +123,7 @@ def test_cpu_slice_imports_no_jax_and_launches_nothing(tmp_path):
     assert out["device_build"]
     assert set(out["launches"]) == set(kernels.LAUNCHES)
     assert all(v == 0 for v in out["launches"].values())
-    assert out["arity"] == 3 and out["roundtrip"] and out["variants"]
+    assert out["arity"] == 3 and out["roundtrip"] and out["variants"] and out["parallel"]
     assert 0.5 < out["hit"] < 1.0 and out["kmer_hits"] > 0
 
 
@@ -188,9 +204,22 @@ def _wide_desc():
                                    torch.full((2,), 5, dtype=torch.int32), 5, 1),
     lambda t: kernels.seed_bits(t["pre"].long(), 1),
     lambda t: kernels.precalc_fill(kernels.WIDE, _wide_desc(), t["C"].long(), 10, 2),
+    lambda t: kernels.kmer_search(kernels.SHARDED, kernels.ShardedMatrixDesc(), t["C"], 10,
+                                  t["pre"], 1, t["codes"]),
+    lambda t: kernels.lf_stream(kernels.SHARDED, kernels.ShardedMatrixDesc(), t["sgs"], t["C"],
+                                t["pre"], 1, 5, 10, t["codes"],
+                                torch.full((2,), 5, dtype=torch.int32)),
+    lambda t: kernels.turbo_stream_sharded(_rank_desc("plain-matrix"), [t["rank"], t["rank"]], 1, 1,
+                                           t["C"], t["pre"], 1, None, t["codes"],
+                                           torch.full((2,), 5, dtype=torch.int32), 5, 2),
+    lambda t: kernels.succ_compose(torch.zeros((4, 10), dtype=torch.int32), 3, 4, 3),
+    lambda t: kernels.gather_chain(t["rank"], torch.zeros(3, dtype=torch.int32), 4),
+    lambda t: kernels.shard_ptrs([t["rank"]], "tbl", torch.device("cpu"), (4, 2), 8),
 ], ids=["precalc_fill", "kmer_search", "succ1", "succ_compose", "seed_bits", "turbo_stream",
         "lf_stream", "variant_precalc_fill", "variant_kmer_search", "variant_partial_search",
-        "variant_succ1", "variant_turbo_stream", "wide_seed_bits", "wide_precalc_fill"])
+        "variant_succ1", "variant_turbo_stream", "wide_seed_bits", "wide_precalc_fill",
+        "sharded_kmer_search", "sharded_lf_stream", "turbo_stream_sharded_table",
+        "succ_compose_column_range", "gather_chain", "shard_pointers"])
 def test_wrappers_refuse_cpu_tensors(call):
     tensors = {
         "rank": torch.zeros((4, 2), dtype=torch.int32),
@@ -207,16 +236,19 @@ def test_wrappers_refuse_cpu_tensors(call):
 
 def test_launch_counters_name_every_lf_instance():
     lf = [name for name in kernels.LAUNCHES if "[" in name]
-    # six ops on eleven rank types; the wide tier's seed bits have a counter
-    # of their own
-    assert len(lf) == 6 * 11 + 1
+    # six ops on eleven rank types and two on the sharded one (K20a); the
+    # wide tier's seed bits, K20b and K20c have counters of their own
+    assert len(lf) == 6 * 11 + 2 + 3
     for op in kernels.LF_OPS:
         assert kernels.lf_counter(op, "rrr-split") in lf
         assert kernels.lf_counter(op, kernels.WIDE) in lf
         assert kernels.lf_counter(op, "plain-matrix") in kernels.LAUNCHES
+        sharded = kernels.lf_counter(op, kernels.SHARDED) in lf
+        assert sharded == (op in ("lf_stream", "kmer_search"))
     assert kernels.lf_counter("succ1", "plain-matrix") == "succ1[plain-matrix]"
     assert set(kernels.RANK_DESCS) == set(kernels.RANK_TYPES) == set(kernels.FAMILY)
-    assert kernels.RANK_TYPES == kernels.VARIANTS + (kernels.WIDE,)
+    assert kernels.RANK_TYPES == kernels.VARIANTS + (kernels.WIDE, kernels.SHARDED)
+    assert kernels.SHARDED not in kernels.VARIANTS
     for fam in set(kernels.FAMILY.values()):
         src = "lf_stream.cu" if fam == "matrix" else f"lf_{fam}.cu"
         assert f"sbwt_lf_{fam}(" in (kernels.CSRC / src).read_text()
@@ -454,6 +486,22 @@ def test_copied_host_module_gives_the_jax_packages_bytes(module, tmp_path):
     got = _COPIED[module]("sbwt_tpu_torch", tmp_path)
     assert len(want) > 100
     assert got == want
+
+
+def test_sharded_rank_type_refuses_the_ops_it_has_no_instance_of():
+    for op in ("precalc_fill", "partial_search", "succ1", "turbo_stream"):
+        with pytest.raises(ValueError, match=f"no {op} instance"):
+            kernels._lf_launch(op, kernels.SHARDED, kernels.ShardedMatrixDesc(), None)
+
+
+@pytest.mark.parametrize("name", ["ThroughputMeter", "ProgressPrinter"])
+def test_profiling_classes_are_the_jax_packages(name):
+    """utils/profiling.py's counters are copies: the same source text."""
+    import inspect
+
+    want = getattr(_mod("sbwt_tpu", "utils.profiling"), name)
+    got = getattr(_mod("sbwt_tpu_torch", "utils.profiling"), name)
+    assert inspect.getsource(got) == inspect.getsource(want)
 
 
 def test_native_library_builds_into_the_ports_build_directory():
