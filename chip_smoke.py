@@ -7,8 +7,8 @@ the bench's real size, every kernel against its plain PyTorch version.
 Phases, one line each; any failure exits nonzero:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: nvcc compiles K1-K4, K14, K18-K21 from sbwt_tpu_torch/csrc,
-   one process per source;
+2. build: nvcc compiles K1-K4, K14, K18-K21 and fast_search from
+   sbwt_tpu_torch/csrc, one process per source;
 3. main path (launches counted): ``SBWT.build`` of a 4 Mbp uniform random
    genome (numpy seed 20260817, as bench.py) at k = 30 with precalc_k = 13
    (K1's fill), ``enable_turbo(arity=3)`` (K2, K3),
@@ -31,7 +31,16 @@ Phases, one line each; any failure exits nonzero:
    fill at p = 13), its LF answers (wide K14) and, after
    ``enable_turbo`` (wide succ1 and seed bits: an int64 [n, 4] table), its
    turbo answers (wide K4) on both batches, equal to the narrow ones;
-7. wide giant (launches counted): the complete order-16 de Bruijn graph,
+7. k-mer access (launches counted): ``ops.turbo.fast_search`` of the first
+   k-mer of every read of both mixes and of the spiked batch, over the
+   arity-3 table, narrow tables of arity 1 and 2 and the wide int64 table,
+   each equal to its plain version and, where needs_slow is false, to K1's
+   search (hit98: needs_slow rare, hit fraction near 0.98);
+   ``compute_dummy_node_marks`` (one succ1 launch a BFS level), equal to
+   the labels of ``reconstruct_all_kmers`` that start with $;
+   ``get_kmers_batch`` of 1M sampled columns and ``get_kmer_fast`` of 1,000,
+   equal to those labels, each full k-mer searched back to its column;
+8. wide giant (launches counted): the complete order-16 de Bruijn graph,
    4,294,967,297 columns (a 6.44 GB rank table and a 1.07 GB suffix-group
    table on the card), from its packed pattern through ``SBWT.from_packed``,
    which must route to the wide index by itself; the pattern is first held
@@ -41,13 +50,13 @@ Phases, one line each; any failure exits nonzero:
    ``forward_batch`` of 1M lanes, every answer against the closed form
    1 + sum code_i * 4^i; ``enable_turbo(None)`` must find no room for a
    table (137 GB) and leave the LF engine;
-8. device build (launches counted): ``SBWT.build_on_device`` (K19) of the
+9. device build (launches counted): ``SBWT.build_on_device`` (K19) of the
    same genome with precalc_k = 13, whose tables, counts and p = 13 table
    must equal phase 3's host-built index word for word and whose turbo
    answers to the hit98 batch must equal phase 3's; then of the first
    200,000 reads of the hit98 batch as separate sequences, equal to the
    host build of the same reads;
-9. parallel (launches counted): the five steps of the JAX package's
+10. parallel (launches counted): the five steps of the JAX package's
    multichip dry run (``__graft_entry__.py:32-95``) through
    ``sbwt_tpu_torch.parallel.sharded`` on the main path's index and both
    1M-read batches, slots round-robin over the cards (each slot's device
@@ -60,11 +69,11 @@ Phases, one line each; any failure exits nonzero:
    path's. At most two 4.1 GB tables are alive at once. Then K20a-c against
    their plain versions, and one ``tp_streaming_search`` under the port's
    ``utils.profiling.trace`` (its top device ops);
-10. probe (launches counted): ``ops.gather_chain`` (K21) at
+11. probe (launches counted): ``ops.gather_chain`` (K21) at
    scratch/gather_bench.py's shapes (B = 65,536 lanes, 64 steps, [2M, 2] and
    [2M, 8] tables) and over 2^26-row tables past L2 (and a table on a second
    card, if there is one), each against its plain version, with gathers/s;
-11. kernels against their plain versions on the card, at the main path's
+12. kernels against their plain versions on the card, at the main path's
    shapes, with times: K1 on plain-matrix (the p = 13 fill, the 1M
    30-mers), K2, K3, K4 on each whole 1M-read batch; K14 of each variant
    on the first 2^16 reads of each mix and on a batch with lowercase, N
@@ -75,10 +84,12 @@ Phases, one line each; any failure exits nonzero:
    variant and partial_search of all eleven rank types; the wide kernels
    at the 4M-column index (whole batches, beside the narrow times) and at
    the giant's size (K14 on 2^16 reads, the others on 1M lanes; the giant
-   can have no table, so wide K4 is held at 4M columns only);
-12. the CLI (``python -m sbwt_tpu_torch build`` / ``build-variant`` /
-   ``search``) on the reference's golden inputs, byte-equal to the golden
-   output, on plain-matrix (turbo) and rrr-split (LF, turbo3 and auto).
+   can have no table, so wide K4 is held at 4M columns only); fast_search
+   over each table on the 1M first k-mers of each mix;
+13. the CLI (``python -m sbwt_tpu_torch build`` / ``build-variant`` /
+   ``search``, ``ascii-export``) on the reference's golden inputs, byte-equal
+   to the golden output, on plain-matrix (turbo) and rrr-split (LF, turbo3
+   and auto); the two exports byte-equal, and mef-split's refused.
 
 It prints one JSON line of per-kernel results (launches on its path, error
 against the plain version, time, the plain version's time, and the least
@@ -218,13 +229,21 @@ PARALLEL_KERNELS = {
                                    "sbwt_tpu/parallel/sharded.py:343"),
 }
 PROBE_KERNELS = {"gather_chain": ("sbwt_tpu_torch/csrc/gather_chain.cu", "scratch/gather_bench.py:58")}
+# the facade's k-mer access path: fast_search over the narrow tables (arity
+# 1-3) and over the wide tier's (csrc/fast_search.cu)
+KMER_ACCESS_KERNELS = {
+    "fast_search[plain-matrix]": ("sbwt_tpu_torch/csrc/fast_search.cu", "sbwt_tpu/ops/turbo.py:491"),
+    f"fast_search[{WIDE}]": ("sbwt_tpu_torch/csrc/fast_search.cu", "sbwt_tpu/ops/turbo.py:491"),
+}
+SAMPLED_COLUMNS = 1 << 20  # columns whose labels get_kmers_batch gives
+FAST_COLUMNS = 1000  # of them, the labels get_kmer_fast gives one by one
 
 # plain-matrix's succ1 and K4 keep, in this script's output, the bare names
 # they had as the only instances; their launch counters are named as the others'
 COUNTER = {"succ1": "succ1[plain-matrix]", "turbo_stream": "turbo_stream[plain-matrix]"}
 
 ALL_KERNELS = {**KERNELS, **LF_KERNELS, **BUILD_KERNELS, **VARIANT_TURBO_KERNELS, **WIDE_KERNELS,
-               **PARALLEL_KERNELS, **PROBE_KERNELS}
+               **PARALLEL_KERNELS, **PROBE_KERNELS, **KMER_ACCESS_KERNELS}
 
 
 class SmokeFailure(Exception):
@@ -570,6 +589,113 @@ def run_wide_turbo_path(dev, sbwt, runs, lanes):
         structure_bytes=wsb.structure_size_in_bytes(),
         table_bytes=nbytes(wsb._turbo.tbl), precalc_bytes=nbytes(wide.precalc), **fields)
     return wsb
+
+
+def fast_search_batches(genome, runs):
+    """The rows fast_search is given: the first k-mer of every read of each
+    1M-read mix, and of the spiked batch (lowercase, N, padding: invalid
+    rows), int8 on the card."""
+    spiked, _ = spiked_reads(genome, 4096, 11)
+    rows = {mix: codes[:, :K] for mix, (codes, _) in runs.items()}
+    rows["spiked"] = spiked[:, :K]
+    return rows
+
+
+def check_fast_search(turbo, index, km, what: str):
+    """fast_search of the int8 rows km through the entry point: both outputs
+    against the plain version, and ans against K1's search where needs_slow
+    is false. Returns (ans, needs_slow, the search's answers)."""
+    from sbwt_tpu_torch.ops import search as ts
+    from sbwt_tpu_torch.ops import turbo as tt
+
+    ans, slow = tt.fast_search(turbo, km)
+    want = tt.fast_search_plain(turbo, km)
+    check(ans.dtype == turbo.pos_dtype and torch.equal(ans, want[0]) and torch.equal(slow, want[1]),
+          f"fast_search {what}: differs from its plain version")
+    search = ts.search_batch(index, km)
+    check(torch.equal(torch.where(slow, search.to(ans.dtype), ans), search.to(ans.dtype)),
+          f"fast_search {what}: an answer without needs_slow differs from K1's search")
+    return ans, slow, search
+
+
+def run_kmer_access_path(dev, genome, sbwt, wsb, runs):
+    """The facade's k-mer access through the entry points, on the main
+    path's index: ``ops.turbo.fast_search`` over the arity-3 table, over
+    narrow tables of arity 1 and 2 built for the phase, and over the
+    forced-wide index's int64 table; ``compute_dummy_node_marks`` (one
+    succ1 launch a BFS level); ``reconstruct_all_kmers``, ``get_kmers_batch``
+    of SAMPLED_COLUMNS columns, ``get_kmer_fast`` of FAST_COLUMNS of them,
+    and ``get_kmer`` searched back to its column."""
+    from sbwt_tpu_torch import kernels
+    from sbwt_tpu_torch.ops import turbo as tt
+
+    di = sbwt.device_index
+    rows = {name: torch.from_numpy(np.ascontiguousarray(r)).to(dev)
+            for name, r in fast_search_batches(genome, runs).items()}
+    narrow = {ARITY: sbwt._turbo}
+    for arity in (1, 2):
+        narrow[arity] = tt.build_turbo(di, arity)
+    for name, km in rows.items():
+        ref = None
+        for arity in (ARITY, 1, 2):
+            ans, slow, search = check_fast_search(narrow[arity], di, km, f"{name} arity {arity}")
+            if ref is None:
+                ref = (ans, slow)
+                hit = float((search >= 0).float().mean())
+                slow_share = float(slow.float().mean())
+                say("kmer_access", call="fast_search", batch=name, rows=len(km),
+                    needs_slow_share=slow_share, hit_fraction=hit,
+                    fast_hit_fraction=float((ans >= 0).float().mean()))
+                if name == "hit98":
+                    check(slow_share < 0.15 and 0.97 < hit < 0.99,
+                          f"fast_search hit98: needs_slow share {slow_share}, hit fraction {hit}")
+            check(torch.equal(ans, ref[0]) and torch.equal(slow, ref[1]),
+                  f"fast_search {name}: arity {arity} differs from arity {ARITY}")
+        ans, slow, _ = check_fast_search(wsb._turbo, wsb.device_index, km, f"{name} wide")
+        check(torch.equal(ans, ref[0].long()) and torch.equal(slow, ref[1]),
+              f"fast_search {name}: the wide table differs from the narrow one")
+    del narrow
+
+    n, k = sbwt.number_of_subsets(), sbwt.k
+    fields = {}
+    before = kernels.LAUNCHES["succ1[plain-matrix]"]
+    t0 = time.perf_counter()
+    marks = sbwt.compute_dummy_node_marks()
+    fields["dummy_marks_seconds"] = round(time.perf_counter() - t0, 4)
+    levels = kernels.LAUNCHES["succ1[plain-matrix]"] - before
+    check(int(marks.sum()) == n - sbwt.number_of_kmers(),
+          f"compute_dummy_node_marks: {int(marks.sum())} marks, {n - sbwt.number_of_kmers()} dummies")
+    check(1 <= levels <= k - 1, f"compute_dummy_node_marks: {levels} succ1 launches")
+    t0 = time.perf_counter()
+    dump = sbwt.reconstruct_all_kmers()
+    fields["reconstruct_seconds"] = round(time.perf_counter() - t0, 4)
+    labels = np.frombuffer(dump.encode("ascii"), dtype=np.uint8).reshape(n, k)
+    check(np.array_equal(marks, labels[:, 0] == ord("$")),
+          "compute_dummy_node_marks: marks differ from the labels that start with $")
+    cols = np.random.default_rng(7).integers(0, n, size=SAMPLED_COLUMNS)
+    cols[:4] = [0, 1, n - 1, int(np.flatnonzero(marks)[-1])]
+    t0 = time.perf_counter()
+    batch = sbwt.get_kmers_batch(cols)
+    fields["get_kmers_batch_seconds"] = round(time.perf_counter() - t0, 4)
+    got = np.frombuffer("".join(batch).encode("ascii"), dtype=np.uint8).reshape(len(cols), k)
+    check(np.array_equal(got, labels[cols]), "get_kmers_batch differs from reconstruct_all_kmers")
+    ss = sbwt.select_support()
+    t0 = time.perf_counter()
+    one_by_one = [sbwt.get_kmer_fast(int(c), ss) for c in cols[:FAST_COLUMNS]]
+    fields["get_kmer_fast_seconds"] = round(time.perf_counter() - t0, 4)
+    check(one_by_one == batch[:FAST_COLUMNS], "get_kmer_fast differs from get_kmers_batch")
+    check(all(sbwt.get_kmer(int(c)) == batch[i] for i, c in enumerate(cols[:8])),
+          "get_kmer differs from get_kmers_batch")
+    # every sampled full k-mer searches back to its column (A, C, G, T -> 0..3)
+    full = ~marks[cols]
+    lut = np.full(256, -1, dtype=np.int8)
+    lut[np.frombuffer(b"ACGT", dtype=np.uint8)] = np.arange(4)
+    t0 = time.perf_counter()
+    back = sbwt.search_batch(lut[got[full]])
+    fields["round_trip_search_seconds"] = round(time.perf_counter() - t0, 4)
+    check(np.array_equal(back, cols[full]), "search of get_kmer's label is not its column")
+    say("kmer_access", n_columns=n, dummies=int(marks.sum()), bfs_levels=levels,
+        sampled_columns=len(cols), full_kmers_searched_back=int(full.sum()), **fields)
 
 
 def complete_dbg_packed(order: int):
@@ -1203,6 +1329,62 @@ def compare_wide_kernels_4m(dev, sbwt, wsb, runs, record):
             say("kernel", name=f"turbo_stream[{WIDE}]", max_abs_err=err, ms=ms, plain_ms=plain_ms, **extra)
 
 
+def fast_search_work(turbo, km, ans, slow):
+    """fast_search: codes in, ans and needs_slow out, a precalc row for each
+    valid row, and the successor each table step must read (one position a
+    step): all ceil((k - p) / A) steps of a row that ends on a column, at
+    least one of a row with a singleton seed whose walk ends at -1 (counted
+    low). Operations: a check and a shift of each code, a select and a row
+    address a step."""
+    k, p, A = turbo.k, turbo.precalc_k, turbo.arity
+    pos = ans.element_size()
+    valid = ((km >= 0) & (km < 4)).all(dim=1)
+    pidx = ((km[:, :p].long() & 3) << (2 * torch.arange(p, device=km.device))).sum(dim=1)
+    seed = turbo.precalc[pidx]
+    singleton = valid & (seed[:, 0] >= 0) & (seed[:, 0] == seed[:, 1])
+    steps = int((ans >= 0).sum()) * -(-(k - p) // A)
+    if k > p:
+        steps += int((singleton & (ans < 0)).sum())
+    moved = nbytes(km, ans, slow) + int(valid.sum()) * 2 * pos + steps * pos
+    return moved, len(km) * 2 * k + steps * 8
+
+
+def compare_fast_search(dev, genome, sbwt, wsb, runs, record):
+    """fast_search against its plain version on the 1M first k-mers of each
+    mix: the narrow kernel over the main arity-3 table (recorded at hit98),
+    arity 1 and 2, and the wide kernel over the int64 arity-1 table (recorded
+    at hit98), each beside K1's search of the same rows."""
+    from sbwt_tpu_torch.ops import search as ts
+    from sbwt_tpu_torch.ops import turbo as tt
+
+    di = sbwt.device_index
+    tables = {(False, ARITY): sbwt._turbo, (True, 1): wsb._turbo}
+    for arity in (1, 2):
+        tables[(False, arity)] = tt.build_turbo(di, arity)
+    for mix in MIXES:
+        km = torch.from_numpy(np.ascontiguousarray(runs[mix][0][:, :K])).to(dev)
+        search_ms = cuda_ms(lambda: ts.search_batch(di, km), 5)
+        for (wide, arity), turbo in sorted(tables.items()):
+            ans, slow = tt.fast_search(turbo, km)
+            (pa, ps), plain_ms = timed_ms(lambda: tt.fast_search_plain(turbo, km))
+            err = max_abs_err(ans, pa) + max_abs_err(slow, ps)
+            ms = cuda_ms(lambda: tt.fast_search(turbo, km), 5)
+            name = f"fast_search[{WIDE if wide else 'plain-matrix'}]"
+            moved, ops = fast_search_work(turbo, km, ans, slow)
+            extra = dict(mix=mix, arity=arity, shape=tuple(km.shape), kmer_search_ms=search_ms,
+                         needs_slow_share=float(slow.float().mean()),
+                         kmers_per_s=len(km) / (ms / 1e3))
+            if mix == "hit98" and arity == (1 if wide else ARITY):
+                record(name, err, ms, plain_ms, moved, ops, **extra)
+            else:
+                check(err == 0, f"{name} {mix} arity {arity}: kernel differs from its plain version")
+                say("kernel", name=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=max(moved / HBM_BYTES_PER_S, ops / ALU_OPS_PER_S) * 1e3, **extra)
+            del ans, slow, pa, ps
+    del tables
+    torch.cuda.empty_cache()
+
+
 def compare_giant_kernels(dev, sb, reads, with_n, prefix_len, record):
     """The wide kernels at the giant's size against their plain versions:
     K1's p = 8 fill and 1M-k-mer search, K14 on the first PLAIN_READS reads
@@ -1518,7 +1700,7 @@ def run_cli(device: str) -> None:
         (tmp / "q.fna").write_text("".join(f">q{j}\n{s}\n" for j, s in enumerate(GOLDEN_QUERIES)))
         (tmp / "q.fq").write_text("".join(
             f"@q{j}\n{s}\n+\n{'I' * len(s)}\n" for j, s in enumerate(GOLDEN_QUERIES)))
-        index, rrr = tmp / "index.sbwt", tmp / "rrr-split.sbwt"
+        index, rrr, mef = tmp / "index.sbwt", tmp / "rrr-split.sbwt", tmp / "mef-split.sbwt"
         cli = [sys.executable, "-m", "sbwt_tpu_torch"]
         for argv in (
             ["build", "-i", str(tmp / "inputs.txt"), "-o", str(index), "-k", "6",
@@ -1532,6 +1714,9 @@ def run_cli(device: str) -> None:
              "--engine", "turbo3"],
             ["search", "-i", str(rrr), "-q", str(tmp / "q.fna"), "-o", str(tmp / "o5.txt"),
              "--engine", "auto"],
+            ["ascii-export", "-i", str(index), "-o", str(tmp / "e1.txt")],
+            ["ascii-export", "-i", str(rrr), "-o", str(tmp / "e2.txt")],
+            ["build-variant", "-i", str(index), "-o", str(mef), "--variant", "mef-split"],
         ):
             proc = subprocess.run(cli + argv + ["--device", device], cwd=REPO, env=env,
                                   capture_output=True, text=True, timeout=600)
@@ -1542,8 +1727,19 @@ def run_cli(device: str) -> None:
                       f"{proc.stderr[-2000:]}")
         for name in ("o1.txt", "o2.txt", "o3.txt", "o4.txt", "o5.txt"):
             check((tmp / name).read_text() == GOLDEN, f"CLI output {name} differs from GOLDEN")
+        export = (tmp / "e1.txt").read_bytes()
+        check(export.startswith(b"version: v0.1\nk: 6\n") and export == (tmp / "e2.txt").read_bytes(),
+              "CLI ascii-export: plain-matrix and rrr-split exports differ or lack the header")
+        proc = subprocess.run(cli + ["ascii-export", "-i", str(mef), "-o", str(tmp / "e3.txt"),
+                                     "--device", device], cwd=REPO, env=env,
+                              capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 1 and "Error: ascii export not supported for mef variants\n"
+              in proc.stderr and not (tmp / "e3.txt").exists(),
+              f"CLI ascii-export of mef-split did not refuse:\n{proc.stderr[-2000:]}")
     say("cli", golden="byte-equal", files=5,
-        variants="plain-matrix (turbo), rrr-split (lf, turbo3, auto)")
+        variants="plain-matrix (turbo), rrr-split (lf, turbo3, auto)",
+        ascii_export="plain-matrix and rrr-split byte-equal, mef-split refused",
+        ascii_export_bytes=len(export))
 
 
 def main() -> int:
@@ -1615,6 +1811,12 @@ def main() -> int:
 
     t0 = time.perf_counter()
     kernels.reset_launch_counts()
+    run_kmer_access_path(dev, genome, sbwt, wsb, runs)
+    counted("kmer_access", KMER_ACCESS_KERNELS, t0)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
     run_device_build_path(dev, genome, sbwt, runs)
     counted("device_build", BUILD_KERNELS, t0)
     torch.cuda.empty_cache()
@@ -1641,6 +1843,7 @@ def main() -> int:
     compare_lf_kernels(dev, genome, sbwt, runs, variants, record)
     compare_variant_turbo_kernels(dev, runs, variants, lanes, record)
     compare_wide_kernels_4m(dev, sbwt, wsb, runs, record)
+    compare_fast_search(dev, genome, sbwt, wsb, runs, record)
     del sbwt, wsb, runs, variants, lanes
     torch.cuda.empty_cache()
 

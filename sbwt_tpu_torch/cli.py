@@ -1,6 +1,6 @@
-"""Command-line interface of the port: ``build``, ``search`` and
-``build-variant``, with the flags and output bytes of sbwt_tpu/cli.py,
-for all ten variants.
+"""Command-line interface of the port: ``build``, ``search``,
+``build-variant`` and ``ascii-export``, with the flags and output bytes of
+sbwt_tpu/cli.py, for all ten variants.
 
 Each takes ``--device`` (default ``cuda``): on a CUDA device the index and
 queries run the hand-written kernels; ``--device cpu`` runs their plain
@@ -8,7 +8,8 @@ PyTorch versions. Search runs the turbo successor engine on any index that
 can have its table (built from the index's own ranks, whatever the
 variant; an index of 2^31 columns or more has the arity-1 tier only), and
 the LF engine otherwise (``--engine lf``, no streaming support, or a table
-that does not fit). ``ascii-export`` is not yet ported.
+that does not fit). ``ascii-export`` writes the sets from the host copy of
+the rows, and refuses the mef variants as the reference CLI does.
 """
 from __future__ import annotations
 
@@ -22,7 +23,6 @@ import torch
 from .utils.logging import LogLevel, set_log_level, write_log
 
 MAX_KMER_LENGTH = 255  # the reference's compile-time ceiling (CMakeLists.txt:71-81)
-NOT_PORTED_COMMANDS = ("ascii-export",)
 
 
 def _readlines(path: str) -> list[str]:
@@ -219,7 +219,30 @@ def build_variant_main(argv) -> int:
     return 0
 
 
-COMMANDS = {"build": build_main, "search": search_main, "build-variant": build_variant_main}
+def ascii_export_main(argv) -> int:
+    p = argparse.ArgumentParser(prog="sbwt-tpu-torch ascii-export",
+                                description="Export the index structure in ascii.")
+    p.add_argument("-o", "--out-file", required=True)
+    p.add_argument("-i", "--index-file", required=True)
+    _add_device_flag(p)
+    args = p.parse_args(argv)
+
+    from .io.serialize import load
+
+    sbwt = load(args.index_file, _device(args.device))
+    write_log(f"Loading and exporting the index variant {sbwt.variant}")
+    if sbwt.variant.startswith("mef-"):
+        # as the reference CLI (sbwt_ascii_export.cpp:66,80,89) and the JAX one
+        sys.stderr.write("Error: ascii export not supported for mef variants\n")
+        return 1
+    with open(args.out_file, "w") as f:
+        f.write(sbwt.ascii_export_metadata())
+        f.write(sbwt.ascii_export_sets())
+    return 0
+
+
+COMMANDS = {"build": build_main, "search": search_main, "build-variant": build_variant_main,
+            "ascii-export": ascii_export_main}
 
 
 def main(argv=None) -> int:
@@ -231,9 +254,6 @@ def main(argv=None) -> int:
             sys.stderr.write(f"   sbwt-tpu-torch {c}\n")
         return 0
     cmd, rest = argv[0], argv[1:]
-    if cmd in NOT_PORTED_COMMANDS:
-        sys.stderr.write(f"Error: {cmd} is not yet ported to sbwt_tpu_torch\n")
-        return 1
     if cmd not in COMMANDS:
         sys.stderr.write(f"Invalid command: {cmd}\n")
         return 1

@@ -72,6 +72,22 @@ struct ShardedTable {
     }
 };
 
+// The column reached from column col by the rem chars at chars (all
+// 0..3), min(arity, chars left) of them a table row, or -1
+// (sbwt_tpu/ops/turbo.py _walk_rem, :474). K4's restarts from a singleton
+// seed and fast_search (fast_search.cu) share it.
+template <class P, class T>
+__device__ __forceinline__ P walk_singleton(const T& t, const void* tbl, int arity, P col,
+                                            const int8_t* chars, int rem) {
+    for (int j = 0; j < rem && col >= 0; j += arity) {
+        const int take = min(arity, rem - j);
+        P local = col;
+        const void* base = t.locate(tbl, local);
+        col = component(table_row<P>(base, arity, local, chars + j, take), take - 1);
+    }
+    return col;
+}
+
 // Full search of the window at win (its k chars are all 0..3): seed from
 // the precalc row of its first p chars (pidx), then walk the rest with
 // table rows from a singleton seed, or take exact LF steps from a wider one.
@@ -84,16 +100,7 @@ __device__ __forceinline__ P turbo_restart(const R& rk, const T& t, const LFArgs
     }
     const pair_t<P> seed = static_cast<const pair_t<P>*>(a.precalc)[pidx];
     if (seed.x < 0) return -1;
-    if (seed.x == seed.y) {
-        P col = seed.x;
-        for (int j = a.p; j < a.k && col >= 0; j += a.arity) {
-            const int take = min(a.arity, a.k - j);
-            P local = col;
-            const void* base = t.locate(a.tbl, local);
-            col = component(table_row<P>(base, a.arity, local, win + j, take), take - 1);
-        }
-        return col;
-    }
+    if (seed.x == seed.y) return walk_singleton<P>(t, a.tbl, a.arity, seed.x, win + a.p, a.k - a.p);
     P l = seed.x, r = seed.y;
     for (int j = a.p; j < a.k; ++j) {
         if (!lf_step_r(rk, Cl, win[j], l, r)) return -1;

@@ -32,7 +32,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("succ_table.cu", "seed_bits.cu", "lf_stream.cu", "lf_split.cu", "lf_concat.cu",
-           "lf_subsetwt.cu", "lf_wide.cu", "build_sbwt.cu", "lf_sharded.cu", "gather_chain.cu")
+           "lf_subsetwt.cu", "lf_wide.cu", "build_sbwt.cu", "lf_sharded.cu", "gather_chain.cu",
+           "fast_search.cu")
 HEADERS = ("sbwt_common.cuh", "bv.cuh", "wavelet.cuh", "subset_rank.cuh", "lf_stream.cuh",
            "succ_table.cuh", "turbo_stream.cuh", "rank_ops.cuh")
 NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
@@ -68,6 +69,8 @@ MAX_SHARDS = 8
 TURBO_SHARDED = "turbo_stream[plain-matrix/sharded-table]"
 # K20c: K2's composition over one shard's column range
 COMPOSE_RANGE = "succ_compose[column-range]"
+# fast_search over a narrow table (arity 1-3) and over the wide tier's
+FAST_SEARCH = {False: "fast_search[plain-matrix]", True: f"fast_search[{WIDE}]"}
 
 
 def pos_dtype(variant: str) -> torch.dtype:
@@ -93,6 +96,7 @@ LAUNCHES = {
     TURBO_SHARDED: 0,
     COMPOSE_RANGE: 0,
     "gather_chain": 0,
+    **{name: 0 for name in FAST_SEARCH.values()},
 }
 
 _lib = None
@@ -117,6 +121,8 @@ _SIGNATURES = {
     "sbwt_enable_peer": [_I, _I],
     # (device, tbl, R, width, idx0, B, steps, out, stream)
     "sbwt_gather_chain": [_I, _P, _I, _I, _P, _LL, _I, _P, _P],
+    # (device, wide, tbl, arity, precalc, p, codes, B, k, ans, needs_slow, stream)
+    "sbwt_fast_search": [_I, _I, _P, _I, _P, _I, _P, _LL, _I, _P, _P, _P],
 }
 
 
@@ -489,6 +495,34 @@ def turbo_stream(variant: str, rank_desc, tbl, arity: int, C, precalc, p: int, s
         B=B, L=L, k=k, p=p, n_nodes=n_nodes,
     )
     return out
+
+
+def fast_search(tbl, arity: int, precalc, p: int, codes, n_nodes: int):
+    """fast_search (fast_search.cu): over the int8 k-mer rows codes [B, k],
+    the colex rank of each row with a live singleton precalc seed, walked
+    through the arity-A successor table, and whether its seed is wider
+    than one column (needs_slow, which only exact LF steps can answer).
+    Returns (ans [B] in the table's type, -1 where dead or needs_slow;
+    needs_slow bool [B]). The wide tier's table is int64 [n, 4] (arity 1)."""
+    dev = _cuda_device(codes)
+    B, k = codes.shape
+    wide = tbl.dtype == torch.int64
+    dt = torch.int64 if wide else torch.int32
+    ans = torch.empty(B, dtype=dt, device=dev)
+    slow = torch.empty(B, dtype=torch.uint8, device=dev)
+    if B == 0:
+        return ans, slow.bool()
+    shape = {1: (n_nodes, 4), 2: (n_nodes * 16, 2), 3: (n_nodes * 64, 4)}.get(arity)
+    if shape is None or (wide and arity != 1):
+        raise ValueError(f"fast_search: no arity-{arity} {dt} table")
+    if not 1 <= p <= min(k, 16):
+        raise ValueError(f"fast_search: precalc length {p} outside 1..min(k = {k}, 16)")
+    _launch("sbwt_fast_search", FAST_SEARCH[wide], dev, int(wide),
+            _check(tbl, "tbl", dt, dev, shape, 16), arity,
+            _check(precalc, "precalc", dt, dev, (4**p, 2), 2 * dt.itemsize), p,
+            _check(codes, "codes", torch.int8, dev, align=1), B, k,
+            _check(ans, "ans", dt, dev), _check(slow, "needs_slow", torch.uint8, dev, align=1))
+    return ans, slow.bool()
 
 
 # ---------------------------------------------------------------------------

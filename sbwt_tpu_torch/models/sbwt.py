@@ -15,6 +15,11 @@ surface is the one the query runner (io/query_runner.py) drives.
 Streaming search runs the turbo successor engine once ``enable_turbo``
 has built its table from the index's own ranks (any variant, and the wide
 tier at arity 1), and the LF engine otherwise.
+
+The k-mer access tooling (``compute_dummy_node_marks``,
+``reconstruct_all_kmers``, ``get_kmer*``, ``select_support`` and the
+ascii export) is that of the JAX package: host numpy over the rows, but
+for the dummy marks' BFS, whose levels run on the index's device.
 """
 from __future__ import annotations
 
@@ -23,10 +28,11 @@ import torch
 
 from .. import kernels
 from ..ops import search as engines
-from ..ops.turbo import TurboUnavailable, build_turbo, turbo_streaming_search
-from ..utils.dna import encode_query
+from ..ops.turbo import TurboUnavailable, build_turbo, succ1, turbo_streaming_search
+from ..utils.dna import CODE_TO_CHAR, encode_query
 from ..utils.memory import device_free_bytes, select_turbo_arity
 from .matrix import from_host_arrays, from_packed_rows, with_precalc
+from .select import MatrixSelectSupport
 from .variants import build_generic_index
 
 # the reference's ten variants, in the order the LF kernels number them
@@ -63,6 +69,7 @@ class SBWT:
             self._n_sgs = int(n_cols)
             self._sgs_packed = np.ascontiguousarray(sgs_packed, dtype=np.uint8)
         self._turbo = None
+        self._select_support = None
 
     # ---- constructors -------------------------------------------------
     @classmethod
@@ -87,6 +94,20 @@ class SBWT:
         index = from_packed_rows(row_words, n, sgs_words, k, n_kmers, device,
                                  precalc_k, precalc_table)
         return cls(index, np.ascontiguousarray(bits_packed, dtype=np.uint8), n, sgs_packed)
+
+    @classmethod
+    def from_device_index(cls, device_index, bits: np.ndarray,
+                          suffix_group_starts: np.ndarray | None) -> "SBWT":
+        """Wrap an already-built index (a payload loaded, say) with the bool
+        rows [4, n] and suffix-group starts (None or empty without streaming
+        support) it was built from; the host keeps them packed."""
+        bits = np.asarray(bits, dtype=bool)
+        sgs = None
+        if suffix_group_starts is not None and len(suffix_group_starts):
+            sgs = np.packbits(np.asarray(suffix_group_starts, dtype=bool), bitorder="little")
+        variant = getattr(device_index, "variant", "plain-matrix")
+        return cls(device_index, np.packbits(bits, axis=1, bitorder="little"), bits.shape[1], sgs,
+                   variant if variant in VARIANT_NAMES else "plain-matrix")
 
     @classmethod
     def from_built(cls, built, device, precalc_k: int = 0,
@@ -260,6 +281,10 @@ class SBWT:
     def get_streaming_support(self) -> np.ndarray:
         return self.suffix_group_starts
 
+    def get_subset_rank_structure(self):
+        """The index on the device: its subset-rank structure (SBWT.hh:111)."""
+        return self.device_index
+
     def structure_size_in_bytes(self) -> int:
         """Bytes of the subset-rank structure (RRR's shared pattern LUT not
         counted), as the JAX package reports them."""
@@ -379,3 +404,130 @@ class SBWT:
         if code < 0 or code >= 4:
             return -1
         return int(self.forward_batch(np.array([node]), np.array([code]))[0])
+
+    # ---- host-side tooling -------------------------------------------
+    # Host numpy over the unpacked rows ``self.bits`` and ``self.C``, as in
+    # the JAX package: 4 bytes of host memory a column at least (16 MB at 4M
+    # columns, 17 GB on an index of 4.29 billion), so not for the largest
+    # wide indexes. compute_dummy_node_marks alone runs on the device.
+
+    def compute_dummy_node_marks(self) -> np.ndarray:
+        """Mark the nodes that are not full k-mers (SBWT.hh:589-614) by a
+        level-synchronous BFS over the dummy tree from the root. Each level
+        takes all four successors of the whole frontier at once: one launch
+        of K2's succ1 on a CUDA index, its plain version on the CPU. The
+        frontier stays on the device, in the index's position type. Needs
+        streaming support, as forward does."""
+        if not self.has_streaming_query_support():
+            raise RuntimeError("streaming support required for compute_dummy_node_marks")
+        marks = np.zeros(self.number_of_subsets(), dtype=bool)
+        di = self.device_index
+        frontier = torch.zeros(1, dtype=di.pos_dtype, device=self.device)
+        for depth in range(self.k):
+            marks[frontier.cpu().numpy()] = True
+            if depth == self.k - 1:
+                break
+            nxt = succ1(di, frontier, row_major=True)  # [F, 4]
+            frontier = nxt[nxt >= 0]
+            if len(frontier) == 0:
+                break
+        return marks
+
+    def _incoming_labels(self) -> np.ndarray:
+        """last[i] = label of the incoming edge of column i (-1 for '$')."""
+        n = self.number_of_subsets()
+        counts = self.bits.sum(axis=1, dtype=np.int64)
+        C = self.C
+        last = np.full(n, -1, dtype=np.int8)
+        for c in range(4):
+            last[C[c] : C[c] + counts[c]] = c
+        return last
+
+    def reconstruct_all_kmers(self) -> str:
+        """All node labels in colex order, '$'-padded, concatenated
+        (SBWT.hh:648-698), as k rounds of vectorized label propagation."""
+        n = self.number_of_subsets()
+        k = self.k
+        bits = self.bits  # unpack once
+        C = self.C
+        out = np.full((n, k), ord("$"), dtype=np.uint8)
+        last = self._incoming_labels()
+        for rnd in range(k):
+            out[:, k - 1 - rnd] = np.where(last >= 0, CODE_TO_CHAR[np.clip(last, 0, 3)], ord("$"))
+            propagated = np.full(n, -1, dtype=np.int8)
+            for c in range(4):
+                src = np.flatnonzero(bits[c])
+                propagated[C[c] : C[c] + len(src)] = last[src]
+            last = propagated
+        return out.tobytes().decode("ascii")
+
+    def get_kmer(self, colex_rank: int) -> str:
+        """Label of one column, via backward steps (SBWT.hh:701-725)."""
+        return self.get_kmer_fast(colex_rank, self.select_support())
+
+    def select_support(self):
+        """The select support over the rows (SubsetMatrixSelectSupport),
+        built once."""
+        if self._select_support is None:
+            self._select_support = MatrixSelectSupport(self.bits)
+        return self._select_support
+
+    def get_kmer_fast(self, colex_rank: int, ss) -> str:
+        """Label via select support (SBWT.hh:729-746)."""
+        C = self.C
+        buf = [""] * self.k
+        for i in range(self.k):
+            if colex_rank == 0:
+                buf[self.k - 1 - i] = "$"
+            else:
+                char_idx = int(np.searchsorted(C, colex_rank, side="right") - 1)
+                buf[self.k - 1 - i] = "ACGT"[char_idx]
+                colex_rank = ss.select(colex_rank - int(C[char_idx]) + 1, char_idx)  # 1-based
+        return "".join(buf)
+
+    def get_kmers_batch(self, colex_ranks) -> list[str]:
+        """Labels of many columns at once: k rounds of batched searchsorted
+        and select over the whole column set (get_kmer_fast vectorized)."""
+        ss = self.select_support()
+        C = self.C
+        cur = np.asarray(colex_ranks, dtype=np.int64).copy()
+        out = np.full((len(cur), self.k), ord("$"), dtype=np.uint8)
+        for i in range(self.k):
+            nz = np.flatnonzero(cur > 0)
+            if len(nz) == 0:
+                break
+            ci = np.searchsorted(C, cur[nz], side="right") - 1
+            out[nz, self.k - 1 - i] = CODE_TO_CHAR[ci]
+            rel = cur[nz] - C[ci] + 1  # 1-based rank within the char's block
+            nxt = np.empty(len(nz), dtype=np.int64)
+            for c in range(4):
+                m = ci == c
+                if m.any():
+                    nxt[m] = ss.positions[c][rel[m] - 1]
+            cur = np.zeros_like(cur)
+            cur[nz] = nxt
+        return [bytes(row).decode("ascii") for row in out]
+
+    def ascii_export_metadata(self) -> str:
+        """Metadata block of ``sbwt ascii-export`` (SBWT.hh:777-784)."""
+        from ..io.serialize import SBWT_VERSION
+
+        return (
+            f"version: {SBWT_VERSION}\n"
+            f"k: {self.k}\n"
+            f"number_of_sets: {self.number_of_subsets()}\n"
+            f"number_of_kmers: {self.number_of_kmers()}\n"
+        )
+
+    def ascii_export_sets(self) -> str:
+        """The sets concatenated, each set's chars in ACGT order with the
+        last lowercased, '$' for an empty set (SBWT.hh:750-773)."""
+        bits = self.bits  # unpack once
+        sizes = bits.sum(axis=0)
+        # the row of each set's last char, -1 for an empty set
+        last_row = np.where(sizes > 0, np.argmax(np.cumsum(bits, axis=0) == sizes[None, :], axis=0), -1)
+        rows = np.where(bits, CODE_TO_CHAR[:, None], 0).astype(np.uint8)  # [4, n]
+        rows[(last_row[None, :] == np.arange(4)[:, None]) & bits] += 32  # to lowercase
+        dollar = np.where(sizes == 0, ord("$"), 0).astype(np.uint8)
+        flat = np.concatenate([rows.T, dollar[:, None]], axis=1).ravel()  # column-major
+        return flat[flat != 0].tobytes().decode("ascii") + "\n"

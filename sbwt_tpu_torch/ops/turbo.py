@@ -20,8 +20,9 @@ row m >> 2 non-empty, 16 two-bit entries per 32-bit word, stored as int32.
 
 On CUDA tensors the table build launches K2 (succ1 of the index's rank
 type, csrc/succ_table.cuh, then csrc/succ_table.cu), the seed table K3
-(csrc/seed_bits.cu) and the streaming search K4 of the index's rank type
-(csrc/turbo_stream.cuh); CPU tensors run the plain versions below.
+(csrc/seed_bits.cu), the streaming search K4 of the index's rank type
+(csrc/turbo_stream.cuh) and the singleton-seed k-mer search fast_search
+(csrc/fast_search.cu); CPU tensors run the plain versions below.
 """
 from __future__ import annotations
 
@@ -249,11 +250,12 @@ def _succ_step(turbo: TurboIndex, col, c):
     return torch.where(col >= 0, nxt.long(), -1)
 
 
-def fast_search(turbo: TurboIndex, codes):
-    """Singleton-seed search of k-mer rows codes [..., k] (plain PyTorch).
-    Returns (ans in the table's type, needs_slow): ans is the colex rank or
-    -1 where needs_slow is False; needs_slow marks live non-singleton
-    seeds, which only exact LF steps can answer. Only codes 0..3 are valid."""
+def fast_search_plain(turbo: TurboIndex, codes):
+    """Plain version of the fast_search kernel: singleton-seed search of
+    k-mer rows codes [..., k]. Returns (ans in the table's type,
+    needs_slow): ans is the colex rank or -1 where needs_slow is False;
+    needs_slow marks live non-singleton seeds, which only exact LF steps
+    can answer. Only codes 0..3 are valid."""
     k, p = turbo.k, turbo.precalc_k
     shape = codes.shape[:-1]
     codes = codes.reshape(-1, k).long()
@@ -268,6 +270,24 @@ def fast_search(turbo: TurboIndex, codes):
     for j in range(p, k):
         col = _succ_step(turbo, col, cc[:, j])
     ans = torch.where(needs_slow, -1, col).to(turbo.pos_dtype)
+    return ans.reshape(shape), needs_slow.reshape(shape)
+
+
+def fast_search(turbo: TurboIndex, codes):
+    """Singleton-seed search of k-mer rows codes [..., k], equal to the JAX
+    package's fast_search: (ans in the table's type, needs_slow bool), ans
+    the colex rank, or -1 where the row is absent, holds a char other than
+    uppercase ACGT, or needs_slow (a live seed wider than one column, which
+    only exact LF steps can answer). CUDA codes must be int8 and launch the
+    fast_search kernel (csrc/fast_search.cu); CPU codes run the plain
+    version."""
+    if codes.shape[-1] != turbo.k:
+        raise ValueError(f"query length {codes.shape[-1]} != index k {turbo.k}")
+    if codes.device.type != "cuda":
+        return fast_search_plain(turbo, codes)
+    shape = codes.shape[:-1]
+    ans, needs_slow = kernels.fast_search(turbo.tbl, turbo.arity, turbo.precalc, turbo.precalc_k,
+                                          codes.reshape(-1, turbo.k).contiguous(), turbo.n_nodes)
     return ans.reshape(shape), needs_slow.reshape(shape)
 
 

@@ -5,7 +5,8 @@ search output must give the reference golden bytes of tests/test_cli.py,
 equal the JAX CLI's output on a random corpus for every engine (the turbo
 engines too, built from a compressed variant's own ranks) and all ten
 variants, and come out the same from index files written by either CLI in
-either format.
+either format. Its ``ascii-export`` must write the JAX CLI's bytes on every
+non-mef variant and refuse the mef ones with the JAX CLI's error.
 """
 import gzip
 
@@ -299,7 +300,7 @@ def test_turbo_on_variant_without_room_degrades_to_lf(corpus, variant_files, mon
     (["build", "--variant", "nope"], "unknown variant"),
     (["build-variant", "--variant", "nope"], "unknown variant"),
     (["build-variant", "--variant", "rrr-split"], "not a plain-matrix"),
-    (["ascii-export"], "not yet ported"),
+    (["ascii-export"], "Error: ascii export not supported for mef variants"),
 ], ids=["unknown-variant", "build-variant-unknown", "build-variant-input", "ascii-export"])
 def test_not_ported_paths_exit_1(corpus, variant_files, capsys, argv, message):
     tmp, genome, queries, jax_index, _ = corpus
@@ -307,9 +308,49 @@ def test_not_ported_paths_exit_1(corpus, variant_files, capsys, argv, message):
     files = {"search": ["-i", compressed, "-q", str(queries), "-o", str(tmp / "x.txt")],
              "build": ["-i", str(genome), "-o", str(tmp / "x.sbwt"), "-k", "31"],
              "build-variant": ["-i", compressed if "rrr-split" in argv else str(jax_index),
-                               "-o", str(tmp / "y.sbwt")]}
+                               "-o", str(tmp / "y.sbwt")],
+             "ascii-export": ["-i", compressed, "-o", str(tmp / "x_export.txt")]}
     assert port_cli(argv[:1] + files.get(argv[0], []) + argv[1:] + CPU) == 1
     assert message in capsys.readouterr().err
+
+
+def test_ascii_export_golden_index_matches_jax_cli(golden_index, tmp_path):
+    """The reference's golden index (tests/test_cli.py:106): the port's
+    export equals the JAX CLI's bytes."""
+    port_out, jax_out = tmp_path / "port.txt", tmp_path / "jax.txt"
+    assert port_cli(["ascii-export", "-i", str(golden_index), "-o", str(port_out), *CPU]) == 0
+    assert jax_cli(["ascii-export", "-i", str(golden_index), "-o", str(jax_out)]) == 0
+    text = port_out.read_text()
+    assert text.startswith("version: v0.1\nk: 6\n") and "number_of_sets:" in text
+    assert port_out.read_bytes() == jax_out.read_bytes()
+
+
+@pytest.mark.parametrize("variant", [v for v in VARIANTS if not v.startswith("mef-")])
+def test_ascii_export_matches_jax_cli(corpus, variant_files, variant):
+    """Each non-mef variant's file, written by the port, exported by the
+    port; the same variant's file written and exported by the JAX CLI."""
+    tmp = corpus[0]
+    port_file, jax_file = variant_files[variant]
+    port_out, jax_out = tmp / f"export_port_{variant}.txt", tmp / f"export_jax_{variant}.txt"
+    assert port_cli(["ascii-export", "-i", str(port_file), "-o", str(port_out), *CPU]) == 0
+    assert jax_cli(["ascii-export", "-i", str(jax_file), "-o", str(jax_out)]) == 0
+    assert port_out.read_bytes() == jax_out.read_bytes()
+    assert port_out.read_text().count("\n") == 5
+
+
+@pytest.mark.parametrize("variant", [v for v in VARIANTS if v.startswith("mef-")])
+def test_ascii_export_refuses_mef_as_the_jax_cli(corpus, variant_files, capsys, variant):
+    tmp = corpus[0]
+    port_file, jax_file = variant_files[variant]
+    out = tmp / f"export_{variant}.txt"
+    capsys.readouterr()
+    assert port_cli(["ascii-export", "-i", str(port_file), "-o", str(out), *CPU]) == 1
+    port_err = capsys.readouterr().err
+    assert jax_cli(["ascii-export", "-i", str(jax_file), "-o", str(out)]) == 1
+    jax_err = capsys.readouterr().err
+    errors = [[ln for ln in err.splitlines() if ln.startswith("Error")] for err in (port_err, jax_err)]
+    assert errors[0] == errors[1] == ["Error: ascii export not supported for mef variants"]
+    assert not out.exists()
 
 
 def test_cuda_device_without_cuda_is_an_error(corpus, capsys, monkeypatch):

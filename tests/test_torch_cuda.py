@@ -191,6 +191,45 @@ def test_wide_kernels_equal_plain_versions_and_narrow(cuda, k, p):
         assert torch.equal(fill, tm.precalc_fill_plain(shifted, 1)) and int(fill.max()) > 2**31
 
 
+@pytest.mark.parametrize("k,p", [(14, 6), (9, 9), (10, 7), (12, 8), (31, 13)])
+def test_fast_search_equals_plain_version(cuda, k, p):
+    """fast_search on the narrow tables of arity 1-3 and the wide arity-1
+    one, against its plain version (k - p = 0, 1, 2, 3 and 4, 8, 18 mod
+    the arity); where needs_slow is false, ans is K1's search answer.
+    compute_dummy_node_marks launches succ1 once a BFS level."""
+    rng = np.random.default_rng(700 + k + p)
+    g = "".join(rng.choice(list("ACGT"), size=4000)) + "ACGT" * 60
+    sb = SBWT.build([g, g[500:900], g[2000:2040]], k, cuda, precalc_k=p)
+    di = sb.device_index
+    codes, _ = _reads(g, rng, 4096, k + 20, k)
+    km = torch.from_numpy(np.ascontiguousarray(codes[:, :k])).to(cuda)
+    want_search = ts.search_batch(di, km)
+    words = np.stack([bv.pack_bits_host(row) for row in sb.bits])
+    wide = from_packed_rows_wide(words, di.n_nodes, bv.pack_bits_host(sb.suffix_group_starts),
+                                 k, di.n_kmers, cuda, precalc_k=p)
+    turbos = [tt.build_turbo(di, a) for a in (1, 2, 3)] + [tt.build_turbo(wide, 1)]
+    for turbo in turbos:
+        name = kernels.FAST_SEARCH[turbo.pos_dtype == torch.int64]
+        before = kernels.LAUNCHES[name]
+        ans, slow = tt.fast_search(turbo, km)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES[name] == before + 1
+        want = tt.fast_search_plain(turbo, km)
+        assert ans.dtype == turbo.pos_dtype and slow.dtype == torch.bool
+        assert torch.equal(ans, want[0]) and torch.equal(slow, want[1])
+        assert torch.equal(ans[~slow].long(), want_search[~slow].long())
+        assert 0 < int((ans >= 0).sum()) and int((ans == -1).sum()) > 0
+    before = kernels.LAUNCHES["succ1[plain-matrix]"]
+    marks = sb.compute_dummy_node_marks()
+    levels = kernels.LAUNCHES["succ1[plain-matrix]"] - before
+    assert 1 <= levels <= k - 1
+    assert int(marks.sum()) == sb.number_of_subsets() - sb.number_of_kmers()
+    dump = sb.reconstruct_all_kmers()
+    assert [dump[i * k] == "$" for i in range(sb.number_of_subsets())] == marks.tolist()
+    wsb = SBWT(wide, sb._bits_packed, di.n_nodes, sb._sgs_packed)
+    assert np.array_equal(wsb.compute_dummy_node_marks(), marks)
+
+
 def _same(got, want):
     assert len(got) == len(want)
     for g, w in zip(got, want):

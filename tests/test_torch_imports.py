@@ -4,11 +4,12 @@ launch a kernel.
 A fresh interpreter, started where only ``sbwt_tpu_torch`` is importable
 (the ``sbwt_tpu`` directory is not on its path), imports every module of
 the port and runs the CPU slice (build, precalc, turbo tables, streaming
-and k-mer search, file round trip), a variant slice (build --variant,
-re-encoding, the LF engine, the variant's own precalc fill, its files) and
-a device-build slice (``build_on_device`` on the CPU); afterwards no
-``jax`` and no ``sbwt_tpu`` module may be loaded and every kernel launch
-counter must still be 0. The kernel loader's sources must exist, and a
+and k-mer search, fast_search, the facade's k-mer access, file round
+trip), a variant slice (build --variant, re-encoding, the LF engine, the
+variant's own precalc fill, its files) and a device-build slice
+(``build_on_device`` on the CPU); afterwards no ``jax`` and no
+``sbwt_tpu`` module may be loaded and every kernel launch counter must
+still be 0. The kernel loader's sources must exist, and a
 wrapper handed CPU tensors must refuse them rather than fall back. The
 port's copies of the host modules must give the JAX package's bytes.
 """
@@ -90,10 +91,17 @@ with tempfile.TemporaryDirectory() as d, trace(d), annotate("parallel"):
     parallel &= bool((multihost.local_shard(multihost.distributed_streaming_search(
         sb.device_index, codes, np.full(len(codes), 40, np.int32), mesh)) == ans).all())
 import torch
+from sbwt_tpu_torch.ops.turbo import fast_search
+fs_ans, fs_slow = fast_search(sb._turbo, torch.from_numpy(codes[:, :14]))
+marks = sb.compute_dummy_node_marks()
+access = bool(((fs_ans.numpy() == kmers) | fs_slow.numpy()).all())
+access &= int(marks.sum()) == sb.number_of_subsets() - sb.number_of_kmers()
+access &= sb.ascii_export_sets().count("\n") == 1 and sb.get_kmers_batch([5]) == [sb.get_kmer(5)]
 parallel &= gather_chain(torch.zeros((8, 2), dtype=torch.int32),
                          torch.arange(4, dtype=torch.int32), 3).tolist() == [0, 0, 0, 0]
 print(json.dumps({
     "parallel": parallel,
+    "access": access,
     "modules": len(mods),
     "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
     "sbwt_tpu": sorted(m for m in sys.modules if m == "sbwt_tpu" or m.startswith("sbwt_tpu.")),
@@ -124,6 +132,7 @@ def test_cpu_slice_imports_no_jax_and_launches_nothing(tmp_path):
     assert set(out["launches"]) == set(kernels.LAUNCHES)
     assert all(v == 0 for v in out["launches"].values())
     assert out["arity"] == 3 and out["roundtrip"] and out["variants"] and out["parallel"]
+    assert out["access"]
     assert 0.5 < out["hit"] < 1.0 and out["kmer_hits"] > 0
 
 
@@ -215,11 +224,14 @@ def _wide_desc():
     lambda t: kernels.succ_compose(torch.zeros((4, 10), dtype=torch.int32), 3, 4, 3),
     lambda t: kernels.gather_chain(t["rank"], torch.zeros(3, dtype=torch.int32), 4),
     lambda t: kernels.shard_ptrs([t["rank"]], "tbl", torch.device("cpu"), (4, 2), 8),
+    lambda t: kernels.fast_search(t["rank"], 1, t["pre"], 1, t["codes"], 4),
+    lambda t: kernels.fast_search(t["rank"].long(), 1, t["pre"].long(), 1, t["codes"], 4),
 ], ids=["precalc_fill", "kmer_search", "succ1", "succ_compose", "seed_bits", "turbo_stream",
         "lf_stream", "variant_precalc_fill", "variant_kmer_search", "variant_partial_search",
         "variant_succ1", "variant_turbo_stream", "wide_seed_bits", "wide_precalc_fill",
         "sharded_kmer_search", "sharded_lf_stream", "turbo_stream_sharded_table",
-        "succ_compose_column_range", "gather_chain", "shard_pointers"])
+        "succ_compose_column_range", "gather_chain", "shard_pointers", "fast_search",
+        "wide_fast_search"])
 def test_wrappers_refuse_cpu_tensors(call):
     tensors = {
         "rank": torch.zeros((4, 2), dtype=torch.int32),
@@ -237,8 +249,11 @@ def test_wrappers_refuse_cpu_tensors(call):
 def test_launch_counters_name_every_lf_instance():
     lf = [name for name in kernels.LAUNCHES if "[" in name]
     # six ops on eleven rank types and two on the sharded one (K20a); the
-    # wide tier's seed bits, K20b and K20c have counters of their own
-    assert len(lf) == 6 * 11 + 2 + 3
+    # wide tier's seed bits, K20b, K20c and the narrow and wide fast_search
+    # have counters of their own
+    assert len(lf) == 6 * 11 + 2 + 3 + 2
+    assert set(kernels.FAST_SEARCH.values()) == {"fast_search[plain-matrix]",
+                                                 f"fast_search[{kernels.WIDE}]"}
     for op in kernels.LF_OPS:
         assert kernels.lf_counter(op, "rrr-split") in lf
         assert kernels.lf_counter(op, kernels.WIDE) in lf
@@ -473,7 +488,27 @@ def _small_utils(pkg, tmp):
     return _blob(out.getvalue(), levels, shape, os.path.exists(name))
 
 
-_COPIED = {"utils.dna": _dna, "utils.kmers": _kmers, "utils.kmers_wide": _kmers_wide,
+def _select(pkg, tmp):
+    m = _mod(pkg, "models.select")
+    bits = np.random.default_rng(18).random((4, 3000)) < 0.3
+    ss = m.MatrixSelectSupport(bits)
+    ranks = np.arange(1, int(bits[2].sum()) + 1)
+    return _blob(*ss.positions, ss.select_batch(ranks, 2), ss.select(7, 1), ss.select(1, 3))
+
+
+def _suffix_groups(pkg, tmp):
+    m = _mod(pkg, "ops.suffix_groups")
+    rng = np.random.default_rng(19)
+    bits = rng.random((4, 2000)) < 0.3
+    marks = np.concatenate([[True], rng.random(1999) < 0.5])
+    pushed = m.push_bits_left(bits, marks)
+    built = _mod(pkg, "construct.inmemory").build_sbwt(_seqs(), 9)
+    return _blob(pushed, m.spread_bits_after_push_left(pushed, marks),
+                 m.mark_suffix_groups(built.bits, 9), m.compute_column_entropy(bits),
+                 m.push_bits_left(bits[:, :0], marks[:0]))
+
+
+_COPIED = {"models.select": _select, "ops.suffix_groups": _suffix_groups, "utils.dna": _dna, "utils.kmers": _kmers, "utils.kmers_wide": _kmers_wide,
            "utils.logging+tempfiles+profiling": _small_utils, "native": _native,
            "io.sdsl": _sdsl, "io.seqio": _seqio, "io.query_runner": _query_runner,
            "io.serialize": _serialize, "construct.inmemory": _inmemory,

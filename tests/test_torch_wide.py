@@ -339,6 +339,19 @@ def test_wide_fast_search_matches_jax(jax_side, turbos, case):
     np.testing.assert_array_equal(ans.numpy(), jax_side[f"{case}/fast_ans"])
 
 
+@each_case
+@both
+def test_wide_fast_search_plain_matches_jax(jax_side, turbos, case, source):
+    """The plain version of the fast_search kernel on the int64 arity-1
+    table, which the entry point runs on CPU tensors and the card checks
+    the kernel against."""
+    ans, slow = tt.fast_search_plain(turbos(case, source),
+                                     torch.from_numpy(jax_side[f"{case}/kmers"]))
+    assert ans.dtype == torch.int64 and slow.dtype == torch.bool
+    np.testing.assert_array_equal(slow.numpy(), jax_side[f"{case}/fast_slow"])
+    np.testing.assert_array_equal(ans.numpy(), jax_side[f"{case}/fast_ans"])
+
+
 def test_rep_corpus_has_non_singleton_seeds(jax_side):
     pre = jax_side["rep/precalc"]
     live = pre[:, 0] >= 0
