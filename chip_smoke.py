@@ -35,7 +35,9 @@ Phases, one line each; any failure exits nonzero:
    k-mer of every read of both mixes and of the spiked batch, over the
    arity-3 table, narrow tables of arity 1 and 2 and the wide int64 table,
    each equal to its plain version and, where needs_slow is false, to K1's
-   search (hit98: needs_slow rare, hit fraction near 0.98);
+   search (hit98: needs_slow rare, hit fraction near 0.98); K2's compose
+   at arity 1 beside ``succ.t().contiguous()``, the one PyTorch call that
+   computes it (its library time);
    ``compute_dummy_node_marks`` (one succ1 launch a BFS level), equal to
    the labels of ``reconstruct_all_kmers`` that start with $;
    ``get_kmers_batch`` of 1M sampled columns and ``get_kmer_fast`` of 1,000,
@@ -75,7 +77,10 @@ Phases, one line each; any failure exits nonzero:
    card, if there is one), each against its plain version, with gathers/s;
 12. kernels against their plain versions on the card, at the main path's
    shapes, with times: K1 on plain-matrix (the p = 13 fill, the 1M
-   30-mers), K2, K3, K4 on each whole 1M-read batch; K14 of each variant
+   30-mers), K2, K3, K4 on each whole 1M-read batch (its bound counts the
+   table, seed-bits, precalc and rank rows the batch's answers ask for,
+   ``turbo_work``, printed beside the bound of codes and answers alone);
+   K14 of each variant
    on the first 2^16 reads of each mix and on a batch with lowercase, N
    and short lengths; each variant's K1 search on the 1M 30-mers and fill
    at p = 8, and its p = 12 table of phase 4 against the plain version's;
@@ -350,9 +355,76 @@ def search_work(structure_bytes: int, B: int, k: int):
 
 
 def stream_work(B: int, L: int, k: int, pos_bytes: int = 4):
-    """K4, K14: codes and lengths in, answers out (8 bytes each on the wide
-    tier). The table rows a read walks depend on the data and are left out."""
+    """K14: codes and lengths in, answers out (8 bytes each on the wide
+    tier). The rank rows a read needs depend on the data and are left out."""
     return B * L + 4 * B + B * (L - k + 1) * pos_bytes, B * (L - k + 1) * LF_OPS
+
+
+def turbo_work(turbo, index, codes, lengths, ans, chunk: int = 1 << 16):
+    """K4 and K20b: codes and lengths in, answers out, and the rows read at
+    random that this run's answers and codes ask for. A chain (the
+    positions after a live answer, up to its first -1) reads one table row
+    for every arity answers. A restart (position 0, or a position after a
+    -1, whose window is all ACGT) reads its seed-bits word (each distinct
+    word counted once), its precalc row when the seed is live, then the
+    table rows of a singleton seed's walk up to its end or first -1, or
+    the rank rows of a wider seed's exact LF steps up to the first empty
+    interval (one row a step when l == r, else two; 8 bytes each, counted
+    low for the compressed and wide rank types). turbo is the flat table
+    (K20b's shards hold the same rows). Returns (bytes, operations, the
+    counts and the bound of codes and answers alone)."""
+    from sbwt_tpu_torch.ops import search as ts
+
+    k, p, A = turbo.k, turbo.precalc_k, turbo.arity
+    B, P = ans.shape
+    dev = ans.device
+    row_bytes, precalc_bytes = (8 if A == 2 else 16), 2 * turbo.precalc.element_size()
+    seen = torch.zeros(4**p // 16 + 1, dtype=torch.bool, device=dev)
+    n = dict(chain_rows=0, restarts=0, live_seeds=0, walk_rows=0, lf_rank_rows=0)
+    idx = torch.arange(P, device=dev)
+    for s in range(0, B, chunk):
+        a, c = ans[s : s + chunk].long(), codes[s : s + chunk]
+        m = len(a)
+        valid = idx[None] < (lengths[s : s + chunk].long() - k + 1).clamp(0, P)[:, None]
+        prev = torch.cat([torch.full((m, 1), -1, dtype=torch.long, device=dev), a[:, :-1]], 1)
+        chain = valid & (prev >= 0)
+        first = chain & ~torch.cat([torch.zeros((m, 1), dtype=torch.bool, device=dev), chain[:, :-1]], 1)
+        start = torch.where(first, idx[None], -1).cummax(dim=1).values
+        n["chain_rows"] += int((chain & ((idx[None] - start) % A == 0)).sum())
+        bad = torch.nn.functional.pad(((c < 0) | (c > 3)).int().cumsum(1), (1, 0))
+        rb, ci = (valid & (prev < 0) & (bad[:, k : k + P] == bad[:, :P])).nonzero(as_tuple=True)
+        n["restarts"] += len(rb)
+        char = lambda j: c[rb, ci + j].long() & 3  # noqa: E731
+        pidx = sum(char(j) << (2 * j) for j in range(p))
+        seen[pidx >> 4] = True
+        seed = turbo.precalc[pidx].long()
+        live = seed[:, 0] >= 0
+        n["live_seeds"] += int(live.sum())
+        single = live & (seed[:, 0] == seed[:, 1])
+        col, wb, wc = seed[single, 0], rb[single], ci[single]
+        for j in range(0, k - p, A):
+            take = min(A, k - p - j)
+            alive = col >= 0
+            n["walk_rows"] += int(alive.sum())
+            ch = [c[wb, wc + p + j + t].long() & 3 for t in range(take)]
+            if A == 1:
+                nxt = turbo.row(col.clamp(min=0)).gather(-1, ch[0][:, None])[:, 0]
+            else:
+                sub = sum(ch[t] * 4 ** (A - 1 - t) for t in range(take))
+                nxt = turbo.row(col.clamp(min=0), sub)[:, take - 1]
+            col = torch.where(alive, nxt.long(), -1)
+        wide = live & (seed[:, 0] != seed[:, 1])
+        l, r, lb, lc = seed[wide, 0], seed[wide, 1], rb[wide], ci[wide]
+        alive = torch.ones_like(l, dtype=torch.bool)
+        for j in range(p, k):
+            n["lf_rank_rows"] += int(torch.where(l == r, 1, 2)[alive].sum())
+            l, r, alive = ts.lf_step(index, l, r, c[lb, lc + j].long() & 3, alive)
+    n["seed_words"] = int(seen.sum()) if turbo.seed_bits is not None else 0
+    base = codes.numel() + 4 * B + ans.numel() * ans.element_size()
+    moved = (base + (n["chain_rows"] + n["walk_rows"]) * row_bytes + 4 * n["seed_words"]
+             + precalc_bytes * (n["live_seeds"] if turbo.seed_bits is not None else n["restarts"])
+             + 8 * n["lf_rank_rows"])
+    return moved, B * P * LF_OPS, dict(n, codes_answers_bound_ms=base / HBM_BYTES_PER_S * 1e3)
 
 
 def partial_work(lengths: torch.Tensor, matched: torch.Tensor, pos_bytes: int = 4):
@@ -374,6 +446,12 @@ def succ_work(structure_bytes: int, sgs_tbl, out):
     """succ1 over all columns: the structure and the marks read once, the
     successors written; four rank pairs a column."""
     return structure_bytes + nbytes(sgs_tbl, out), out.numel() * LF_OPS
+
+
+def bound_ms(moved: int, ops: int) -> float:
+    """The least time of the work: bytes over the HBM rate or operations
+    over the peak rate, whichever is larger."""
+    return max(moved / HBM_BYTES_PER_S, ops / ALU_OPS_PER_S) * 1e3
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -635,6 +713,18 @@ def run_kmer_access_path(dev, genome, sbwt, wsb, runs):
     narrow = {ARITY: sbwt._turbo}
     for arity in (1, 2):
         narrow[arity] = tt.build_turbo(di, arity)
+    # the compose at arity 1 is the transpose of succ: one PyTorch call
+    # computes it, timed beside the kernel as its yardstick (the port never
+    # calls it)
+    succ = tt.succ1(di)
+    k_c1 = lambda: kernels.succ_compose(succ, 1)  # noqa: E731
+    lib_c1 = lambda: succ.t().contiguous()  # noqa: E731
+    check(torch.equal(k_c1(), lib_c1()) and torch.equal(narrow[1].tbl, lib_c1()),
+          "succ_compose at arity 1 differs from the transpose of succ")
+    say("kernel", name="succ_compose", arity=1, shape=tuple(narrow[1].tbl.shape),
+        ms=cuda_ms(k_c1, 5), library_ms=cuda_ms(lib_c1, 5),
+        bound_ms=bound_ms(2 * nbytes(succ), 0), card=repr(nvidia_smi_line()))
+    del succ
     for name, km in rows.items():
         ref = None
         for arity in (ARITY, 1, 2):
@@ -1043,11 +1133,11 @@ def recorder(launches: dict, card: str):
         functions, so library_ms is null."""
         check(err == 0, f"{name}: kernel differs from its plain version (max_abs_err {err})")
         src, replaces = ALL_KERNELS[name]
-        bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, ops / ALU_OPS_PER_S * 1e3
         results[name] = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
                          "launches": launches[name], "max_abs_err": err,
-                         "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
-                         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms(moved, ops),
+                         "bound_by": "bytes" if moved / HBM_BYTES_PER_S >= ops / ALU_OPS_PER_S
+                         else "operations",
                          "library_ms": None}
         say("kernel", name=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
             bound_ms=results[name]["bound_ms"], bound_by=results[name]["bound_by"],
@@ -1116,19 +1206,21 @@ def compare_kernels(dev, genome, sbwt, runs, record, card):
         plain, plain_ms = timed_ms(
             lambda: tt.turbo_streaming_search_plain(turbo, di, codes, lengths))
         err = max_abs_err(out, plain)
+        moved, ops, work = turbo_work(turbo, di, codes, lengths, out)
         del out, plain
         ms = cuda_ms(stream, 5)
         n_answers = ans_np.size
         extra = dict(mix=mix, reads=len(codes_np), checksum=checksum,
                      hit_fraction=float((ans_np >= 0).mean()),
                      answers_per_s=n_answers / (ms / 1e3),
-                     plain_answers_per_s=n_answers / (plain_ms / 1e3))
+                     plain_answers_per_s=n_answers / (plain_ms / 1e3),
+                     smem_per_block=kernels.turbo_smem_bytes(K, ARITY), **work)
         if mix == "hit98":
-            record("turbo_stream", err, ms, plain_ms, *stream_work(len(codes_np), READ_LEN, K),
-                   **extra)
+            record("turbo_stream", err, ms, plain_ms, moved, ops, **extra)
         else:
             check(err == 0, f"turbo_stream {mix}: kernel differs from its plain version")
-            say("kernel", name="turbo_stream", max_abs_err=err, ms=ms, plain_ms=plain_ms, **extra)
+            say("kernel", name="turbo_stream", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms(moved, ops), **extra)
         del codes, lengths
 
     codes_np, lengths_np = spiked_reads(genome, 4096, 11)
@@ -1252,17 +1344,18 @@ def compare_variant_turbo_kernels(dev, runs, variants, lanes, record):
             err = max_abs_err(got, plain)
             check(torch.equal(got.cpu(), torch.from_numpy(runs[mix][1][:nb])),
                   f"{name} {mix}: sample differs from plain-matrix's answers")
+            moved, ops, work = turbo_work(turbo, di, sc, sl, got)
             answers = len(codes) * (READ_LEN - K + 1)
             extra = dict(variant=v, mix=mix, shape=tuple(sc.shape), full_batch_ms=ms_full,
                          lf_full_batch_ms=lf_ms_full, turbo_over_lf=lf_ms_full / ms_full,
-                         answers_per_s=answers / (ms_full / 1e3))
+                         answers_per_s=answers / (ms_full / 1e3), **work)
             del got, plain
             if mix == "hit98":
-                record(name, err, cuda_ms(sample, 3), plain_ms, *stream_work(nb, READ_LEN, K), **extra)
+                record(name, err, cuda_ms(sample, 3), plain_ms, moved, ops, **extra)
             else:
                 check(err == 0, f"{name} {mix}: kernel differs from its plain version")
                 say("kernel", name=name, max_abs_err=err, ms=cuda_ms(sample, 3), plain_ms=plain_ms,
-                    **extra)
+                    bound_ms=bound_ms(moved, ops), **extra)
         del turbo
         torch.cuda.empty_cache()
 
@@ -1315,18 +1408,19 @@ def compare_wide_kernels_4m(dev, sbwt, wsb, runs, record):
         check(torch.equal(out.cpu(), torch.from_numpy(ans_np).long()), f"wide K4 {mix}: rerun differs")
         plain, plain_ms = timed_ms(lambda: tt.turbo_streaming_search_plain(wturbo, wide, codes, lengths))
         err = max_abs_err(out, plain)
+        moved, ops, work = turbo_work(wturbo, wide, codes, lengths, out)
         del out, plain
         ms = cuda_ms(stream, 5)
         extra = dict(mix=mix, reads=len(codes_np), n_columns=wide.n_nodes,
                      narrow_arity3_ms=cuda_ms(lambda: tt.turbo_streaming_search(sbwt._turbo, di, codes, lengths), 5),
                      narrow_arity1_ms=cuda_ms(lambda: tt.turbo_streaming_search(narrow1, di, codes, lengths), 5),
-                     answers_per_s=answers / (ms / 1e3))
+                     answers_per_s=answers / (ms / 1e3), **work)
         if mix == "hit98":
-            record(f"turbo_stream[{WIDE}]", err, ms, plain_ms,
-                   *stream_work(len(codes_np), READ_LEN, K, 8), **extra)
+            record(f"turbo_stream[{WIDE}]", err, ms, plain_ms, moved, ops, **extra)
         else:
             check(err == 0, f"wide K4 {mix}: kernel differs from its plain version")
-            say("kernel", name=f"turbo_stream[{WIDE}]", max_abs_err=err, ms=ms, plain_ms=plain_ms, **extra)
+            say("kernel", name=f"turbo_stream[{WIDE}]", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms(moved, ops), **extra)
 
 
 def fast_search_work(turbo, km, ans, slow):
@@ -1566,18 +1660,21 @@ def compare_parallel_kernels(dev, sbwt, runs, parallel, record, card):
                   f"{name} {mix}: sample differs from the main path's answers")
             plain, plain_ms = timed_ms(plain_fn)
             err = max_abs_err(got, plain)
+            if name == kernels.TURBO_SHARDED:
+                moved, ops, work = turbo_work(turbo, di, sc, sl, got)
+            else:
+                (moved, ops), work = stream_work(PLAIN_READS, READ_LEN, K), {}
             del got, plain
             ms_full = cuda_ms(lambda: fn(codes, lengths), 3)
             extra = dict(mix=mix, shape=tuple(sc.shape), shards=tp.shape["model"],
                          full_batch_ms=ms_full, flat_full_batch_ms=cuda_ms(flat, 3),
-                         answers_per_s=answers / (ms_full / 1e3))
+                         answers_per_s=answers / (ms_full / 1e3), **work)
             if mix == "hit98":
-                record(name, err, cuda_ms(lambda: fn(sc, sl), 3), plain_ms,
-                       *stream_work(PLAIN_READS, READ_LEN, K), **extra)
+                record(name, err, cuda_ms(lambda: fn(sc, sl), 3), plain_ms, moved, ops, **extra)
             else:
                 check(err == 0, f"{name} {mix}: kernel differs from its plain version")
                 say("kernel", name=name, max_abs_err=err, ms=cuda_ms(lambda: fn(sc, sl), 3),
-                    plain_ms=plain_ms, **extra)
+                    plain_ms=plain_ms, bound_ms=bound_ms(moved, ops), **extra)
         del codes, lengths
 
     succ = tt.succ1(di)

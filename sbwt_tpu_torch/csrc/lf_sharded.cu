@@ -33,9 +33,7 @@ extern "C" int sbwt_turbo_sharded_table(int device, const void* rank, const void
     const ShardedTable t = *static_cast<const ShardedTable*>(table);
     const LFArgs a = *static_cast<const LFArgs*>(args);
     if (a.arity < 1 || a.arity > 3 || t.cols < 1) return (int)cudaErrorInvalidValue;
-    turbo_stream_kernel<PlainMatrix, ShardedTable>
-        <<<grid_for(a.B), kBlock, 0, (cudaStream_t)stream>>>(rk, a, t);
-    return (int)cudaGetLastError();
+    return launch_turbo_stream(rk, a, t, (cudaStream_t)stream);
 }
 
 // Let kernels on `device` load from memory on `peer`; 0 if they may

@@ -31,3 +31,9 @@ extern "C" int sbwt_lf_desc_sizes(long long* out) {
     for (int i = 0; i < (int)(sizeof(sizes) / sizeof(sizes[0])); ++i) out[i] = sizes[i];
     return 0;
 }
+
+// Dynamic shared memory of one K4 block at (k, arity), answers of pos_bytes
+extern "C" int sbwt_turbo_smem_bytes(int k, int arity, int pos_bytes) {
+    using namespace sbwt;
+    return pos_bytes == 8 ? turbo_smem_bytes<int64_t>(k, arity) : turbo_smem_bytes<int>(k, arity);
+}

@@ -21,10 +21,11 @@
 // steps in registers, stopping at the first empty interval, so dead lanes
 // cost nothing.
 //
-// One thread per read, as K4 (turbo_stream.cuh): the thread walks its
-// read's positions in order. While the previous answer is a column, the
-// next is one extension, successor = C[c] + rank(c, sg_start(col)) when
-// the edge bit at sg_start(col) is set, both from one rank_pair. After a
+// One thread per read: the thread walks its read's positions in order, as
+// each lane of K4 (turbo_stream.cuh) does. While the previous answer is a
+// column, the next is one extension, successor = C[c] +
+// rank(c, sg_start(col)) when the edge bit at sg_start(col) is set, both
+// from one rank_pair. After a
 // -1 the position restarts: the window must be all ACGT, then the precalc
 // seed of its first p chars, then exact LF steps over rank(l) and
 // rank(r + 1) for the other k - p chars (one rank_pair when l == r).
@@ -38,7 +39,8 @@
 // rank takes (subset_rank.cuh) plus one suffix-group row, and k - p ranks
 // for a restart with a live seed. The thread keeps its whole state in
 // registers and reads the codes in place; the many resident threads hide
-// the latency. As in K4, codes reads and answer writes are strided by row.
+// the latency. Codes reads and answer writes are strided by row; K4 stages
+// both through shared memory, a warp's 32 reads at a time.
 // Offsets into codes and answers (b * L, b * P) are 64-bit.
 #pragma once
 

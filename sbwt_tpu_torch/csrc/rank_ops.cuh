@@ -39,8 +39,7 @@ int launch_rank_op(int op, const void* rank_desc, const LFArgs* args, void* stre
             if (a.arity < 1 || a.arity > (sizeof(typename R::pos_t) == 8 ? 1 : 3)) {
                 return (int)cudaErrorInvalidValue;
             }
-            turbo_stream_kernel<R, FlatTable><<<grid, kBlock, 0, s>>>(rk, a, FlatTable{});
-            break;
+            return launch_turbo_stream(rk, a, FlatTable{}, s);
         default:
             return (int)cudaErrorInvalidValue;
     }

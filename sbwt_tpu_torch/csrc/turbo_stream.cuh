@@ -28,14 +28,23 @@
 // gives 3 answers; a restart costs a 4-byte seed_bits load (only bit0 of
 // the words below 4^p / 16 is read: 16.8 MB of the 67 MB table at
 // p = 13), then, for live seeds, an 8-byte precalc row and the walk's
-// table rows. Design: one thread per read keeps its whole state in
-// registers (rolling p-mer index, run of valid chars, previous answer) and
-// reads the int8 codes in place, so every load it issues is one the
-// algorithm needs; the many resident threads hide the latency. A wide
-// arity-1 row is 32 bytes, of which the char picks one 16-byte half. The codes
-// reads and the [B, P] answer writes are strided by row (one read per
-// thread), which is correct but not coalesced: staging them through shared
-// memory is left for a later change.
+// table rows. Design: a warp owns 32 consecutive reads, whose codes are
+// one contiguous [32, L] region and whose answers one contiguous
+// [32, L - k + 1] region, and walks them in tiles of kTurboTile positions.
+// For each tile it stages the codes the tile reads (each window and the
+// table row's look-ahead, kTurboTile + k + arity - 2 chars a read) into
+// shared memory with 16-byte loads on neighbouring addresses (evict-first,
+// as the answer stores, so that both streams leave L2 to the table rows
+// and the seed bits); each lane
+// answers its read's positions from there, one thread per read as the
+// reference's streaming_search, keeping its rolling state (p-mer index,
+// run of valid chars, previous answer, lenience) and any table row not
+// yet consumed in registers across tiles; its answers go to a shared
+// tile, which the warp stores as one run of neighbouring stores a read.
+// So the warp's codes loads and answer stores touch whole sectors, where
+// one thread a read touched 32 rows L bytes apart in every instruction.
+// A wide arity-1 row is 32 bytes, of which the char picks one
+// 16-byte half.
 //
 // The table's layout is a template parameter T: FlatTable, the one table of
 // the launch's arguments, or ShardedTable (K20b), row shards of whole
@@ -46,6 +55,8 @@
 // the row index rebased per shard as in tbl_row_sub (:278-287):
 // (col - shard * cols) * 4^A + sub, formed in 64 bits by table_row.
 #pragma once
+
+#include <atomic>
 
 #include "lf_stream.cuh"
 
@@ -108,61 +119,185 @@ __device__ __forceinline__ P turbo_restart(const R& rk, const T& t, const LFArgs
     return l;
 }
 
+// Launch shape: kTurboWarps warps a block, each owning 32 consecutive
+// reads, walked kTurboTile positions at a time; kTurboMinBlocks keeps
+// nvcc's registers at or under 64 a thread. Chosen by a sweep on an H100
+// (tools/turbo_ab.py; PERF.md): tiles of 8, 32 and 64 positions,
+// 8 warps a block and caps of 40 and 42 registers were all slower.
+constexpr int kTurboTile = 16;
+constexpr int kTurboWarps = 4;
+constexpr int kTurboMinBlocks = 8;
+
+// Bytes between two staged code rows: the tile's window of
+// kTurboTile + k + arity - 2 chars, from the 16-byte chunk that holds its
+// first char, in whole chunks, plus one word so that the 32 rows start in
+// 32 different banks.
+__host__ __device__ __forceinline__ int turbo_code_chunks(int k, int arity) {
+    return (kTurboTile + k + arity - 2 + 15 + 15) / 16;
+}
+__host__ __device__ __forceinline__ int turbo_code_row_bytes(int k, int arity) {
+    return 16 * turbo_code_chunks(k, arity) + 4;
+}
+
+// Dynamic shared memory of one block: each warp's staged code rows, then
+// each warp's answer tile (32 rows of kTurboTile + 1 positions).
+template <class P>
+__host__ __device__ __forceinline__ int turbo_smem_bytes(int k, int arity) {
+    return kTurboWarps * 32 *
+           (turbo_code_row_bytes(k, arity) + (kTurboTile + 1) * (int)sizeof(P));
+}
+
+// Chars [t0, t0 + win) of the warp's nrows reads (rows of L chars from
+// codes, total chars in all), cut at each read's end, into the staged rows
+// st: row r holds, from its byte 0, the aligned 16-byte chunks that cover
+// the window of read b0 + r. Lanes take consecutive chunks, so a warp's
+// loads are 16 bytes a lane on neighbouring addresses; a chunk that
+// crosses either end of the codes buffer is copied byte by byte.
+__device__ __forceinline__ void stage_codes(const int8_t* __restrict__ codes, int64_t total,
+                                            int64_t b0, int nrows, int L, int t0, int win,
+                                            int chunks, int row_bytes, int8_t* st, int lane) {
+    const int wlen = min(win, L - t0);
+    const uintptr_t lo = (uintptr_t)codes, hi = lo + (uintptr_t)total;
+    for (int i = lane; i < nrows * chunks; i += 32) {
+        const int r = i / chunks, c = i - r * chunks;
+        const uintptr_t g = (uintptr_t)(codes + (b0 + r) * L + t0);
+        const uintptr_t at = (g & ~(uintptr_t)15) + 16 * c;
+        if (at >= g + wlen) continue;
+        unsigned* dst = reinterpret_cast<unsigned*>(st + r * row_bytes + 16 * c);
+        if (at >= lo && at + 16 <= hi) {
+            const int4 v = __ldcs(reinterpret_cast<const int4*>(at));
+            dst[0] = (unsigned)v.x;
+            dst[1] = (unsigned)v.y;
+            dst[2] = (unsigned)v.z;
+            dst[3] = (unsigned)v.w;
+        } else {
+            for (int j = 0; j < 16; ++j) {
+                if (at + j >= lo && at + j < hi) {
+                    reinterpret_cast<int8_t*>(dst)[j] = *reinterpret_cast<const int8_t*>(at + j);
+                }
+            }
+        }
+    }
+}
+
+// One warp per 32 consecutive reads. For each tile of kTurboTile
+// positions the warp stages the codes the tile reads (its windows and the
+// table rows' look-ahead) into shared memory, each lane answers its read's
+// positions of the tile from there, keeping its rolling state and any
+// unconsumed table row in registers across tiles, and writes its answers
+// into a shared tile, which the warp then stores read by read as
+// contiguous runs.
 template <class R, class T>
-__global__ void turbo_stream_kernel(R rk, LFArgs a, T t) {
+__global__ void __launch_bounds__(kTurboWarps * 32, kTurboMinBlocks)
+    turbo_stream_kernel(R rk, LFArgs a, T t) {
     using P = typename R::pos_t;
-    const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (b >= a.B) return;
+    extern __shared__ __align__(16) unsigned char turbo_smem[];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int64_t b0 = ((int64_t)blockIdx.x * kTurboWarps + warp) * 32;
+    if (b0 >= a.B) return;  // the whole warp
+    const int nrows = (int)min((int64_t)32, (int64_t)(a.B - b0));
+    const int64_t b = b0 + lane;
     const int k = a.k, p = a.p, L = a.L;
     const int P_out = L - k + 1;
-    const int8_t* read = a.codes + b * L;
-    P* ans = static_cast<P*>(a.out) + b * P_out;
-    const int n_pos = max(0, min(P_out, a.lengths[b] - k + 1));
-    for (int i = n_pos; i < P_out; ++i) ans[i] = -1;
-    if (n_pos == 0) return;
+    const int n_pos = lane < nrows ? max(0, min(P_out, a.lengths[b] - k + 1)) : 0;
+    const int chunks = turbo_code_chunks(k, a.arity), row_bytes = turbo_code_row_bytes(k, a.arity);
+    const int win = kTurboTile + k + a.arity - 2;
+    int8_t* st = reinterpret_cast<int8_t*>(turbo_smem) + warp * 32 * row_bytes;
+    P* sa = reinterpret_cast<P*>(turbo_smem + kTurboWarps * 32 * row_bytes) +
+            warp * 32 * (kTurboTile + 1);
+    P* out = static_cast<P*>(a.out);
     const CArray<P> Cl(a.C);
 
     // Rolling state of position pos: pidx packs chars pos..pos+p-1
     // colex-reversed (char j at bits 2j), run counts the valid chars
-    // ending at pos+k-1. advance(pos) takes in chars pos+p-1 and pos+k-1.
+    // ending at pos+k-1. Position pos takes in chars pos+p-1 and pos+k-1.
     const unsigned top = 2u * (unsigned)(p - 1);
     unsigned pidx = 0;
     int run = 0;
-    for (int j = 0; j < k - 1; ++j) run = is_base(read[j]) ? run + 1 : 0;
-    for (int j = 0; j < p - 1; ++j) pidx = (pidx >> 2) | ((unsigned)(read[j] & 3) << top);
-    auto advance = [&](int pos) {
-        const int c = read[pos + k - 1];
-        run = is_base(c) ? run + 1 : 0;
-        pidx = (pidx >> 2) | ((unsigned)(read[pos + p - 1] & 3) << top);
-    };
-
     bool lenient = true;  // lowercase extends until the read's first -1
     P prev = -1;
-    int pos = 0;
-    while (pos < n_pos) {
-        if (prev < 0) {
-            advance(pos);
-            prev = run >= k ? turbo_restart(rk, t, a, Cl, read + pos, pidx) : (P)-1;
-            ans[pos++] = prev;
-            if (prev < 0) lenient = false;
-            continue;
+    Succ3<P> row{-1, -1, -1};  // the table row being consumed: component j next, left more
+    int j = 0, left = 0;
+
+    for (int t0 = 0; t0 < P_out; t0 += kTurboTile) {
+        const int tend = min(t0 + kTurboTile, P_out);
+        if (__any_sync(0xFFFFFFFFu, t0 < n_pos)) {
+            stage_codes(a.codes, a.B * (int64_t)L, b0, nrows, L, t0, win, chunks, row_bytes, st,
+                        lane);
         }
-        const int take = min(a.arity, n_pos - pos);
-        P local = prev;
-        const void* base = t.locate(a.tbl, local);
-        const Succ3<P> row = table_row<P>(base, a.arity, local, read + pos + k - 1, take);
-        for (int j = 0; j < take; ++j) {
-            advance(pos);
-            const int c = read[pos + k - 1];
-            const bool ok = c >= 0 && (lenient || c < 4);
-            prev = ok ? component(row, j) : (P)-1;
-            ans[pos++] = prev;
-            if (prev < 0) {
-                lenient = false;
-                break;
+        __syncwarp();
+        // char x of the read at s[x]
+        const int8_t* s = st + lane * row_bytes + ((uintptr_t)(a.codes + b * L + t0) & 15) - t0;
+        if (t0 == 0 && n_pos > 0) {
+            for (int x = 0; x < k - 1; ++x) run = is_base(s[x]) ? run + 1 : 0;
+            for (int x = 0; x < p - 1; ++x) pidx = (pidx >> 2) | ((unsigned)(s[x] & 3) << top);
+        }
+        for (int pos = t0; pos < tend; ++pos) {
+            P v = -1;
+            if (pos < n_pos) {
+                const int c = s[pos + k - 1];
+                run = is_base(c) ? run + 1 : 0;
+                pidx = (pidx >> 2) | ((unsigned)(s[pos + p - 1] & 3) << top);
+                if (prev < 0) {
+                    left = 0;
+                    if (run >= k) v = turbo_restart(rk, t, a, Cl, s + pos, pidx);
+                } else {
+                    if (left == 0) {
+                        const int take = min(a.arity, n_pos - pos);
+                        P local = prev;
+                        const void* base = t.locate(a.tbl, local);
+                        row = table_row<P>(base, a.arity, local, s + pos + k - 1, take);
+                        j = 0;
+                        left = take;
+                    }
+                    const bool ok = c >= 0 && (lenient || c < 4);
+                    v = ok ? component(row, j) : (P)-1;
+                    ++j;
+                    --left;
+                }
+                if (v < 0) {
+                    lenient = false;
+                    left = 0;
+                }
+                prev = v;
             }
+            sa[lane * (kTurboTile + 1) + (pos - t0)] = v;
+        }
+        __syncwarp();
+        // row r's answers t0..tend-1 as one run of neighbouring stores
+        const int tlen = tend - t0;
+        for (int i = lane; i < nrows * kTurboTile; i += 32) {
+            const int r = i / kTurboTile, x = i % kTurboTile;
+            if (x < tlen) __stcs(out + (b0 + r) * P_out + t0 + x, sa[r * (kTurboTile + 1) + x]);
+        }
+        __syncwarp();  // the staged rows and the answer tile are reused
+    }
+}
+
+// Launches K4 over the table t; the shared memory a block needs grows with
+// k, and past 48 KB the kernel's limit is raised first, once for each
+// instance, device and size.
+template <class R, class T>
+int launch_turbo_stream(const R& rk, const LFArgs& a, const T& t, cudaStream_t s) {
+    using P = typename R::pos_t;
+    const int smem = turbo_smem_bytes<P>(a.k, a.arity);
+    if (smem > 48 * 1024) {
+        static std::atomic<int> raised[64];
+        int dev = 0;
+        cudaError_t e = cudaGetDevice(&dev);
+        if (e != cudaSuccess) return (int)e;
+        if (dev >= 64) return (int)cudaErrorInvalidDevice;
+        if (raised[dev].load() < smem) {
+            e = cudaFuncSetAttribute(turbo_stream_kernel<R, T>,
+                                     cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+            if (e != cudaSuccess) return (int)e;
+            raised[dev].store(smem);
         }
     }
+    const int64_t warps = (a.B + 31) / 32;
+    const unsigned grid = (unsigned)((warps + kTurboWarps - 1) / kTurboWarps);
+    turbo_stream_kernel<R, T><<<grid, kTurboWarps * 32, smem, s>>>(rk, a, t);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace sbwt

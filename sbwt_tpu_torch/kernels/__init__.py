@@ -106,12 +106,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _SIGNATURES = {
-    # (device, succ, n_nodes, arity, col0, n_cols, tbl, stream)
-    "sbwt_succ_compose": [_I, _P, _I, _I, _I, _I, _P, _P],
+    # (device, succ, n_nodes, arity, col0, n_cols, rows scratch, tbl, stream)
+    "sbwt_succ_compose": [_I, _P, _I, _I, _I, _I, _P, _P, _P],
     "sbwt_seed_bits": [_I, _P, _I, _I, _P, _P],
     # (device, op, variant, rank descriptor*, LFArgs*, stream)
     **{f"sbwt_lf_{fam}": [_I, _I, _I, _P, _P, _P] for fam in sorted(set(FAMILY.values()))},
     "sbwt_lf_desc_sizes": [_P],
+    # (k, arity, answer bytes): K4's dynamic shared memory per block
+    "sbwt_turbo_smem_bytes": [_I, _I, _I],
     "sbwt_pack_windows": [_I, _P, _LL, _I, _P, _P, _P],
     "sbwt_edge_src_probe": [_I, _P, _I, _I, _P, _P, _P, _P],
     "sbwt_emit_dummies": [_I, _P, _LL, _I, _P, _P, _P, _P],
@@ -299,7 +301,9 @@ def succ_compose(succ, arity: int, col0: int = 0, n_cols: int | None = None) -> 
     """K2 (succ_table.cu): the arity-A table from succ [4, n]: [n, 4] for
     A = 1, [n * 16, 2] for A = 2, [n * 64, 4] for A = 3. K20c: given
     n_cols, the rows of columns col0 .. col0 + n_cols - 1 only, as one model
-    shard holds them (the rows of columns past n zeroed), counted apart."""
+    shard holds them (the rows of columns past n zeroed), counted apart.
+    Arity 2 and 3 read the successors row by row from an [n, 4] scratch
+    that the launch writes first."""
     dev = _cuda_device(succ)
     n = succ.shape[1]
     counter = "succ_compose" if n_cols is None else COMPOSE_RANGE
@@ -310,9 +314,11 @@ def succ_compose(succ, arity: int, col0: int = 0, n_cols: int | None = None) -> 
     rows, width = {1: (1, 4), 2: (16, 2), 3: (64, 4)}[arity]
     out = torch.empty((n_cols * rows, width), dtype=torch.int32, device=dev)
     out[real * rows :].zero_()
+    scratch = torch.empty((n, 4), dtype=torch.int32, device=dev) if arity > 1 else None
     _launch(
         "sbwt_succ_compose", counter, dev,
         _check(succ, "succ", torch.int32, dev, (4, n)), n, arity, col0, real,
+        0 if scratch is None else _check(scratch, "rows", torch.int32, dev, align=16),
         _check(out, "tbl", torch.int32, dev, align=16),
     )
     return out
@@ -495,6 +501,12 @@ def turbo_stream(variant: str, rank_desc, tbl, arity: int, C, precalc, p: int, s
         B=B, L=L, k=k, p=p, n_nodes=n_nodes,
     )
     return out
+
+
+def turbo_smem_bytes(k: int, arity: int, pos_bytes: int = 4) -> int:
+    """The shared memory one block of K4 (and K20b) asks for at (k, arity)
+    with answers of pos_bytes bytes; it builds the library."""
+    return _library().sbwt_turbo_smem_bytes(k, arity, pos_bytes)
 
 
 def fast_search(tbl, arity: int, precalc, p: int, codes, n_nodes: int):

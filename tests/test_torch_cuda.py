@@ -350,3 +350,132 @@ def test_gather_chain_equals_plain_version(cuda, width):
     assert kernels.LAUNCHES["gather_chain"] == before + 1
     assert torch.equal(got, gc.gather_chain_plain(tbl, idx0, 64))
     assert torch.equal(gc.gather_chain(tbl, idx0, 0), idx0)
+
+
+# ---------------------------------------------------------------------------
+# K4's tiles (a warp of 32 reads, staged position tiles) and the compose's
+# row mapping, at their edges: against the plain versions.
+# ---------------------------------------------------------------------------
+
+
+def _tile_reads(g, rng, B, L, k):
+    """B reads of L codes: genomic, chimeric (a restart in the middle) and
+    random rows, the lowercase and N spikes of _reads, and lengths of L,
+    below L and below k."""
+    enc = encode_query(g)
+    codes = rng.integers(0, 4, size=(B, L)).astype(np.int8)
+    for i in range(B):
+        if i % 3 != 2:
+            s = int(rng.integers(0, len(enc) - L))
+            codes[i] = enc[s : s + L]
+        if i % 3 == 1 and L > 2:
+            cut = int(rng.integers(1, L - 1))
+            s = int(rng.integers(0, len(enc) - L))
+            codes[i, cut:] = enc[s : s + L - cut]
+    codes[3::5, rng.integers(0, L, size=len(codes[3::5]))] = -1
+    codes[1::3, : min(L, 9)] |= 4
+    lengths = np.full(B, L, np.int32)
+    lengths[::7] = rng.integers(0, L + 1, size=len(lengths[::7]))
+    lengths[5::11] = rng.integers(0, k, size=len(lengths[5::11]))
+    return codes, lengths
+
+
+@pytest.fixture(scope="module")
+def tile_indexes(cuda):
+    """k = 14, p = 6: the plain-matrix index, its arity 1-3 tables, an
+    rrr-split copy with its arity-3 table, the wide copy with its table and
+    the arity-3 table cut into three row shards."""
+    from sbwt_tpu_torch.parallel import sharded
+
+    rng = np.random.default_rng(910)
+    k, p = 14, 6
+    g = "".join(rng.choice(list("ACGT"), size=6000)) + "ACGT" * 60
+    sb = SBWT.build([g], k, cuda, precalc_k=p)
+    di = sb.device_index
+    turbos = {a: tt.build_turbo(di, a) for a in (1, 2, 3)}
+    vdi = sb.to_variant("rrr-split").device_index
+    words = np.stack([bv.pack_bits_host(row) for row in sb.bits])
+    wide = from_packed_rows_wide(words, di.n_nodes, bv.pack_bits_host(sb.suffix_group_starts),
+                                 k, di.n_kmers, cuda, precalc_k=p)
+    view = sharded.shard_turbo_rows(turbos[3], sharded.make_mesh(1, 3, [cuda])).views[0]
+    return g, k, di, turbos, (vdi, tt.build_turbo(vdi, 3)), (wide, tt.build_turbo(wide, 1)), view
+
+
+@pytest.mark.parametrize("B,L", [(1, 14), (31, 15), (33, 37), (1000, 100), (33, 257), (3, 3100)])
+def test_turbo_stream_tiles_equal_plain_version(tile_indexes, B, L):
+    """K4 over B reads of L codes (a warp's 32 reads and a ragged last warp;
+    one tile, a tile's edge and many tiles) on plain-matrix at arity 1-3,
+    rrr-split, the wide instance and K20b over three shards."""
+    from sbwt_tpu_torch.parallel import sharded
+
+    g, k, di, turbos, (vdi, vturbo), (wide, wturbo), view = tile_indexes
+    rng = np.random.default_rng(B * 7 + L)
+    codes, lengths = _tile_reads(g, rng, B, L, k)
+    c, n = torch.from_numpy(codes).to(di.device), torch.from_numpy(lengths).to(di.device)
+    before = dict(kernels.LAUNCHES)
+    want = tt.turbo_streaming_search_plain(turbos[3], di, c, n)
+    for arity, turbo in turbos.items():
+        got = tt.turbo_streaming_search(turbo, di, c, n)
+        torch.cuda.synchronize()
+        assert torch.equal(got, tt.turbo_streaming_search_plain(turbo, di, c, n)), arity
+        assert torch.equal(got, want)
+    assert torch.equal(tt.turbo_streaming_search(vturbo, vdi, c, n), want)
+    got = tt.turbo_streaming_search(wturbo, wide, c, n)
+    assert got.dtype == torch.int64 and torch.equal(got, tt.turbo_streaming_search_plain(wturbo, wide, c, n))
+    assert torch.equal(got, want.long())
+    got = sharded.tp_turbo_block(view, di, c, n)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tt.turbo_streaming_search_plain(view, di, c, n))
+    assert torch.equal(got, want)
+    for name in ("turbo_stream[plain-matrix]", "turbo_stream[rrr-split]",
+                 f"turbo_stream[{kernels.WIDE}]", kernels.TURBO_SHARDED):
+        assert kernels.LAUNCHES[name] > before[name], name
+
+
+def test_turbo_stream_unaligned_codes_and_long_k(cuda):
+    """K4 on codes that start at an odd address (the chunks that cross the
+    buffer's ends are copied byte by byte), and at k = 255: narrow at
+    arity 1 and 3, and wide, whose block needs more than 48 KB of shared
+    memory."""
+    rng = np.random.default_rng(255)
+    g = "".join(rng.choice(list("ACGT"), size=3000))
+    for k, p, L in ((14, 6, 61), (255, 8, 400)):
+        sb = SBWT.build([g], k, cuda, precalc_k=p)
+        di = sb.device_index
+        codes, lengths = _tile_reads(g, rng, 34, L, k)
+        flat = torch.from_numpy(codes).to(cuda).reshape(-1)
+        c = flat[5 : 5 + 33 * L].view(33, L)
+        n = torch.from_numpy(lengths[:33]).to(cuda)
+        assert c.data_ptr() % 16 == 5 % 16 and c.is_contiguous()
+        words = np.stack([bv.pack_bits_host(row) for row in sb.bits])
+        wide = from_packed_rows_wide(words, di.n_nodes, bv.pack_bits_host(sb.suffix_group_starts),
+                                     k, di.n_kmers, cuda, precalc_k=p)
+        for index, arity in ((di, 1), (di, 3), (wide, 1)):
+            turbo = tt.build_turbo(index, arity)
+            got = tt.turbo_streaming_search(turbo, index, c, n)
+            torch.cuda.synchronize()
+            assert torch.equal(got, tt.turbo_streaming_search_plain(turbo, index, c, n)), (k, arity)
+    assert kernels.turbo_smem_bytes(255, 1, 8) > 48 * 1024
+
+
+@pytest.mark.parametrize("n", [1, 33, 1001, 4099])
+def test_compose_equals_plain_version(cuda, n):
+    """K2's compose of every arity over n columns (not a multiple of a
+    warp's rows), whole and as column ranges: three shards, the last with
+    zeroed pad rows, and ranges from an odd col0."""
+    rng = np.random.default_rng(n)
+    succ = torch.from_numpy(rng.integers(0, n, size=(4, n)).astype(np.int32))
+    succ[torch.from_numpy(rng.random((4, n)) < 0.6)] = -1
+    succ = succ.to(cuda)
+    cols = -(-n // 3)
+    ranges = [(0, None)] + ([(m * cols, cols) for m in range(3)] + [(1, n - 1), (3, 2)]
+                            if n > 3 else [])
+    before = dict(kernels.LAUNCHES)
+    for arity in (1, 2, 3):
+        for col0, n_cols in ranges:
+            got = kernels.succ_compose(succ, arity, col0, n_cols)
+            torch.cuda.synchronize()
+            assert torch.equal(got, tt.compose_plain(succ, arity, col0=col0, n_cols=n_cols)), \
+                (arity, col0, n_cols)
+    assert kernels.LAUNCHES["succ_compose"] == before["succ_compose"] + 3
+    assert kernels.LAUNCHES[kernels.COMPOSE_RANGE] == before[kernels.COMPOSE_RANGE] + 3 * (len(ranges) - 1)

@@ -7,8 +7,11 @@ same card in one run:
 The input is synthetic and the same for every checkout: succ [4, n] of
 n = 4,000,001 columns from a seeded generator on the card, with three
 quarters of the edges absent (-1), about what a de Bruijn graph gives.
-Prints the mean device time of five launches, three times, by CUDA events.
-Run the parent and the change in turns (parent, change, change, parent).
+Prints the mean device time of five launches, three times, by CUDA events,
+of the whole table (``compose_ms``) and of K20c, the column-range instance,
+on the last of four shards with its pad columns (``range_ms``), as
+``build_turbo_sharded`` composes it over a (1, 4) mesh. Run the parent and
+the change in turns (parent, change, change, parent).
 """
 import sys
 
@@ -23,16 +26,22 @@ g = torch.Generator(device=dev).manual_seed(0)
 n = 4_000_001
 succ = torch.randint(0, n, (4, n), dtype=torch.int32, device=dev, generator=g)
 succ[torch.rand((4, n), device=dev, generator=g) < 0.75] = -1
-out = kernels.succ_compose(succ, 3)
-torch.cuda.synchronize()
-res = []
-for _ in range(3):
-    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    s.record()
-    for _ in range(5):
-        del out
-        out = kernels.succ_compose(succ, 3)
-    e.record()
-    e.synchronize()
-    res.append(s.elapsed_time(e) / 5)
-print(f"AB {sys.argv[1]} compose_ms={res}", flush=True)
+cols = -(-n // 4)
+fields = []
+for name, fn in (("compose_ms", lambda: kernels.succ_compose(succ, 3)),
+                 ("range_ms", lambda: kernels.succ_compose(succ, 3, 3 * cols, cols))):
+    out = fn()
+    torch.cuda.synchronize()
+    res = []
+    for _ in range(3):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(5):
+            del out
+            out = fn()
+        e.record()
+        e.synchronize()
+        res.append(s.elapsed_time(e) / 5)
+    fields.append(f"{name}={res} {name[:-3]}_checksum={int(out.sum(dtype=torch.int64))}")
+    del out
+print(f"AB {sys.argv[1]} " + " ".join(fields), flush=True)
