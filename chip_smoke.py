@@ -80,8 +80,11 @@ Phases, one line each; any failure exits nonzero:
    30-mers), K2, K3, K4 on each whole 1M-read batch (its bound counts the
    table, seed-bits, precalc and rank rows the batch's answers ask for,
    ``turbo_work``, printed beside the bound of codes and answers alone);
-   K14 of each variant
-   on the first 2^16 reads of each mix and on a batch with lowercase, N
+   K14 of each variant on each whole 1M-read batch (time and bound) and
+   on its first 2^16 reads against its plain version (its bound counts
+   the suffix-group, rank and precalc rows the batch's answers ask for,
+   ``lf_work``, printed beside the bound of codes and answers alone, with
+   K14's shared memory per block), and on a batch with lowercase, N
    and short lengths; each variant's K1 search on the 1M 30-mers and fill
    at p = 8, and its p = 12 table of phase 4 against the plain version's;
    K19's four kernels at the genome build's shapes, the build's sorts, and
@@ -354,10 +357,30 @@ def search_work(structure_bytes: int, B: int, k: int):
     return structure_bytes + B * (k + 8 + 4), B * LF_OPS
 
 
-def stream_work(B: int, L: int, k: int, pos_bytes: int = 4):
-    """K14: codes and lengths in, answers out (8 bytes each on the wide
-    tier). The rank rows a read needs depend on the data and are left out."""
-    return B * L + 4 * B + B * (L - k + 1) * pos_bytes, B * (L - k + 1) * LF_OPS
+def answer_walk(precalc, k: int, p: int, codes, lengths, ans, chunk: int = 1 << 16):
+    """The walk over a batch's answers that K4's and K14's bounds share, a
+    chunk of reads at a time: for each chunk, its answers a (int64) and
+    codes c, the valid positions, each position's previous answer (-1 at
+    position 0), the chain (valid positions after a live answer), the
+    restarts (valid positions after a -1 whose window is all ACGT, as row
+    and position index tensors rb, ci), their precalc indices pidx and
+    seed rows (int64)."""
+    B, P = ans.shape
+    dev = ans.device
+    idx = torch.arange(P, device=dev)
+    for s in range(0, B, chunk):
+        a, c = ans[s : s + chunk].long(), codes[s : s + chunk]
+        m = len(a)
+        valid = idx[None] < (lengths[s : s + chunk].long() - k + 1).clamp(0, P)[:, None]
+        prev = torch.cat([torch.full((m, 1), -1, dtype=torch.long, device=dev), a[:, :-1]], 1)
+        chain = valid & (prev >= 0)
+        bad = torch.nn.functional.pad(((c < 0) | (c > 3)).int().cumsum(1), (1, 0))
+        rb, ci = (valid & (prev < 0) & (bad[:, k : k + P] == bad[:, :P])).nonzero(as_tuple=True)
+        pidx = torch.zeros_like(rb)
+        for j in range(p):
+            pidx |= (c[rb, ci + j].long() & 3) << (2 * j)
+        yield dict(a=a, c=c, idx=idx, valid=valid, prev=prev, chain=chain, rb=rb, ci=ci, pidx=pidx,
+                   seed=precalc[pidx].long() if p > 0 else None)
 
 
 def turbo_work(turbo, index, codes, lengths, ans, chunk: int = 1 << 16):
@@ -377,27 +400,19 @@ def turbo_work(turbo, index, codes, lengths, ans, chunk: int = 1 << 16):
 
     k, p, A = turbo.k, turbo.precalc_k, turbo.arity
     B, P = ans.shape
-    dev = ans.device
     row_bytes, precalc_bytes = (8 if A == 2 else 16), 2 * turbo.precalc.element_size()
-    seen = torch.zeros(4**p // 16 + 1, dtype=torch.bool, device=dev)
+    seen = torch.zeros(4**p // 16 + 1, dtype=torch.bool, device=ans.device)
     n = dict(chain_rows=0, restarts=0, live_seeds=0, walk_rows=0, lf_rank_rows=0)
-    idx = torch.arange(P, device=dev)
-    for s in range(0, B, chunk):
-        a, c = ans[s : s + chunk].long(), codes[s : s + chunk]
-        m = len(a)
-        valid = idx[None] < (lengths[s : s + chunk].long() - k + 1).clamp(0, P)[:, None]
-        prev = torch.cat([torch.full((m, 1), -1, dtype=torch.long, device=dev), a[:, :-1]], 1)
-        chain = valid & (prev >= 0)
-        first = chain & ~torch.cat([torch.zeros((m, 1), dtype=torch.bool, device=dev), chain[:, :-1]], 1)
+    for w in answer_walk(turbo.precalc, k, p, codes, lengths, ans, chunk):
+        c, idx, chain, rb, ci, pidx, seed = (w[x] for x in ("c", "idx", "chain", "rb", "ci", "pidx",
+                                                             "seed"))
+        m = len(chain)
+        first = chain & ~torch.cat([torch.zeros((m, 1), dtype=torch.bool, device=chain.device),
+                                    chain[:, :-1]], 1)
         start = torch.where(first, idx[None], -1).cummax(dim=1).values
         n["chain_rows"] += int((chain & ((idx[None] - start) % A == 0)).sum())
-        bad = torch.nn.functional.pad(((c < 0) | (c > 3)).int().cumsum(1), (1, 0))
-        rb, ci = (valid & (prev < 0) & (bad[:, k : k + P] == bad[:, :P])).nonzero(as_tuple=True)
         n["restarts"] += len(rb)
-        char = lambda j: c[rb, ci + j].long() & 3  # noqa: E731
-        pidx = sum(char(j) << (2 * j) for j in range(p))
         seen[pidx >> 4] = True
-        seed = turbo.precalc[pidx].long()
         live = seed[:, 0] >= 0
         n["live_seeds"] += int(live.sum())
         single = live & (seed[:, 0] == seed[:, 1])
@@ -425,6 +440,99 @@ def turbo_work(turbo, index, codes, lengths, ans, chunk: int = 1 << 16):
              + precalc_bytes * (n["live_seeds"] if turbo.seed_bits is not None else n["restarts"])
              + 8 * n["lf_rank_rows"])
     return moved, B * P * LF_OPS, dict(n, codes_answers_bound_ms=base / HBM_BYTES_PER_S * 1e3)
+
+
+def lf_rows(index, codes, lengths, ans, chunk: int = 1 << 16):
+    """The rows K14 reads besides codes and answers, from this run's
+    answers and codes, each distinct row counted once: an extension (a
+    position after a live answer whose char extends) reads the
+    suffix-group row of the previous column and the rank row of its char
+    at the group's start; a restart reads the precalc row of its seed (K14
+    has no seed-bits pre-test), and a live seed the rank rows of its exact
+    LF steps up to the first empty interval (row l >> 5 of the char, and
+    (r + 1) >> 5 when l != r). Rank rows are numbered as plain-matrix's
+    (char * n_words + word), so the counts hold for every rank type of the
+    same index (the sharded one too), with their number of accesses."""
+    from sbwt_tpu_torch.ops import search as ts
+
+    k, p, W = index.k, index.precalc_k, (index.n_nodes + 31) // 32
+    dev = ans.device
+    seen_sg = torch.zeros(W, dtype=torch.bool, device=dev)
+    seen_rank = torch.zeros(4 * W, dtype=torch.bool, device=dev)
+    seen_pre = torch.zeros(4**p if p > 0 else 1, dtype=torch.bool, device=dev)
+    n = dict(extensions=0, restarts=0, live_seeds=0, lf_rank_rows=0)
+    for w in answer_walk(index.precalc, k, p, codes, lengths, ans, chunk):
+        a, c, valid, prev, chain = w["a"], w["c"], w["valid"], w["prev"], w["chain"]
+        P = a.shape[1]
+        # lowercase extends until the read's first -1 answer
+        lenient = torch.nn.functional.pad((valid & (a < 0)).int().cumsum(1), (1, 0))[:, :P] == 0
+        ch = c[:, k - 1 : k - 1 + P].long()
+        ext = chain & (ch >= 0) & (lenient | (ch < 4))
+        col = prev[ext]
+        n["extensions"] += len(col)
+        seen_sg[col >> 5] = True
+        seen_rank[(ch[ext] & 3) * W + (index.sg_start(col).long() >> 5)] = True
+        rb, ci = w["rb"], w["ci"]
+        n["restarts"] += len(rb)
+        if p == 0:
+            l = torch.zeros_like(rb)
+            r, lb, lc = torch.full_like(rb, index.n_nodes - 1), rb, ci
+        else:
+            seen_pre[w["pidx"]] = True
+            live = w["seed"][:, 0] >= 0
+            n["live_seeds"] += int(live.sum())
+            l, r, lb, lc = w["seed"][live, 0], w["seed"][live, 1], rb[live], ci[live]
+        alive = torch.ones_like(l, dtype=torch.bool)
+        for j in range(p, k):
+            cj = c[lb, lc + j].long() & 3
+            seen_rank[(cj * W + (l >> 5))[alive]] = True
+            two = alive & (l != r)
+            seen_rank[(cj * W + ((r + 1) >> 5))[two]] = True
+            n["lf_rank_rows"] += int(alive.sum()) + int(two.sum())
+            l, r, alive = ts.lf_step(index, l, r, cj, alive)
+    return dict(n, sg_rows=int(seen_sg.sum()), rank_rows=int(seen_rank.sum()),
+                precalc_rows=int(seen_pre.sum()) if p > 0 else 0)
+
+
+def lf_work(rows: dict, index, structure_bytes: int, B: int, L: int):
+    """K14 over B reads of L codes: codes and lengths in, answers out, and
+    the rows of lf_rows read once: suffix-group rows of 8 bytes, rank rows
+    of 8 (12 on the wide tier; at most the rank type's structure_bytes, so
+    counted low for the compressed types) and precalc rows of two
+    positions. Returns (bytes, operations, the counts with the bound of
+    codes and answers alone)."""
+    k, pos_bytes = index.k, index.precalc.element_size()
+    base = B * L + 4 * B + B * (L - k + 1) * pos_bytes
+    rank_bytes = min(rows["rank_rows"] * (12 if pos_bytes == 8 else 8), structure_bytes)
+    moved = base + 8 * rows["sg_rows"] + rank_bytes + 2 * pos_bytes * rows["precalc_rows"]
+    return moved, B * (L - k + 1) * LF_OPS, dict(rows, codes_answers_bound_ms=base / HBM_BYTES_PER_S * 1e3)
+
+
+# (batch, reads) -> lf_rows of the first reads of a main-path batch over the
+# main index. Every K14 instance of that index (the ten variants, the
+# forced-wide copy, K20a) gives the same answers and reads its rows at the
+# same positions, so the counts are taken once.
+_MAIN_LF_ROWS = {}
+
+
+def main_lf_rows(di, runs, mix: str, n_reads: int) -> dict:
+    if (mix, n_reads) not in _MAIN_LF_ROWS:
+        codes = torch.from_numpy(runs[mix][0][:n_reads]).to(di.device)
+        ans = torch.from_numpy(runs[mix][1][:n_reads]).to(di.device)
+        lengths = torch.full((n_reads,), READ_LEN, dtype=torch.int32, device=di.device)
+        _MAIN_LF_ROWS[mix, n_reads] = lf_rows(di, codes, lengths, ans)
+    return _MAIN_LF_ROWS[mix, n_reads]
+
+
+def k14_bounds(rows_sample: dict, rows_full: dict, index, structure_bytes: int, n_sample: int,
+               n_full: int):
+    """K14's (bytes, operations) on the timed sample of n_sample reads, and
+    as fields its counts, the whole batch's bound and counts (prefixed
+    full_) and the codes-and-answers bounds of both."""
+    moved, ops, work = lf_work(rows_sample, index, structure_bytes, n_sample, READ_LEN)
+    fmoved, fops, fwork = lf_work(rows_full, index, structure_bytes, n_full, READ_LEN)
+    return moved, ops, dict(work, full_batch_bound_ms=bound_ms(fmoved, fops),
+                            **{f"full_{key}": v for key, v in fwork.items()})
 
 
 def partial_work(lengths: torch.Tensor, matched: torch.Tensor, pos_bytes: int = 4):
@@ -1269,17 +1377,21 @@ def compare_lf_kernels(dev, genome, sbwt, runs, variants, record):
             err = max_abs_err(got, plain)
             check(torch.equal(got.cpu(), torch.from_numpy(runs[mix][1][:PLAIN_READS])),
                   f"{name} {mix}: sample differs from K4's answers")
+            moved, ops, work = k14_bounds(
+                main_lf_rows(sbwt.device_index, runs, mix, PLAIN_READS),
+                main_lf_rows(sbwt.device_index, runs, mix, len(codes)), di, di.size_in_bytes(),
+                PLAIN_READS, len(codes))
             extra = dict(variant=v, mix=mix, shape=tuple(sc.shape), full_batch_ms=ms_full,
                          answers_per_s=answers / (ms_full / 1e3),
-                         plain_answers_per_s=plain.numel() / (plain_ms / 1e3))
+                         plain_answers_per_s=plain.numel() / (plain_ms / 1e3),
+                         smem_per_block=kernels.lf_smem_bytes(v, K), **work)
             del got, plain
             if mix == "hit98":
-                record(name, err, cuda_ms(sample, 3), plain_ms,
-                       *stream_work(PLAIN_READS, READ_LEN, K), **extra)
+                record(name, err, cuda_ms(sample, 3), plain_ms, moved, ops, **extra)
             else:
                 check(err == 0, f"{name} {mix}: kernel differs from its plain version")
                 say("kernel", name=name, max_abs_err=err, ms=cuda_ms(sample, 3),
-                    plain_ms=plain_ms, **extra)
+                    plain_ms=plain_ms, bound_ms=bound_ms(moved, ops), **extra)
         got = ts.streaming_search(di, *spiked)
         err = max_abs_err(got, ts.streaming_search_plain(di, *spiked))
         check(err == 0, f"{name} spiked batch: kernel differs from its plain version")
@@ -1399,9 +1511,12 @@ def compare_wide_kernels_4m(dev, sbwt, wsb, runs, record):
         err = max_abs_err(ts.streaming_search(wide, sc, sl), ts.streaming_search_plain(wide, sc, sl))
         check(err == 0, f"wide lf_stream at 4M columns, {mix}: kernel differs from its plain version")
         ms = cuda_ms(lambda: lf(wide), 3)
+        moved, ops, work = lf_work(main_lf_rows(di, runs, mix, len(codes)), wide,
+                                   wide.size_in_bytes(), len(codes), READ_LEN)
         say("kernel", name=f"lf_stream[{WIDE}]", n_columns=wide.n_nodes, mix=mix, max_abs_err=err,
             full_batch_ms=ms, narrow_full_batch_ms=cuda_ms(lambda: lf(di), 3),
-            answers_per_s=answers / (ms / 1e3))
+            answers_per_s=answers / (ms / 1e3), full_batch_bound_ms=bound_ms(moved, ops),
+            smem_per_block=kernels.lf_smem_bytes(WIDE, K), **work)
         # wide K4 on the whole batch against its plain version
         stream = lambda: tt.turbo_streaming_search(wturbo, wide, codes, lengths)
         out = stream()
@@ -1509,22 +1624,31 @@ def compare_giant_kernels(dev, sb, reads, with_n, prefix_len, record):
     lengths = torch.full((len(codes),), READ_LEN, dtype=torch.int32, device=dev)
     answers = len(codes) * (READ_LEN - GIANT_K + 1)
     for name, batch in (("reads", codes), ("reads_with_n", torch.from_numpy(with_n).to(dev))):
-        ms_full = cuda_ms(lambda: ts.streaming_search(di, batch, lengths), 3)
+        full = lambda: ts.streaming_search(di, batch, lengths)
+        ms_full = cuda_ms(full, 3)
         sc, sl = batch[:PLAIN_READS], lengths[:PLAIN_READS]
         sample = lambda: ts.streaming_search(di, sc, sl)
         plain, plain_ms = timed_ms(lambda: ts.streaming_search_plain(di, sc, sl))
-        err = max_abs_err(sample(), plain)
+        got = sample()
+        err = max_abs_err(got, plain)
+        rows_sample = lf_rows(di, sc, sl, got)
+        del got
+        out = full()
+        rows_full = lf_rows(di, batch, lengths, out)
+        del out
+        moved, ops, work = k14_bounds(rows_sample, rows_full, di, di.size_in_bytes(), PLAIN_READS,
+                                      len(batch))
         extra = dict(batch=name, shape=tuple(sc.shape), n_columns=di.n_nodes, full_batch_ms=ms_full,
                      answers_per_s=answers / (ms_full / 1e3),
-                     plain_answers_per_s=plain.numel() / (plain_ms / 1e3))
+                     plain_answers_per_s=plain.numel() / (plain_ms / 1e3),
+                     smem_per_block=kernels.lf_smem_bytes(WIDE, GIANT_K), **work)
         del plain
         if name == "reads":
-            record(f"lf_stream[{WIDE}]", err, cuda_ms(sample, 3), plain_ms,
-                   *stream_work(PLAIN_READS, READ_LEN, GIANT_K, 8), **extra)
+            record(f"lf_stream[{WIDE}]", err, cuda_ms(sample, 3), plain_ms, moved, ops, **extra)
         else:
             check(err == 0, f"giant lf_stream {name}: kernel differs from its plain version")
             say("kernel", name=f"lf_stream[{WIDE}]", max_abs_err=err, ms=cuda_ms(sample, 3),
-                plain_ms=plain_ms, **extra)
+                plain_ms=plain_ms, bound_ms=bound_ms(moved, ops), **extra)
     plen = torch.from_numpy(prefix_len).to(dev)
     k_ps = lambda: ts.partial_search_batch(di, km, plen)
     plain, plain_ms = timed_ms(lambda: ts.partial_search_plain(di, km, plen))
@@ -1663,7 +1787,10 @@ def compare_parallel_kernels(dev, sbwt, runs, parallel, record, card):
             if name == kernels.TURBO_SHARDED:
                 moved, ops, work = turbo_work(turbo, di, sc, sl, got)
             else:
-                (moved, ops), work = stream_work(PLAIN_READS, READ_LEN, K), {}
+                moved, ops, work = k14_bounds(
+                    main_lf_rows(di, runs, mix, PLAIN_READS), main_lf_rows(di, runs, mix, len(codes)),
+                    view, di.size_in_bytes(), PLAIN_READS, len(codes))
+                work["smem_per_block"] = kernels.lf_smem_bytes(kernels.SHARDED, K)
             del got, plain
             ms_full = cuda_ms(lambda: fn(codes, lengths), 3)
             extra = dict(mix=mix, shape=tuple(sc.shape), shards=tp.shape["model"],

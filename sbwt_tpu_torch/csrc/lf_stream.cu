@@ -37,3 +37,24 @@ extern "C" int sbwt_turbo_smem_bytes(int k, int arity, int pos_bytes) {
     using namespace sbwt;
     return pos_bytes == 8 ? turbo_smem_bytes<int64_t>(k, arity) : turbo_smem_bytes<int>(k, arity);
 }
+
+// Dynamic shared memory of one K14 block at k over the rank type numbered
+// variant (kernels.RANK_TYPES order), or -1
+extern "C" int sbwt_lf_smem_bytes(int k, int variant) {
+    using namespace sbwt;
+    switch (variant) {
+        case 0: return lf_smem_bytes<PlainMatrix>(k);
+        case 1: return lf_smem_bytes<MatrixRank<RRR15>>(k);
+        case 2: return lf_smem_bytes<MatrixRank<MEF>>(k);
+        case 3: return lf_smem_bytes<SplitRank<PlainBV>>(k);
+        case 4: return lf_smem_bytes<SplitRank<RRR15>>(k);
+        case 5: return lf_smem_bytes<SplitRank<MEF>>(k);
+        case 6: return lf_smem_bytes<ConcatRank<PlainBV>>(k);
+        case 7: return lf_smem_bytes<ConcatRank<RRR15>>(k);
+        case 8: return lf_smem_bytes<SubsetWTRank<PlainBV>>(k);
+        case 9: return lf_smem_bytes<SubsetWTRank<RRR15>>(k);
+        case 10: return lf_smem_bytes<WideMatrix>(k);
+        case 11: return lf_smem_bytes<ShardedMatrix>(k);
+        default: return -1;
+    }
+}

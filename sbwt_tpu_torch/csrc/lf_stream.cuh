@@ -16,18 +16,17 @@
 // update_interval_batch (:64) and lf_step (:53), which ran the LF steps in
 // lockstep over all lanes with lax.scan. partial_search replaces
 // partial_search_batch (:291) and, given start intervals,
-// update_interval_batch as the facade's update_sbwt_interval calls it. K1
-// and partial_search run one thread per lane: the lane's whole chain of
-// steps in registers, stopping at the first empty interval, so dead lanes
-// cost nothing.
+// update_interval_batch as the facade's update_sbwt_interval calls it. K1's
+// search and partial_search run one thread per lane: the lane's whole
+// chain of steps in registers, stopping at the first empty interval, so
+// dead lanes cost nothing.
 //
-// One thread per read: the thread walks its read's positions in order, as
-// each lane of K4 (turbo_stream.cuh) does. While the previous answer is a
-// column, the next is one extension, successor = C[c] +
-// rank(c, sg_start(col)) when the edge bit at sg_start(col) is set, both
-// from one rank_pair. After a
-// -1 the position restarts: the window must be all ACGT, then the precalc
-// seed of its first p chars, then exact LF steps over rank(l) and
+// K14 walks each read's positions in order, one lane a read, as each lane
+// of K4 (turbo_stream.cuh) does. While the previous answer is a column,
+// the next is one extension, successor = C[c] + rank(c, sg_start(col))
+// when the edge bit at sg_start(col) is set, both from one rank_pair.
+// After a -1 the position restarts: the window must be all ACGT, then the
+// precalc seed of its first p chars, then exact LF steps over rank(l) and
 // rank(r + 1) for the other k - p chars (one rank_pair when l == r).
 // Answers equal the JAX engine's: until a read's first -1 the extension
 // takes lowercase codes 4..7 as their base (SBWT.hh:565-566); the JAX
@@ -35,15 +34,28 @@
 // invalid (SBWT.hh:426-427), so past that point only 0..3 extend.
 // Positions past lengths[b] - k are -1.
 //
-// Bound on the H100: dependent loads, as many per answer as the variant's
-// rank takes (subset_rank.cuh) plus one suffix-group row, and k - p ranks
-// for a restart with a live seed. The thread keeps its whole state in
-// registers and reads the codes in place; the many resident threads hide
-// the latency. Codes reads and answer writes are strided by row; K4 stages
-// both through shared memory, a warp's 32 reads at a time.
+// Bound on the H100: an extension is a suffix-group row and a rank row
+// (on plain-matrix both from tables that stay in L2), a restart one
+// precalc row from the 4^p table in HBM and the LF rank rows of a live
+// seed; the compulsory bytes are mostly the codes read and the answers
+// written. Those two streams, one lane a read, touch 32 rows L bytes
+// apart in every warp instruction, so K14 stages them as K4 does
+// (stream_tile.cuh): a warp owns 32 consecutive reads and walks them in
+// tiles of T positions (LFShape), its codes window (T + k - 1 chars a
+// read) staged in shared memory, its answers stored through a shared
+// tile. The rolling state (p-mer index, run of valid chars, previous
+// answer, lenience) stays in registers across tiles.
+//
+// K1's fill shares interval prefixes: the entries below one node of the
+// p-level tree of intervals share its interval, so a thread runs the
+// p - D steps above a node of depth p - D once and expands its 4^D
+// entries from there, each store coalesced across the warp
+// (precalc_fill_kernel). Bound: the 4^p table written (537 MB at p = 13).
+//
 // Offsets into codes and answers (b * L, b * P) are 64-bit.
 #pragma once
 
+#include "stream_tile.cuh"
 #include "subset_rank.cuh"
 
 namespace sbwt {
@@ -147,63 +159,168 @@ __device__ __forceinline__ P search_from_seed(const R& rk, const LFArgs& a, cons
     return l;  // a found k-mer's interval is a singleton (SBWT.hh:410-414)
 }
 
+// Launch shape of K14 over rank type R: `warps` warps a block, each
+// owning 32 consecutive reads, walked `tile` positions at a time;
+// `min_blocks` blocks an SM cap nvcc's registers at
+// 65536 / (32 * warps * min_blocks) a thread. Chosen by sweeps on an H100
+// (tools/lf_ab.py; PERF.md): tiles of 16, 4 warps and at most 64 registers
+// for most rank types; the wide tier's int64 answers run faster in tiles
+// of 8, and the two RRR wavelet-tree ranks, whose ranks are long chains of
+// dependent loads, with at most 48 registers and 1,280 threads an SM
+// (staged, these two stay 1.5-5% behind one lane a read in one of the
+// two mixes in every shape tried).
 template <class R>
-__global__ void lf_stream_kernel(R rk, LFArgs a) {
+struct LFShape {
+    static constexpr int warps = 4, tile = 16, min_blocks = 8;
+};
+template <>
+struct LFShape<WideMatrix> {
+    static constexpr int warps = 4, tile = 8, min_blocks = 8;
+};
+struct LFShapeRRRWavelet {
+    static constexpr int warps = 4, tile = 16, min_blocks = 10;
+};
+template <>
+struct LFShape<ConcatRank<RRR15>> : LFShapeRRRWavelet {};
+template <>
+struct LFShape<SubsetWTRank<RRR15>> : LFShapeRRRWavelet {};
+
+// K14's window: a tile's positions and the k - 1 chars after its last
+__host__ __device__ __forceinline__ int lf_window(int tile, int k) { return tile + k - 1; }
+
+// Dynamic shared memory of one K14 block over R at k
+template <class R>
+__host__ __device__ __forceinline__ int lf_smem_bytes(int k) {
+    using S = LFShape<R>;
+    return tile_smem_bytes<typename R::pos_t>(S::warps, S::tile, lf_window(S::tile, k));
+}
+
+// One warp per 32 consecutive reads. For each tile of positions the warp
+// stages the windows the tile reads into shared memory, each lane answers
+// its read's positions of the tile from there (a restart's k chars too),
+// keeping its rolling state in registers across tiles, and writes its
+// answers into a shared tile, which the warp then stores read by read as
+// contiguous runs. K14 reads neither the turbo table nor the seed bits.
+template <class R>
+__global__ void __launch_bounds__(LFShape<R>::warps * 32, LFShape<R>::min_blocks)
+    lf_stream_kernel(R rk, LFArgs a) {
     using P = typename R::pos_t;
-    const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (b >= a.B) return;
+    constexpr int T = LFShape<R>::tile, W = LFShape<R>::warps;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int64_t b0 = ((int64_t)blockIdx.x * W + warp) * 32;
+    if (b0 >= a.B) return;  // the whole warp
+    const int nrows = (int)min((int64_t)32, (int64_t)(a.B - b0));
+    const int64_t b = b0 + lane;
     const int k = a.k, p = a.p, L = a.L;
     const int P_out = L - k + 1;
-    const int8_t* read = a.codes + b * L;
-    P* ans = static_cast<P*>(a.out) + b * P_out;
-    const int n_pos = max(0, min(P_out, a.lengths[b] - k + 1));
-    for (int i = n_pos; i < P_out; ++i) ans[i] = -1;
-    if (n_pos == 0) return;
+    const int n_pos = lane < nrows ? max(0, min(P_out, a.lengths[b] - k + 1)) : 0;
+    const int win = lf_window(T, k);
+    const int chunks = tile_code_chunks(win), row_bytes = tile_code_row_bytes(win);
+    extern __shared__ __align__(16) unsigned char smem[];
+    int8_t* st = reinterpret_cast<int8_t*>(smem) + warp * 32 * row_bytes;
+    P* sa = reinterpret_cast<P*>(smem + W * 32 * row_bytes) + warp * 32 * (T + 1);
+    P* out = static_cast<P*>(a.out);
     const CArray<P> Cl(a.C);
 
-    // Rolling state of position pos, as in K4: pidx packs chars
-    // pos..pos+p-1 colex-reversed, run counts the valid chars ending at
-    // pos+k-1. advance(pos) takes in chars pos+p-1 and pos+k-1.
+    // Rolling state of position pos: pidx packs chars pos..pos+p-1
+    // colex-reversed (char j at bits 2j), run counts the valid chars
+    // ending at pos+k-1. Position pos takes in chars pos+p-1 and pos+k-1.
     const unsigned top = p > 0 ? 2u * (unsigned)(p - 1) : 0u;
     unsigned pidx = 0;
     int run = 0;
-    for (int j = 0; j < k - 1; ++j) run = is_base(read[j]) ? run + 1 : 0;
-    if (p > 0) {
-        for (int j = 0; j < p - 1; ++j) pidx = (pidx >> 2) | ((unsigned)(read[j] & 3) << top);
-    }
-
     bool lenient = true;  // lowercase extends until the read's first -1
     P prev = -1;
-    for (int pos = 0; pos < n_pos; ++pos) {
-        const int c = read[pos + k - 1];
-        run = is_base(c) ? run + 1 : 0;
-        if (p > 0) pidx = (pidx >> 2) | ((unsigned)(read[pos + p - 1] & 3) << top);
-        if (prev >= 0) {
-            prev = c >= 0 && (lenient || c < 4) ? successor(rk, a.sgs_tbl, Cl, prev, c & 3) : (P)-1;
-        } else {
-            prev = run >= k ? search_from_seed(rk, a, Cl, read + pos, pidx) : (P)-1;
+
+    for (int t0 = 0; t0 < P_out; t0 += T) {
+        const int tend = min(t0 + T, P_out);
+        if (__any_sync(0xFFFFFFFFu, t0 < n_pos)) {
+            stage_codes(a.codes, a.B * (int64_t)L, b0, nrows, L, t0, win, chunks, row_bytes, st,
+                        lane);
         }
-        ans[pos] = prev;
-        if (prev < 0) lenient = false;
+        __syncwarp();
+        const int8_t* s = staged_row(st, row_bytes, lane, a.codes + b * L, t0);
+        if (t0 == 0 && n_pos > 0) {
+            for (int x = 0; x < k - 1; ++x) run = is_base(s[x]) ? run + 1 : 0;
+            if (p > 0) {
+                for (int x = 0; x < p - 1; ++x) pidx = (pidx >> 2) | ((unsigned)(s[x] & 3) << top);
+            }
+        }
+        for (int pos = t0; pos < tend; ++pos) {
+            P v = -1;
+            if (pos < n_pos) {
+                const int c = s[pos + k - 1];
+                run = is_base(c) ? run + 1 : 0;
+                if (p > 0) pidx = (pidx >> 2) | ((unsigned)(s[pos + p - 1] & 3) << top);
+                if (prev >= 0) {
+                    if (c >= 0 && (lenient || c < 4)) v = successor(rk, a.sgs_tbl, Cl, prev, c & 3);
+                } else if (run >= k) {
+                    v = search_from_seed(rk, a, Cl, s + pos, pidx);
+                }
+                if (v < 0) lenient = false;
+                prev = v;
+            }
+            sa[lane * (T + 1) + (pos - t0)] = v;
+        }
+        __syncwarp();
+        store_answer_tile<T>(out, sa, b0, nrows, P_out, t0, tend - t0, lane);
+        __syncwarp();  // the staged rows and the answer tile are reused
     }
 }
 
-// Lane i runs the p chars (i >> 2j) & 3 from the full interval (0, n - 1).
-template <class R>
-__global__ void precalc_fill_kernel(R rk, LFArgs a) {
-    using P = typename R::pos_t;
-    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= a.B) return;
-    const CArray<P> Cl(a.C);
-    P l = 0, r = (P)a.n_nodes - 1;
-    pair_t<P>* out = static_cast<pair_t<P>*>(a.out);
-    for (int j = 0; j < a.p; ++j) {
-        if (!lf_step_r(rk, Cl, (int)((i >> (2 * j)) & 3), l, r)) {
-            out[i] = make_pair_of<P>(-1, -1);
-            return;
+// K1's fill: a thread owns the 4^D entries below one node of depth p - D
+// of the tree of intervals, D = min(kFillDepth, p - kFillMinLevel) and at
+// least 0, so that the 4^(p - D) threads are never fewer than
+// 4^kFillMinLevel (65,536): fewer leave the card idle (at p = 8, 1,024
+// threads of depth 3 ran 1.4-6x slower than one thread an entry on an
+// H100, tools/lf_ab.py).
+constexpr int kFillDepth = 3;
+constexpr int kFillMinLevel = 8;
+
+// The 4^D entries below the interval (l, r) (live: not empty), the entry
+// whose next D chars are m = sum c_e 4^e at out[m * stride], stride
+// growing 4x a level: one LF step a child, none below an empty interval.
+// Only the last level is unrolled (its four steps are independent loads
+// in flight together); the levels above loop, which keeps the code of a
+// heavy rank type small.
+template <int D, class R, class P>
+__device__ __forceinline__ void fill_below(const R& rk, const CArray<P>& Cl, P l, P r, bool live,
+                                           pair_t<P>* out, int64_t stride) {
+    if constexpr (D == 0) {
+        __stcs(out, live ? make_pair_of<P>(l, r) : make_pair_of<P>(-1, -1));
+    } else if constexpr (D == 1) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+            P cl = l, cr = r;
+            const bool child = live && lf_step_r(rk, Cl, c, cl, cr);
+            fill_below<0>(rk, Cl, cl, cr, child, out + c * stride, 4 * stride);
+        }
+    } else {
+#pragma unroll 1
+        for (int c = 0; c < 4; ++c) {
+            P cl = l, cr = r;
+            const bool child = live && lf_step_r(rk, Cl, c, cl, cr);
+            fill_below<D - 1>(rk, Cl, cl, cr, child, out + c * stride, 4 * stride);
         }
     }
-    out[i] = make_pair_of<P>(l, r);
+}
+
+// Entry i of the table spells chars (i >> 2j) & 3, j = 0..p-1, from the
+// full interval (0, n - 1); its last D chars are its high bits. Thread
+// t < 4^(p - D) runs the p - D steps of t's chars once, then writes
+// entries t + m * 4^(p - D), m < 4^D: at each m consecutive threads write
+// consecutive entries, so every store is coalesced across the warp.
+template <int D, class R>
+__global__ void precalc_fill_kernel(R rk, LFArgs a) {
+    using P = typename R::pos_t;
+    const int above = a.p - D;
+    const int64_t n_threads = (int64_t)1 << (2 * above);
+    const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (t >= n_threads) return;
+    const CArray<P> Cl(a.C);
+    P l = 0, r = (P)a.n_nodes - 1;
+    bool live = true;
+    for (int j = 0; j < above && live; ++j) live = lf_step_r(rk, Cl, (int)((t >> (2 * j)) & 3), l, r);
+    fill_below<D>(rk, Cl, l, r, live, static_cast<pair_t<P>*>(a.out) + t, n_threads);
 }
 
 // Colex rank of each k-mer row of codes [B, k], or -1; only 0..3 are valid.

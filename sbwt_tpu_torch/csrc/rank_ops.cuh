@@ -1,6 +1,7 @@
 // The launch switch of the kernels that are templates over the rank type:
 // K14 and K1 with partial_search (lf_stream.cuh), K2's succ1
-// (succ_table.cuh) and K4 (turbo_stream.cuh). An instance file
+// (succ_table.cuh) and K4 (turbo_stream.cuh), and the launches of K14 and
+// of K1's fill. An instance file
 // (lf_stream.cu, lf_split.cu, lf_concat.cu, lf_subsetwt.cu, lf_wide.cu,
 // lf_sharded.cu) calls launch_rank_op<R> for each rank type of its family,
 // which instantiates all six kernels for R, K4 over the flat table.
@@ -12,6 +13,33 @@
 
 namespace sbwt {
 
+// Launches K14; the shared memory a block needs grows with k and the
+// tile (46,592 B at most for k <= 255 with LFShape's tiles), and past
+// 48 KB the kernel's limit is raised first.
+template <class R>
+int launch_lf_stream(const R& rk, const LFArgs& a, cudaStream_t s) {
+    static std::atomic<int> raised[64];
+    const int smem = lf_smem_bytes<R>(a.k);
+    if (const int e = raise_smem_limit(lf_stream_kernel<R>, smem, raised)) return e;
+    constexpr int W = LFShape<R>::warps;
+    const unsigned grid = (unsigned)(((a.B + 31) / 32 + W - 1) / W);
+    lf_stream_kernel<R><<<grid, W * 32, smem, s>>>(rk, a);
+    return (int)cudaGetLastError();
+}
+
+// Launches K1's fill at subtree depth D = min(kFillDepth, p - kFillMinLevel),
+// 0 at least
+template <class R, int D = kFillDepth>
+int launch_precalc_fill(const R& rk, const LFArgs& a, cudaStream_t s) {
+    if constexpr (D > 0) {
+        if (a.p - D < kFillMinLevel) return launch_precalc_fill<R, D - 1>(rk, a, s);
+    } else if (a.p < 0) {
+        return (int)cudaErrorInvalidValue;
+    }
+    precalc_fill_kernel<D, R><<<grid_for((int64_t)1 << (2 * (a.p - D))), kBlock, 0, s>>>(rk, a);
+    return (int)cudaGetLastError();
+}
+
 template <class R>
 int launch_rank_op(int op, const void* rank_desc, const LFArgs* args, void* stream) {
     const R rk = *static_cast<const R*>(rank_desc);
@@ -20,11 +48,9 @@ int launch_rank_op(int op, const void* rank_desc, const LFArgs* args, void* stre
     const unsigned grid = grid_for(a.B);
     switch (op) {
         case kLFStream:
-            lf_stream_kernel<R><<<grid, kBlock, 0, s>>>(rk, a);
-            break;
+            return launch_lf_stream(rk, a, s);
         case kPrecalcFill:
-            precalc_fill_kernel<R><<<grid, kBlock, 0, s>>>(rk, a);
-            break;
+            return launch_precalc_fill(rk, a, s);
         case kKmerSearch:
             kmer_search_kernel<R><<<grid, kBlock, 0, s>>>(rk, a);
             break;

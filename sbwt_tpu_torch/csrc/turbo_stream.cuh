@@ -56,8 +56,6 @@
 // (col - shard * cols) * 4^A + sub, formed in 64 bits by table_row.
 #pragma once
 
-#include <atomic>
-
 #include "lf_stream.cuh"
 
 namespace sbwt {
@@ -128,56 +126,16 @@ constexpr int kTurboTile = 16;
 constexpr int kTurboWarps = 4;
 constexpr int kTurboMinBlocks = 8;
 
-// Bytes between two staged code rows: the tile's window of
-// kTurboTile + k + arity - 2 chars, from the 16-byte chunk that holds its
-// first char, in whole chunks, plus one word so that the 32 rows start in
-// 32 different banks.
-__host__ __device__ __forceinline__ int turbo_code_chunks(int k, int arity) {
-    return (kTurboTile + k + arity - 2 + 15 + 15) / 16;
-}
-__host__ __device__ __forceinline__ int turbo_code_row_bytes(int k, int arity) {
-    return 16 * turbo_code_chunks(k, arity) + 4;
+// K4's window: each position's k chars and the table row's look-ahead of
+// arity - 1 chars.
+__host__ __device__ __forceinline__ int turbo_window(int k, int arity) {
+    return kTurboTile + k + arity - 2;
 }
 
-// Dynamic shared memory of one block: each warp's staged code rows, then
-// each warp's answer tile (32 rows of kTurboTile + 1 positions).
+// Dynamic shared memory of one block at (k, arity)
 template <class P>
 __host__ __device__ __forceinline__ int turbo_smem_bytes(int k, int arity) {
-    return kTurboWarps * 32 *
-           (turbo_code_row_bytes(k, arity) + (kTurboTile + 1) * (int)sizeof(P));
-}
-
-// Chars [t0, t0 + win) of the warp's nrows reads (rows of L chars from
-// codes, total chars in all), cut at each read's end, into the staged rows
-// st: row r holds, from its byte 0, the aligned 16-byte chunks that cover
-// the window of read b0 + r. Lanes take consecutive chunks, so a warp's
-// loads are 16 bytes a lane on neighbouring addresses; a chunk that
-// crosses either end of the codes buffer is copied byte by byte.
-__device__ __forceinline__ void stage_codes(const int8_t* __restrict__ codes, int64_t total,
-                                            int64_t b0, int nrows, int L, int t0, int win,
-                                            int chunks, int row_bytes, int8_t* st, int lane) {
-    const int wlen = min(win, L - t0);
-    const uintptr_t lo = (uintptr_t)codes, hi = lo + (uintptr_t)total;
-    for (int i = lane; i < nrows * chunks; i += 32) {
-        const int r = i / chunks, c = i - r * chunks;
-        const uintptr_t g = (uintptr_t)(codes + (b0 + r) * L + t0);
-        const uintptr_t at = (g & ~(uintptr_t)15) + 16 * c;
-        if (at >= g + wlen) continue;
-        unsigned* dst = reinterpret_cast<unsigned*>(st + r * row_bytes + 16 * c);
-        if (at >= lo && at + 16 <= hi) {
-            const int4 v = __ldcs(reinterpret_cast<const int4*>(at));
-            dst[0] = (unsigned)v.x;
-            dst[1] = (unsigned)v.y;
-            dst[2] = (unsigned)v.z;
-            dst[3] = (unsigned)v.w;
-        } else {
-            for (int j = 0; j < 16; ++j) {
-                if (at + j >= lo && at + j < hi) {
-                    reinterpret_cast<int8_t*>(dst)[j] = *reinterpret_cast<const int8_t*>(at + j);
-                }
-            }
-        }
-    }
+    return tile_smem_bytes<P>(kTurboWarps, kTurboTile, turbo_window(k, arity));
 }
 
 // One warp per 32 consecutive reads. For each tile of kTurboTile
@@ -191,7 +149,6 @@ template <class R, class T>
 __global__ void __launch_bounds__(kTurboWarps * 32, kTurboMinBlocks)
     turbo_stream_kernel(R rk, LFArgs a, T t) {
     using P = typename R::pos_t;
-    extern __shared__ __align__(16) unsigned char turbo_smem[];
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const int64_t b0 = ((int64_t)blockIdx.x * kTurboWarps + warp) * 32;
     if (b0 >= a.B) return;  // the whole warp
@@ -200,10 +157,11 @@ __global__ void __launch_bounds__(kTurboWarps * 32, kTurboMinBlocks)
     const int k = a.k, p = a.p, L = a.L;
     const int P_out = L - k + 1;
     const int n_pos = lane < nrows ? max(0, min(P_out, a.lengths[b] - k + 1)) : 0;
-    const int chunks = turbo_code_chunks(k, a.arity), row_bytes = turbo_code_row_bytes(k, a.arity);
-    const int win = kTurboTile + k + a.arity - 2;
-    int8_t* st = reinterpret_cast<int8_t*>(turbo_smem) + warp * 32 * row_bytes;
-    P* sa = reinterpret_cast<P*>(turbo_smem + kTurboWarps * 32 * row_bytes) +
+    const int win = turbo_window(k, a.arity);
+    const int chunks = tile_code_chunks(win), row_bytes = tile_code_row_bytes(win);
+    extern __shared__ __align__(16) unsigned char smem[];
+    int8_t* st = reinterpret_cast<int8_t*>(smem) + warp * 32 * row_bytes;
+    P* sa = reinterpret_cast<P*>(smem + kTurboWarps * 32 * row_bytes) +
             warp * 32 * (kTurboTile + 1);
     P* out = static_cast<P*>(a.out);
     const CArray<P> Cl(a.C);
@@ -226,8 +184,7 @@ __global__ void __launch_bounds__(kTurboWarps * 32, kTurboMinBlocks)
                         lane);
         }
         __syncwarp();
-        // char x of the read at s[x]
-        const int8_t* s = st + lane * row_bytes + ((uintptr_t)(a.codes + b * L + t0) & 15) - t0;
+        const int8_t* s = staged_row(st, row_bytes, lane, a.codes + b * L, t0);
         if (t0 == 0 && n_pos > 0) {
             for (int x = 0; x < k - 1; ++x) run = is_base(s[x]) ? run + 1 : 0;
             for (int x = 0; x < p - 1; ++x) pidx = (pidx >> 2) | ((unsigned)(s[x] & 3) << top);
@@ -264,36 +221,19 @@ __global__ void __launch_bounds__(kTurboWarps * 32, kTurboMinBlocks)
             sa[lane * (kTurboTile + 1) + (pos - t0)] = v;
         }
         __syncwarp();
-        // row r's answers t0..tend-1 as one run of neighbouring stores
-        const int tlen = tend - t0;
-        for (int i = lane; i < nrows * kTurboTile; i += 32) {
-            const int r = i / kTurboTile, x = i % kTurboTile;
-            if (x < tlen) __stcs(out + (b0 + r) * P_out + t0 + x, sa[r * (kTurboTile + 1) + x]);
-        }
+        store_answer_tile<kTurboTile>(out, sa, b0, nrows, P_out, t0, tend - t0, lane);
         __syncwarp();  // the staged rows and the answer tile are reused
     }
 }
 
 // Launches K4 over the table t; the shared memory a block needs grows with
-// k, and past 48 KB the kernel's limit is raised first, once for each
-// instance, device and size.
+// k, and past 48 KB the kernel's limit is raised first.
 template <class R, class T>
 int launch_turbo_stream(const R& rk, const LFArgs& a, const T& t, cudaStream_t s) {
     using P = typename R::pos_t;
+    static std::atomic<int> raised[64];
     const int smem = turbo_smem_bytes<P>(a.k, a.arity);
-    if (smem > 48 * 1024) {
-        static std::atomic<int> raised[64];
-        int dev = 0;
-        cudaError_t e = cudaGetDevice(&dev);
-        if (e != cudaSuccess) return (int)e;
-        if (dev >= 64) return (int)cudaErrorInvalidDevice;
-        if (raised[dev].load() < smem) {
-            e = cudaFuncSetAttribute(turbo_stream_kernel<R, T>,
-                                     cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-            if (e != cudaSuccess) return (int)e;
-            raised[dev].store(smem);
-        }
-    }
+    if (const int e = raise_smem_limit(turbo_stream_kernel<R, T>, smem, raised)) return e;
     const int64_t warps = (a.B + 31) / 32;
     const unsigned grid = (unsigned)((warps + kTurboWarps - 1) / kTurboWarps);
     turbo_stream_kernel<R, T><<<grid, kTurboWarps * 32, smem, s>>>(rk, a, t);

@@ -34,8 +34,8 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = ("succ_table.cu", "seed_bits.cu", "lf_stream.cu", "lf_split.cu", "lf_concat.cu",
            "lf_subsetwt.cu", "lf_wide.cu", "build_sbwt.cu", "lf_sharded.cu", "gather_chain.cu",
            "fast_search.cu")
-HEADERS = ("sbwt_common.cuh", "bv.cuh", "wavelet.cuh", "subset_rank.cuh", "lf_stream.cuh",
-           "succ_table.cuh", "turbo_stream.cuh", "rank_ops.cuh")
+HEADERS = ("sbwt_common.cuh", "bv.cuh", "wavelet.cuh", "subset_rank.cuh", "stream_tile.cuh",
+           "lf_stream.cuh", "succ_table.cuh", "turbo_stream.cuh", "rank_ops.cuh")
 NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -114,6 +114,8 @@ _SIGNATURES = {
     "sbwt_lf_desc_sizes": [_P],
     # (k, arity, answer bytes): K4's dynamic shared memory per block
     "sbwt_turbo_smem_bytes": [_I, _I, _I],
+    # (k, rank type): K14's
+    "sbwt_lf_smem_bytes": [_I, _I],
     "sbwt_pack_windows": [_I, _P, _LL, _I, _P, _P, _P],
     "sbwt_edge_src_probe": [_I, _P, _I, _I, _P, _P, _P, _P],
     "sbwt_emit_dummies": [_I, _P, _LL, _I, _P, _P, _P, _P],
@@ -507,6 +509,13 @@ def turbo_smem_bytes(k: int, arity: int, pos_bytes: int = 4) -> int:
     """The shared memory one block of K4 (and K20b) asks for at (k, arity)
     with answers of pos_bytes bytes; it builds the library."""
     return _library().sbwt_turbo_smem_bytes(k, arity, pos_bytes)
+
+
+def lf_smem_bytes(variant: str, k: int) -> int:
+    """The shared memory one block of K14 over a rank type asks for at k
+    (its tile and warps a block are the rank type's); it builds the
+    library."""
+    return _library().sbwt_lf_smem_bytes(k, RANK_TYPES.index(variant))
 
 
 def fast_search(tbl, arity: int, precalc, p: int, codes, n_nodes: int):

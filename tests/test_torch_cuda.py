@@ -479,3 +479,115 @@ def test_compose_equals_plain_version(cuda, n):
                 (arity, col0, n_cols)
     assert kernels.LAUNCHES["succ_compose"] == before["succ_compose"] + 3
     assert kernels.LAUNCHES[kernels.COMPOSE_RANGE] == before[kernels.COMPOSE_RANGE] + 3 * (len(ranges) - 1)
+
+
+# ---------------------------------------------------------------------------
+# K14's tiles (the same warp of 32 reads and staged position tiles as K4)
+# and K1's fill by subtrees, at their edges: against the plain versions.
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def lf_indexes(tile_indexes):
+    """K14's instances over tile_indexes' index: plain-matrix, rrr-split,
+    mef-concat, the wide copy and K20a over three row shards."""
+    from sbwt_tpu_torch.parallel import sharded
+
+    g, k, di, _, (vdi, _), (wide, _), _ = tile_indexes
+    mdi = SBWT.build([g], k, di.device, precalc_k=di.precalc_k).to_variant("mef-concat").device_index
+    view = sharded.shard_index_rows(di, sharded.make_mesh(1, 3, [di.device])).views[0]
+    return {"plain-matrix": di, "rrr-split": vdi, "mef-concat": mdi, kernels.WIDE: wide,
+            kernels.SHARDED: view}
+
+
+@pytest.mark.parametrize("B,L", [(1, 14), (31, 15), (33, 37), (1000, 100), (33, 257), (3, 3100)])
+def test_lf_stream_tiles_equal_plain_version(tile_indexes, lf_indexes, B, L):
+    """K14 over B reads of L codes (a warp's 32 reads and a ragged last
+    warp; one tile, a tile's edge and many tiles) on plain-matrix,
+    rrr-split, mef-concat, the wide instance and K20a over three shards,
+    each equal to its plain version and to plain-matrix K4's answers."""
+    g, k, di, turbos, *_ = tile_indexes
+    rng = np.random.default_rng(B * 11 + L)
+    codes, lengths = _tile_reads(g, rng, B, L, k)
+    c, n = torch.from_numpy(codes).to(di.device), torch.from_numpy(lengths).to(di.device)
+    before = dict(kernels.LAUNCHES)
+    want = tt.turbo_streaming_search(turbos[3], di, c, n)
+    for name, index in lf_indexes.items():
+        got = ts.streaming_search(index, c, n)
+        torch.cuda.synchronize()
+        assert got.dtype == kernels.pos_dtype(name)
+        assert torch.equal(got, ts.streaming_search_plain(index, c, n)), name
+        assert torch.equal(got.long(), want.long()), name
+    for name in lf_indexes:
+        counter = kernels.lf_counter("lf_stream", name)
+        assert kernels.LAUNCHES[counter] > before[counter], counter
+
+
+def test_lf_stream_unaligned_codes_and_long_k(cuda):
+    """K14 on codes that start at an odd address (the chunks that cross the
+    buffer's ends are copied byte by byte), and at k = 255: narrow and
+    wide, the largest blocks K14 asks for (just under the 48 KB that a
+    block may take without raising its limit)."""
+    rng = np.random.default_rng(256)
+    g = "".join(rng.choice(list("ACGT"), size=3000))
+    before = dict(kernels.LAUNCHES)
+    for k, p, L in ((14, 6, 61), (255, 8, 400)):
+        sb = SBWT.build([g], k, cuda, precalc_k=p)
+        di = sb.device_index
+        codes, lengths = _tile_reads(g, rng, 34, L, k)
+        flat = torch.from_numpy(codes).to(cuda).reshape(-1)
+        c = flat[5 : 5 + 33 * L].view(33, L)
+        n = torch.from_numpy(lengths[:33]).to(cuda)
+        assert c.data_ptr() % 16 == 5 % 16 and c.is_contiguous()
+        words = np.stack([bv.pack_bits_host(row) for row in sb.bits])
+        wide = from_packed_rows_wide(words, di.n_nodes, bv.pack_bits_host(sb.suffix_group_starts),
+                                     k, di.n_kmers, cuda, precalc_k=p)
+        want = ts.streaming_search_plain(di, c, n)
+        for index in (di, wide):
+            got = ts.streaming_search(index, c, n)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ts.streaming_search_plain(index, c, n)), (k, index.variant)
+            assert torch.equal(got.long(), want.long()), (k, index.variant)
+    assert kernels.lf_smem_bytes("plain-matrix", 255) == 46_080
+    assert kernels.lf_smem_bytes(kernels.WIDE, 255) == 46_592
+    for name in ("plain-matrix", kernels.WIDE):
+        counter = kernels.lf_counter("lf_stream", name)
+        assert kernels.LAUNCHES[counter] == before[counter] + 2, counter
+
+
+@pytest.fixture(scope="module")
+def fill_indexes(cuda):
+    """k = 14 over 100,000 random bases: intervals stay live to about level
+    8 and empty by level 12. Plain-matrix, one variant of each rank family
+    (rrr-split, mef-matrix, rrr-subsetwt) and the wide copy."""
+    rng = np.random.default_rng(1300)
+    k = 14
+    g = "".join(rng.choice(list("ACGT"), size=100_000))
+    sb = SBWT.build([g], k, cuda, precalc_k=4)
+    di = sb.device_index
+    words = np.stack([bv.pack_bits_host(row) for row in sb.bits])
+    wide = from_packed_rows_wide(words, di.n_nodes, bv.pack_bits_host(sb.suffix_group_starts),
+                                 k, di.n_kmers, cuda, precalc_k=4)
+    narrow = {v: sb.to_variant(v).device_index for v in ("rrr-split", "mef-matrix", "rrr-subsetwt")}
+    return {"plain-matrix": di, **narrow}, wide
+
+
+@pytest.mark.parametrize("p", [1, 2, 3, 8, 9, 10, 12, 13])
+def test_precalc_fill_equals_plain_version(fill_indexes, p):
+    """K1's fill at every subtree depth: one thread an entry up to p = 8,
+    then subtrees of depth 1, 2 and 3, on plain-matrix and one variant of
+    each family for p < 13, and on the wide instance at p = 8 and 13 (the
+    int64 table of 1.07 GB), each equal to its plain version."""
+    narrow, wide = fill_indexes
+    indexes = dict(narrow) if p < 13 else {}
+    if p in (8, 13):
+        indexes[kernels.WIDE] = wide
+    before = dict(kernels.LAUNCHES)
+    for name, index in indexes.items():
+        got = kernels.precalc_fill(name, index.kernel_desc(index.device), index.C, index.n_nodes, p)
+        torch.cuda.synchronize()
+        assert got.dtype == kernels.pos_dtype(name) and got.shape == (4**p, 2)
+        assert torch.equal(got, tm.precalc_fill_plain(index, p)), (name, p)
+        del got
+        counter = kernels.lf_counter("precalc_fill", name)
+        assert kernels.LAUNCHES[counter] == before[counter] + 1, counter
