@@ -7,13 +7,17 @@ the bench's real size, every kernel against its plain PyTorch version.
 Phases, one line each; any failure exits nonzero:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: nvcc compiles K1-K4, K14, K18-K21 and fast_search from
+2. build: nvcc compiles K1-K4, K13, K14, K18-K21 and fast_search from
    sbwt_tpu_torch/csrc, one process per source;
 3. main path (launches counted): ``SBWT.build`` of a 4 Mbp uniform random
    genome (numpy seed 20260817, as bench.py) at k = 30 with precalc_k = 13
    (K1's fill), ``enable_turbo(arity=3)`` (K2, K3),
    ``streaming_search_batch`` of 1M reads of 100 bp at the hit98 and hit0
    mixes (K4) and ``search_batch`` of their first k-mers (K1's search);
+   then the bench's stats programs (K4, then K13's answer reductions):
+   ``ops.turbo._turbo_reduced_stats`` of the hit98 batch and
+   ``_turbo_with_stats`` of the hit0 batch, equal to the answers' own
+   checksum and hits;
 4. variants path (launches counted): for each of the ten variants,
    ``to_variant`` (carrying the p = 13 table), ``streaming_search_batch``
    of both 1M-read batches on the LF engine (K14 over the variant's ranks,
@@ -30,7 +34,8 @@ Phases, one line each; any failure exits nonzero:
    wide (int64) tier through ``from_packed_rows_wide`` (K18: the wide K1
    fill at p = 13), its LF answers (wide K14) and, after
    ``enable_turbo`` (wide succ1 and seed bits: an int64 [n, 4] table), its
-   turbo answers (wide K4) on both batches, equal to the narrow ones;
+   turbo answers (wide K4) on both batches, equal to the narrow ones, and
+   the stats programs over them (wide K13 on int64 answers);
 7. k-mer access (launches counted): ``ops.turbo.fast_search`` of the first
    k-mer of every read of both mixes and of the spiked batch, over the
    arity-3 table, narrow tables of arity 1 and 2 and the wide int64 table,
@@ -77,7 +82,10 @@ Phases, one line each; any failure exits nonzero:
    card, if there is one), each against its plain version, with gathers/s;
 12. kernels against their plain versions on the card, at the main path's
    shapes, with times: K1 on plain-matrix (the p = 13 fill, the 1M
-   30-mers), K2, K3, K4 on each whole 1M-read batch (its bound counts the
+   30-mers), K2, K3 (also at p = 1 and 5 from fresh fills, narrow and
+   wide), K13 on each batch's answers beside ``torch.sum`` and the hit
+   count (its library time; wide K13 on the wide K4's int64 answers), K4
+   on each whole 1M-read batch (its bound counts the
    table, seed-bits, precalc and rank rows the batch's answers ask for,
    ``turbo_work``, printed beside the bound of codes and answers alone);
    K14 of each variant on each whole 1M-read batch (time and bound) and
@@ -100,9 +108,11 @@ Phases, one line each; any failure exits nonzero:
    and auto); the two exports byte-equal, and mef-split's refused.
 
 It prints one JSON line of per-kernel results (launches on its path, error
-against the plain version, time, the plain version's time, and the least
+against the plain version, time, the plain version's time, the least
 time the card could take: compulsory bytes over the HBM rate or counted
-operations over the peak rate, whichever is larger), the card's nvidia-smi
+operations over the peak rate, whichever is larger, and the time of the
+PyTorch calls that compute the same function where there are any, else
+null), the card's nvidia-smi
 line, and last ``{"ok": true, "device": {...}}``. Without a CUDA device it
 exits 2 and prints no result. Every output is an integer, so each
 comparison is exact (max_abs_err must be 0). At its end no ``jax`` and no
@@ -179,6 +189,7 @@ KERNELS = {
     "succ_compose": ("sbwt_tpu_torch/csrc/succ_table.cu", "sbwt_tpu/ops/turbo.py:342"),
     "seed_bits": ("sbwt_tpu_torch/csrc/seed_bits.cu", "sbwt_tpu/ops/turbo.py:271"),
     "turbo_stream": ("sbwt_tpu_torch/csrc/turbo_stream.cuh", "sbwt_tpu/ops/turbo.py:610"),
+    "answer_stats": ("sbwt_tpu_torch/csrc/answer_stats.cu", "sbwt_tpu/ops/turbo.py:1382"),
 }
 # K19, the on-device build (csrc/build_sbwt.cu)
 BUILD_KERNELS = {
@@ -219,6 +230,7 @@ WIDE_KERNELS = {
     f"succ1[{WIDE}]": (_WIDE_SRC, "sbwt_tpu/ops/turbo.py:209"),
     f"seed_bits[{WIDE}]": ("sbwt_tpu_torch/csrc/seed_bits.cu", "sbwt_tpu/ops/turbo.py:271"),
     f"turbo_stream[{WIDE}]": (_WIDE_SRC, "sbwt_tpu/ops/turbo.py:661"),
+    f"answer_stats[{WIDE}]": ("sbwt_tpu_torch/csrc/answer_stats.cu", "sbwt_tpu/ops/turbo.py:1382"),
 }
 # what the giant's path launches: it can have no table, so no K4 and no seed bits
 GIANT_KERNELS = [f"{op}[{WIDE}]" for op in
@@ -545,9 +557,16 @@ def partial_work(lengths: torch.Tensor, matched: torch.Tensor, pos_bytes: int = 
 
 
 def seed_bits_work(precalc: torch.Tensor, out: torch.Tensor, p: int):
-    """seed_bits: the left bound of every precalc interval (the kernel reads
-    no right bound) in, the packed bits out."""
-    return nbytes(precalc[:, 0], out), 4 ** (p + 1) * 4
+    """seed_bits: the whole precalc table in (a row's left bound shares its
+    32-byte sector with its right one, so no load can take the left bounds
+    alone), the packed bits out."""
+    return nbytes(precalc, out), 4 ** (p + 1) * 4
+
+
+def stats_work(out: torch.Tensor):
+    """answer_stats: the answers read once, two int64 out; an add and a
+    compare an answer."""
+    return nbytes(out) + 16, 2 * out.numel()
 
 
 def succ_work(structure_bytes: int, sgs_tbl, out):
@@ -632,7 +651,30 @@ def run_main_path(dev):
             checksum=int(ans.sum(dtype=np.int64)), hit_fraction=hit,
             host_seconds_with_copies=round(seconds, 4))
     check(float((runs["hit0"][1] >= 0).mean()) < 0.01, "hit0: random reads hit")
+    check_stats_programs(sbwt._turbo, sbwt.device_index, runs, dev, "main path")
     return genome, sbwt, runs
+
+
+def check_stats_programs(turbo, index, runs, dev, what: str):
+    """The bench's form end to end (K4, then K13): ``_turbo_reduced_stats``
+    of the hit98 batch and ``_turbo_with_stats`` of the hit0 batch, whose
+    checksum, hits and answers must equal the batches' own."""
+    from sbwt_tpu_torch.ops import turbo as tt
+
+    lengths = torch.full((N_READS,), READ_LEN, dtype=torch.int32, device=dev)
+    codes_np, ans_np = runs["hit98"]
+    checksum, hits = tt._turbo_reduced_stats(turbo, index, torch.from_numpy(codes_np).to(dev),
+                                             lengths)
+    check(checksum.dtype == torch.int64 and hits.dtype == torch.int64, f"{what}: stats dtypes")
+    check(int(checksum) == int(ans_np.sum(dtype=np.int64)) and int(hits) == int((ans_np >= 0).sum()),
+          f"{what}: _turbo_reduced_stats of hit98 differs from its answers' checksum and hits")
+    codes_np, ans_np = runs["hit0"]
+    out, hits0 = tt._turbo_with_stats(turbo, index, torch.from_numpy(codes_np).to(dev), lengths)
+    check(torch.equal(out.cpu().long(), torch.from_numpy(ans_np).long())
+          and int(hits0) == int((ans_np >= 0).sum()),
+          f"{what}: _turbo_with_stats of hit0 differs from its answers and hits")
+    say("stats", path=what, hit98_checksum=int(checksum), hit98_hits=int(hits),
+        hit0_hits=int(hits0))
 
 
 def run_variants_path(sbwt, runs):
@@ -768,6 +810,7 @@ def run_wide_turbo_path(dev, sbwt, runs, lanes):
             check(got.dtype == np.int64 and np.array_equal(got, ans),
                   f"forced-wide index, {engine} {mix}: answers differ from the narrow K4's")
             del got
+    check_stats_programs(wsb._turbo, wide, runs, dev, "forced-wide index")
     got = wsb.partial_search_batch(*lanes)
     check(all(np.array_equal(a, b) for a, b in zip(got, sbwt.partial_search_batch(*lanes))),
           "forced-wide index: partial_search differs from the narrow one")
@@ -1233,12 +1276,12 @@ def recorder(launches: dict, card: str):
     and adds one."""
     results = {}
 
-    def record(name, err, ms, plain_ms, moved, ops, **extra):
+    def record(name, err, ms, plain_ms, moved, ops, library_ms=None, **extra):
         """moved: the bytes the function must move at this shape (each input
         read once, each output written once; of a table read at random, the
         rows this run's data asks for). ops: its integer operations, counted
-        from the shape. No single PyTorch call computes any of these
-        functions, so library_ms is null."""
+        from the shape. library_ms: the time of the PyTorch call that
+        computes the same function, where there is one, else null."""
         check(err == 0, f"{name}: kernel differs from its plain version (max_abs_err {err})")
         src, replaces = ALL_KERNELS[name]
         results[name] = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
@@ -1246,12 +1289,55 @@ def recorder(launches: dict, card: str):
                          "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms(moved, ops),
                          "bound_by": "bytes" if moved / HBM_BYTES_PER_S >= ops / ALU_OPS_PER_S
                          else "operations",
-                         "library_ms": None}
+                         "library_ms": library_ms}
         say("kernel", name=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
             bound_ms=results[name]["bound_ms"], bound_by=results[name]["bound_by"],
-            bytes_moved=moved, card=repr(card), **extra)
+            library_ms=library_ms, bytes_moved=moved, card=repr(card), **extra)
 
     return results, record
+
+
+SMALL_P = (1, 5)  # precalc lengths of the fresh fills that seed_bits is also held at
+
+
+def small_p_seed_bits_err(index, dev) -> int:
+    """seed_bits of the index's own fill at each small p against its plain
+    version: p = 1 packs 4 rows into one word, p = 5 fills 32 bitmap words
+    of which a warp's chunk (256 narrow rows, 128 wide) is cut short."""
+    from sbwt_tpu_torch import kernels
+    from sbwt_tpu_torch.ops import turbo as tt
+
+    err = 0
+    for p in SMALL_P:
+        pre = kernels.precalc_fill(index.variant, index.kernel_desc(dev), index.C, index.n_nodes, p)
+        err += max_abs_err(kernels.seed_bits(pre, p), tt.seed_bits_plain(pre, p))
+    return err
+
+
+def compare_answer_stats(name, out, checksum: int, hits: int, mix: str, record):
+    """K13 on one batch's answers: against its plain version and the
+    batch's own checksum and hits, exactly, and timed beside the two
+    PyTorch calls that compute it (its library time). ``record`` is None
+    for a batch that is checked and printed only."""
+    from sbwt_tpu_torch import kernels
+    from sbwt_tpu_torch.ops import turbo as tt
+
+    got = kernels.answer_stats(out)
+    err = max_abs_err(got, tt.answer_stats_plain(out))
+    check(err == 0 and got.tolist() == [checksum, hits],
+          f"{name} {mix}: {got.tolist()}, expected [{checksum}, {hits}] (max_abs_err {err})")
+    ms = cuda_ms(lambda: kernels.answer_stats(out), 5)
+    sum_ms = cuda_ms(lambda: torch.sum(out, dtype=torch.int64), 5)
+    hits_ms = cuda_ms(lambda: (out >= 0).sum(), 5)
+    plain_ms = cuda_ms(lambda: tt.answer_stats_plain(out), 5)
+    moved, ops = stats_work(out)
+    extra = dict(mix=mix, shape=tuple(out.shape), dtype=str(out.dtype), checksum=checksum,
+                 hits=hits, library_sum_ms=sum_ms, library_hits_ms=hits_ms)
+    if record is not None:
+        record(name, err, ms, plain_ms, moved, ops, library_ms=sum_ms + hits_ms, **extra)
+    else:
+        say("kernel", name=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms(moved, ops), library_ms=sum_ms + hits_ms, **extra)
 
 
 def compare_kernels(dev, genome, sbwt, runs, record, card):
@@ -1292,9 +1378,10 @@ def compare_kernels(dev, genome, sbwt, runs, record, card):
 
     k_sb = lambda: kernels.seed_bits(di.precalc, p)
     record("seed_bits", max_abs_err(turbo.seed_bits, tt.seed_bits_plain(di.precalc, p))
-           + max_abs_err(k_sb(), turbo.seed_bits), cuda_ms(k_sb, 5),
-           cuda_ms(lambda: tt.seed_bits_plain(di.precalc, p), 1),
-           *seed_bits_work(di.precalc, turbo.seed_bits, p), shape=tuple(turbo.seed_bits.shape))
+           + max_abs_err(k_sb(), turbo.seed_bits) + small_p_seed_bits_err(di, dev),
+           cuda_ms(k_sb, 5), cuda_ms(lambda: tt.seed_bits_plain(di.precalc, p), 1),
+           *seed_bits_work(di.precalc, turbo.seed_bits, p), shape=tuple(turbo.seed_bits.shape),
+           small_p=SMALL_P)
 
     n_answers = None
     for mix, (codes_np, ans_np) in runs.items():
@@ -1305,11 +1392,9 @@ def compare_kernels(dev, genome, sbwt, runs, record, card):
         check(torch.equal(out.cpu(), torch.from_numpy(ans_np)), f"{mix}: rerun differs")
         checksum = int(torch.sum(out, dtype=torch.int64).item())
         check(checksum == int(ans_np.sum(dtype=np.int64)), f"{mix}: checksum")
-        # K13, the checksum and hit-count reductions: PyTorch's own, timed beside their byte bound
-        say("reduction", name="torch.sum(int64) and hit count", mix=mix, shape=tuple(out.shape),
-            sum_ms=cuda_ms(lambda: torch.sum(out, dtype=torch.int64), 5),
-            hits_ms=cuda_ms(lambda: (out >= 0).sum(), 5),
-            bound_ms=nbytes(out) / HBM_BYTES_PER_S * 1e3, card=repr(card))
+        # K13, the checksum and hit-count reductions, beside PyTorch's two calls
+        compare_answer_stats("answer_stats", out, checksum, int((ans_np >= 0).sum()), mix,
+                             record if mix == "hit98" else None)
         # the plain version on the whole batch; its one run is also its time
         plain, plain_ms = timed_ms(
             lambda: tt.turbo_streaming_search_plain(turbo, di, codes, lengths))
@@ -1490,7 +1575,8 @@ def compare_wide_kernels_4m(dev, sbwt, wsb, runs, record):
     say("kernel", name=f"precalc_fill[{WIDE}]", n_columns=wide.n_nodes, shape=tuple(wide.precalc.shape),
         ms=cuda_ms(lambda: fill(wide), 3), narrow_ms=cuda_ms(lambda: fill(di), 3))
     k_sb = lambda: kernels.seed_bits(wide.precalc, p)
-    record(f"seed_bits[{WIDE}]", max_abs_err(k_sb(), tt.seed_bits_plain(wide.precalc, p)),
+    record(f"seed_bits[{WIDE}]", max_abs_err(k_sb(), tt.seed_bits_plain(wide.precalc, p))
+           + small_p_seed_bits_err(wide, dev),
            cuda_ms(k_sb, 5), cuda_ms(lambda: tt.seed_bits_plain(wide.precalc, p), 1),
            *seed_bits_work(wide.precalc, wturbo.seed_bits, p),
            shape=tuple(wturbo.seed_bits.shape), narrow_ms=cuda_ms(lambda: kernels.seed_bits(di.precalc, p), 5))
@@ -1524,6 +1610,8 @@ def compare_wide_kernels_4m(dev, sbwt, wsb, runs, record):
         plain, plain_ms = timed_ms(lambda: tt.turbo_streaming_search_plain(wturbo, wide, codes, lengths))
         err = max_abs_err(out, plain)
         moved, ops, work = turbo_work(wturbo, wide, codes, lengths, out)
+        compare_answer_stats(f"answer_stats[{WIDE}]", out, int(ans_np.sum(dtype=np.int64)),
+                             int((ans_np >= 0).sum()), mix, record if mix == "hit98" else None)
         del out, plain
         ms = cuda_ms(stream, 5)
         extra = dict(mix=mix, reads=len(codes_np), n_columns=wide.n_nodes,

@@ -33,7 +33,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("succ_table.cu", "seed_bits.cu", "lf_stream.cu", "lf_split.cu", "lf_concat.cu",
            "lf_subsetwt.cu", "lf_wide.cu", "build_sbwt.cu", "lf_sharded.cu", "gather_chain.cu",
-           "fast_search.cu")
+           "fast_search.cu", "answer_stats.cu")
 HEADERS = ("sbwt_common.cuh", "bv.cuh", "wavelet.cuh", "subset_rank.cuh", "stream_tile.cuh",
            "lf_stream.cuh", "succ_table.cuh", "turbo_stream.cuh", "rank_ops.cuh")
 NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
@@ -91,6 +91,8 @@ LAUNCHES = {
     "succ_compose": 0,
     "seed_bits": 0,
     f"seed_bits[{WIDE}]": 0,
+    "answer_stats": 0,
+    f"answer_stats[{WIDE}]": 0,
     **{op: 0 for op in BUILD_OPS},
     **{lf_counter(op, v): 0 for op in LF_OPS for v in RANK_TYPES if op in RANK_OPS[v]},
     TURBO_SHARDED: 0,
@@ -108,7 +110,10 @@ _LL = ctypes.c_longlong
 _SIGNATURES = {
     # (device, succ, n_nodes, arity, col0, n_cols, rows scratch, tbl, stream)
     "sbwt_succ_compose": [_I, _P, _I, _I, _I, _I, _P, _P, _P],
-    "sbwt_seed_bits": [_I, _P, _I, _I, _P, _P],
+    # (device, precalc, p, wide, bitmap scratch, out, stream)
+    "sbwt_seed_bits": [_I, _P, _I, _I, _P, _P, _P],
+    # (device, answers, n, wide, out, stream)
+    "sbwt_answer_stats": [_I, _P, _LL, _I, _P, _P],
     # (device, op, variant, rank descriptor*, LFArgs*, stream)
     **{f"sbwt_lf_{fam}": [_I, _I, _I, _P, _P, _P] for fam in sorted(set(FAMILY.values()))},
     "sbwt_lf_desc_sizes": [_P],
@@ -329,17 +334,38 @@ def succ_compose(succ, arity: int, col0: int = 0, n_cols: int | None = None) -> 
 def seed_bits(precalc, p: int) -> torch.Tensor:
     """K3 (seed_bits.cu): packed 2-bit pair entries, int32 [4^(p+1) / 16]
     (the bits of the JAX package's uint32 words), of an int32 or (wide
-    tier) int64 precalc table [4^p, 2]."""
+    tier) int64 precalc table [4^p, 2], 16-byte aligned. One entry, two
+    passes: the table's 4^p-bit liveness bitmap (a scratch tensor), then
+    the pair words from it."""
     dev = _cuda_device(precalc)
+    if not 1 <= p <= 14:
+        raise ValueError(f"seed_bits: precalc length {p} outside 1..14")
     wide = precalc.dtype == torch.int64
+    bitmap = torch.empty(-(-(4**p) // 32), dtype=torch.int32, device=dev)
     out = torch.empty(4 ** (p + 1) // 16, dtype=torch.int32, device=dev)
     _launch(
         "sbwt_seed_bits", f"seed_bits[{WIDE}]" if wide else "seed_bits", dev,
-        _check(precalc, "precalc", torch.int64 if wide else torch.int32, dev, (4**p, 2),
-               16 if wide else 8), p, int(wide),
+        _check(precalc, "precalc", torch.int64 if wide else torch.int32, dev, (4**p, 2), 16),
+        p, int(wide), _check(bitmap, "bitmap", torch.int32, dev),
         _check(out, "out", torch.int32, dev),
     )
     return out
+
+
+def answer_stats(out) -> torch.Tensor:
+    """K13 (answer_stats.cu): int64 [2], the checksum (the int64 sum of
+    every answer) and the hit count (answers >= 0) of a contiguous int32
+    or (wide tier) int64 answer tensor of any shape."""
+    dev = _cuda_device(out)
+    wide = out.dtype == torch.int64
+    if out.numel() == 0:
+        return torch.zeros(2, dtype=torch.int64, device=dev)
+    stats = torch.empty(2, dtype=torch.int64, device=dev)
+    _launch("sbwt_answer_stats", f"answer_stats[{WIDE}]" if wide else "answer_stats", dev,
+            _check(out, "answers", torch.int64 if wide else torch.int32, dev,
+                   align=out.element_size()),
+            out.numel(), int(wide), _check(stats, "stats", torch.int64, dev, align=8))
+    return stats
 
 
 # ---------------------------------------------------------------------------

@@ -21,8 +21,9 @@ row m >> 2 non-empty, 16 two-bit entries per 32-bit word, stored as int32.
 On CUDA tensors the table build launches K2 (succ1 of the index's rank
 type, csrc/succ_table.cuh, then csrc/succ_table.cu), the seed table K3
 (csrc/seed_bits.cu), the streaming search K4 of the index's rank type
-(csrc/turbo_stream.cuh) and the singleton-seed k-mer search fast_search
-(csrc/fast_search.cu); CPU tensors run the plain versions below.
+(csrc/turbo_stream.cuh), the singleton-seed k-mer search fast_search
+(csrc/fast_search.cu) and the answer reductions of the stats programs K13
+(csrc/answer_stats.cu); CPU tensors run the plain versions below.
 """
 from __future__ import annotations
 
@@ -344,3 +345,39 @@ def turbo_streaming_search(turbo: TurboIndex, index, codes, lengths=None):
             lengths.to(device=codes.device, dtype=torch.int32), turbo.k, turbo.n_nodes,
         )
     return turbo_streaming_search_plain(turbo, index, codes, lengths)
+
+
+# ---------------------------------------------------------------------------
+# answer reductions: the stats programs of the JAX engine
+# ---------------------------------------------------------------------------
+
+
+def answer_stats_plain(out: torch.Tensor) -> torch.Tensor:
+    """Plain version of K13: int64 [2], (the int64 sum of every answer,
+    the number of answers >= 0)."""
+    return torch.stack([torch.sum(out, dtype=torch.int64), (out >= 0).sum()])
+
+
+def answer_stats(out: torch.Tensor) -> torch.Tensor:
+    """(checksum, hits) of an answer tensor as int64 [2] on its device: K13
+    (csrc/answer_stats.cu) on a CUDA tensor, the plain version on a CPU
+    one. The JAX package sums int32 answers in int32, which wraps: its
+    checksum is the low 32 bits of this one."""
+    if out.device.type == "cuda":
+        return kernels.answer_stats(out.contiguous())
+    return answer_stats_plain(out)
+
+
+def _turbo_with_stats(turbo: TurboIndex, index, codes, lengths):
+    """(answers [B, L - k + 1], hits): ``turbo_streaming_search`` and the
+    count of its answers >= 0, an int64 scalar on the answers' device."""
+    out = turbo_streaming_search(turbo, index, codes, lengths)
+    return out, answer_stats(out)[1]
+
+
+def _turbo_reduced_stats(turbo: TurboIndex, index, codes, lengths):
+    """(checksum, hits) of ``turbo_streaming_search``'s answers as int64
+    scalars on their device, the bench's form: the answer matrix is
+    dropped once it is reduced."""
+    stats = answer_stats(turbo_streaming_search(turbo, index, codes, lengths))
+    return stats[0], stats[1]

@@ -591,3 +591,57 @@ def test_precalc_fill_equals_plain_version(fill_indexes, p):
         del got
         counter = kernels.lf_counter("precalc_fill", name)
         assert kernels.LAUNCHES[counter] == before[counter] + 1, counter
+
+
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("p", [1, 2, 3, 5, 8, 12, 13])
+def test_seed_bits_equals_plain_version(cuda, p, wide):
+    """K3's two passes (the liveness bitmap, then the pair words) on a
+    random table whose live share falls from all to none along its rows:
+    p = 1 and 2 leave a bitmap word part full, p < 5 a warp's chunk part
+    full; narrow (int32) and wide (int64) rows."""
+    g = torch.Generator(device=cuda).manual_seed(900 + p)
+    q = 4**p
+    left = torch.randint(0, 1 << 30, (q,), device=cuda, generator=g)
+    left[torch.rand(q, device=cuda, generator=g) < torch.linspace(0, 1, q, device=cuda)] = -1
+    pre = torch.stack([left, left + 1], 1).to(torch.int64 if wide else torch.int32).contiguous()
+    before = dict(kernels.LAUNCHES)
+    got = kernels.seed_bits(pre, p)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and got.shape == (4 ** (p + 1) // 16,)
+    assert torch.equal(got, tt.seed_bits_plain(pre, p))
+    counter = f"seed_bits[{kernels.WIDE}]" if wide else "seed_bits"
+    assert kernels.LAUNCHES[counter] == before[counter] + 1
+
+
+# (B, P) of the answer matrices K13 is held at: one answer to 1M reads of
+# 71, rows of up to 3,100 answers
+STATS_SHAPES = [(1, 1), (1, 71), (3, 3100), (1000, 1), (1000, 71), (1000, 3100), (1 << 20, 1),
+                (1 << 20, 71)]
+
+
+@pytest.mark.parametrize("fill", ["mixed", "all_hit", "all_miss"])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_answer_stats_equals_plain_version(cuda, dtype, fill):
+    """K13 on ragged answer matrices whose base lies 0-3 elements into a
+    larger tensor (a scalar head before the first 16-byte boundary, a tail
+    after the last), against its plain version: checksums past 2^31."""
+    g = torch.Generator(device=cuda).manual_seed(1300)
+    n = max(b * p for b, p in STATS_SHAPES) + 3
+    top = (1 << 31) - 1 if dtype == torch.int32 else 1 << 40
+    buf = torch.randint(0, top, (n,), device=cuda, generator=g, dtype=dtype)
+    if fill == "mixed":
+        buf[torch.rand(n, device=cuda, generator=g) < 0.4] = -1
+    elif fill == "all_miss":
+        buf.fill_(-1)
+    counter = f"answer_stats[{kernels.WIDE}]" if dtype == torch.int64 else "answer_stats"
+    before = kernels.LAUNCHES[counter]
+    for b, p in STATS_SHAPES:
+        for off in range(4):
+            out = buf[off : off + b * p].view(b, p)
+            got = kernels.answer_stats(out)
+            torch.cuda.synchronize()
+            assert torch.equal(got, tt.answer_stats_plain(out)), (b, p, off)
+            assert torch.equal(tt.answer_stats(out), got)
+    assert int(got[1]) == {"all_hit": b * p, "all_miss": 0}.get(fill, int(got[1]))
+    assert kernels.LAUNCHES[counter] == before + 2 * 4 * len(STATS_SHAPES)

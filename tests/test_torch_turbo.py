@@ -1,4 +1,5 @@
-"""Port parity: turbo tables (K2, K3) and streaming search (K4), plain versions.
+"""Port parity: turbo tables (K2, K3), streaming search (K4) and the stats
+programs over its answers (K13), plain versions.
 
 Each index is built once by the JAX package and carried into the port as
 numpy state. The port builds its own successor tables and seed bits, which
@@ -140,7 +141,7 @@ def test_tables_byte_equal(main_case, arity):
     assert pt.precalc.numpy().tobytes() == np.asarray(jt.precalc).tobytes()
 
 
-@pytest.mark.parametrize("p", [1, 5, 6])
+@pytest.mark.parametrize("p", [1, 2, 3, 5, 6])
 def test_seed_bits_equal(main_case, p):
     from sbwt_tpu.ops.turbo import _pack_seed_pair_bits
 
@@ -259,3 +260,71 @@ def test_arity_selection_matches_jax():
     # unmeasurable free memory: the JAX engine's fixed thresholds
     assert [select_turbo_arity(n, None) for n in (6_000_000, 16_000_000, 400_000_000, 10**9)] == [
         3, 2, 1, None]
+
+
+# ---------------------------------------------------------------------------
+# the stats programs (_turbo_with_stats, _turbo_reduced_stats): the port
+# returns int64 checksum and hits; the JAX package sums in int32, which
+# wraps, so its checksum is the low 32 bits of the port's. Exact equality.
+# ---------------------------------------------------------------------------
+
+
+def _low32(x: int) -> int:
+    return int(np.array(x, dtype=np.int64).astype(np.int32))
+
+
+@pytest.fixture(scope="module")
+def jax_reduced_stats(main_case):
+    """The JAX package's _turbo_reduced_stats itself, once, over the whole
+    main batch at arity 2: (checksum, hits) as numpy scalars."""
+    from sbwt_tpu.ops.turbo import _turbo_reduced_stats as jax_reduced
+
+    _, _, jt, _ = main_case.run(2)
+    checksum, hits = jax_reduced(jt, main_case.js.device_index, jnp.asarray(main_case.codes),
+                                 jnp.asarray(main_case.lengths), None)
+    return np.asarray(checksum), np.asarray(hits)
+
+
+def test_reduced_stats_match_jax_program(main_case, jax_reduced_stats):
+    ref, _, _, pt = main_case.run(2)
+    jax_checksum, jax_hits = jax_reduced_stats
+    assert jax_checksum.dtype == np.int32 and jax_hits.dtype == np.int32
+    checksum, hits = tt._turbo_reduced_stats(pt, main_case.ti, torch.from_numpy(main_case.codes),
+                                             torch.from_numpy(main_case.lengths))
+    assert checksum.dtype == torch.int64 and hits.dtype == torch.int64
+    assert int(hits) == int(jax_hits)
+    assert _low32(int(checksum)) == int(jax_checksum)
+    assert int(checksum) == int(ref.sum(dtype=np.int64))
+
+
+@pytest.mark.parametrize("corpus", ["all_hit", "all_miss", "alternating", "lowercase_n", "padded"])
+@pytest.mark.parametrize("arity", [1, 2, 3])
+def test_stats_programs_match_jax_answers(main_case, arity, corpus):
+    """Both stats programs on one corpus, against the JAX engine's answers
+    reduced as the JAX programs reduce them (int32 sums)."""
+    ref, _, _, pt = main_case.run(arity)
+    sl = main_case.slices[corpus]
+    codes, lengths = torch.from_numpy(main_case.codes[sl]), torch.from_numpy(main_case.lengths[sl])
+    want = ref[sl]
+    jax_checksum, jax_hits = want.sum(dtype=np.int32), (want >= 0).sum(dtype=np.int32)
+    out, hits = tt._turbo_with_stats(pt, main_case.ti, codes, lengths)
+    np.testing.assert_array_equal(out.numpy(), want)
+    assert hits.dtype == torch.int64 and int(hits) == int(jax_hits)
+    checksum, hits = tt._turbo_reduced_stats(pt, main_case.ti, codes, lengths)
+    assert int(hits) == int(jax_hits)
+    assert _low32(int(checksum)) == int(jax_checksum)
+    assert int(checksum) == int(want.sum(dtype=np.int64))
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (7, 3), (1000, 71)])
+def test_answer_stats_plain_int64(shape):
+    """The wide tier's int64 answers: a checksum past 2^31, equal to numpy's
+    int64 sum and count."""
+    rng = np.random.default_rng(shape[0])
+    ans = rng.integers(2**33, 2**40, size=shape, dtype=np.int64)
+    ans[rng.random(shape) < 0.3] = -1
+    got = tt.answer_stats(torch.from_numpy(ans))
+    assert got.dtype == torch.int64 and got.shape == (2,)
+    assert got.tolist() == [int(ans.sum(dtype=np.int64)), int((ans >= 0).sum())]
+    assert got.tolist()[0] > 2**31
+    assert torch.equal(tt.answer_stats_plain(torch.from_numpy(ans)), got)
