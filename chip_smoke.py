@@ -179,6 +179,7 @@ PROBE_BIG_ROWS = 1 << 26
 # tensor cores, which stands in for the integer ALU rate of these kernels
 HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
+SPIN_CYCLES = 4_000_000  # a spin of the card before a timed run: about 2 ms at 1,980 MHz
 
 # kernel entry point -> (source, the XLA program it replaces)
 KERNELS = {
@@ -293,6 +294,28 @@ def ptxas_lines(log: str) -> list:
     return out
 
 
+# each rank type as it stands in the kernels' mangled entry points
+MANGLED = {"plain-matrix": "11PlainMatrix", "rrr-matrix": "10MatrixRankINS_5RRR15",
+           "mef-matrix": "10MatrixRankINS_3MEF", "plain-split": "9SplitRankINS_7PlainBV",
+           "rrr-split": "9SplitRankINS_5RRR15", "mef-split": "9SplitRankINS_3MEF",
+           "plain-concat": "10ConcatRankINS_7PlainBV", "mef-concat": "10ConcatRankINS_5RRR15",
+           "plain-subsetwt": "12SubsetWTRankINS_7PlainBV",
+           "rrr-subsetwt": "12SubsetWTRankINS_5RRR15", WIDE: "10WideMatrix",
+           "sharded-matrix": "13ShardedMatrix"}
+SEARCH_OPS = ("kmer_search", "partial_search")  # the kernels whose records carry their registers
+
+
+def instance_registers(regs: list, name: str) -> dict:
+    """Registers and spill bytes of the entry point of one search kernel's
+    instance ``op[rank type]``: the staged form's or, where the rank type
+    keeps it, the one-thread-a-lane form's (one of the two is compiled)."""
+    op, rank_type = name[:-1].split("[")
+    pattern = re.compile(rf"\d+{op}(_lane)?_kernelINS_{MANGLED[rank_type]}E")
+    found = [(r, s) for entry, r, s in regs if pattern.search(entry)]
+    check(len(found) == 1, f"{name}: {len(found)} entry points in the ptxas log")
+    return {"registers": found[0][0], "spill_bytes": found[0][1]}
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -302,10 +325,14 @@ def nvidia_smi_line() -> str:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of fn over reps runs after one warm-up, by CUDA events."""
+    """Mean device time of fn over reps runs after one warm-up, by CUDA
+    events. The runs are queued behind a spin of the card, so that the
+    host's time to launch a call (tens of us) does not count for a kernel
+    that takes less."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -1271,9 +1298,10 @@ def compare_build_kernels(dev, genome, record):
     profile_build(dev, codes)
 
 
-def recorder(launches: dict, card: str):
+def recorder(launches: dict, card: str, regs: list):
     """The per-kernel results of the JSON line, and the function that checks
-    and adds one."""
+    and adds one; the search kernels' lines carry their registers (regs:
+    ptxas_lines of the build)."""
     results = {}
 
     def record(name, err, ms, plain_ms, moved, ops, library_ms=None, **extra):
@@ -1290,6 +1318,8 @@ def recorder(launches: dict, card: str):
                          "bound_by": "bytes" if moved / HBM_BYTES_PER_S >= ops / ALU_OPS_PER_S
                          else "operations",
                          "library_ms": library_ms}
+        if name.split("[")[0] in SEARCH_OPS:
+            extra = {**instance_registers(regs, name), **extra}
         say("kernel", name=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
             bound_ms=results[name]["bound_ms"], bound_by=results[name]["bound_by"],
             library_ms=library_ms, bytes_moved=moved, card=repr(card), **extra)
@@ -1359,10 +1389,13 @@ def compare_kernels(dev, genome, sbwt, runs, record, card):
     del plain
 
     km = torch.from_numpy(np.ascontiguousarray(runs["hit98"][0][:, :K])).to(dev)
+    km0 = torch.from_numpy(np.ascontiguousarray(runs["hit0"][0][:, :K])).to(dev)
     k_km = lambda: ts.search_batch(di, km)
-    record("kmer_search[plain-matrix]", max_abs_err(k_km(), ts.search_batch_plain(di, km)),
+    record("kmer_search[plain-matrix]", max_abs_err(k_km(), ts.search_batch_plain(di, km))
+           + max_abs_err(ts.search_batch(di, km0), ts.search_batch_plain(di, km0)),
            cuda_ms(k_km, 5), cuda_ms(lambda: ts.search_batch_plain(di, km), 1),
-           *search_work(di.size_in_bytes(), *km.shape), shape=tuple(km.shape))
+           *search_work(di.size_in_bytes(), *km.shape), shape=tuple(km.shape),
+           hit0_ms=cuda_ms(lambda: ts.search_batch(di, km0), 5))
 
     k_s1 = lambda: tt.succ1(di)
     succ = k_s1()
@@ -1444,6 +1477,8 @@ def compare_lf_kernels(dev, genome, sbwt, runs, variants, record):
         codes = torch.from_numpy(codes_np).to(dev)
         batches[mix] = (codes, torch.full((len(codes),), READ_LEN, dtype=torch.int32, device=dev))
     km = batches["hit98"][0][:, :K].contiguous()
+    km0 = batches["hit0"][0][:, :K].contiguous()
+    want0 = ts.search_batch(sbwt.device_index, km0)
     spiked_np, spiked_len_np = spiked_reads(genome, 4096, 11)
     spiked = torch.from_numpy(spiked_np).to(dev), torch.from_numpy(spiked_len_np).to(dev)
     for v, (vs, tbl12) in variants.items():
@@ -1486,8 +1521,10 @@ def compare_lf_kernels(dev, genome, sbwt, runs, variants, record):
             continue
         k_km = lambda: ts.search_batch(di, km)
         plain, plain_ms = timed_ms(lambda: ts.search_batch_plain(di, km))
-        record(f"kmer_search[{v}]", max_abs_err(k_km(), plain), cuda_ms(k_km, 5), plain_ms,
-               *search_work(di.size_in_bytes(), *km.shape), shape=tuple(km.shape))
+        record(f"kmer_search[{v}]", max_abs_err(k_km(), plain)
+               + max_abs_err(ts.search_batch(di, km0), want0), cuda_ms(k_km, 5), plain_ms,
+               *search_work(di.size_in_bytes(), *km.shape), shape=tuple(km.shape),
+               hit0_ms=cuda_ms(lambda: ts.search_batch(di, km0), 5))
         desc = di.kernel_desc(dev)
         k_pre = lambda: kernels.precalc_fill(v, desc, di.C, di.n_nodes, 8)
         plain, plain_ms = timed_ms(lambda: tm.precalc_fill_plain(di, 8))
@@ -1705,9 +1742,17 @@ def compare_giant_kernels(dev, sb, reads, with_n, prefix_len, record):
     k_km = lambda: ts.search_batch(di, km)
     plain, plain_ms = timed_ms(lambda: ts.search_batch_plain(di, km))
     steps = GIANT_K - GIANT_P
-    record(f"kmer_search[{WIDE}]", max_abs_err(k_km(), plain), cuda_ms(k_km, 5), plain_ms,
-           len(km) * (GIANT_K + 16 + 8 + steps * 2 * 12), len(km) * steps * LF_OPS,
-           shape=tuple(km.shape), n_columns=di.n_nodes)
+    # the complete graph holds every ACGT 16-mer: its misses are the rows
+    # with a lowercase char, each of which ends at the validity test
+    km0 = km.clone()
+    km0[torch.arange(len(km), device=dev), torch.from_numpy(
+        np.random.default_rng(7).integers(0, GIANT_K, size=len(km))).to(dev)] |= 4
+    record(f"kmer_search[{WIDE}]", max_abs_err(k_km(), plain)
+           + max_abs_err(ts.search_batch(di, km0), torch.full_like(plain, -1)), cuda_ms(k_km, 5),
+           plain_ms, len(km) * (GIANT_K + 16 + 8 + steps * 2 * 12), len(km) * steps * LF_OPS,
+           shape=tuple(km.shape), n_columns=di.n_nodes,
+           hit0_ms=cuda_ms(lambda: ts.search_batch(di, km0), 5),
+           hit0_batch="each 16-mer with one lowercase char")
     del plain
     lengths = torch.full((len(codes),), READ_LEN, dtype=torch.int32, device=dev)
     answers = len(codes) * (READ_LEN - GIANT_K + 1)
@@ -1848,11 +1893,14 @@ def compare_parallel_kernels(dev, sbwt, runs, parallel, record, card):
     di, turbo = sbwt.device_index, sbwt._turbo
     view, tview = placed.views[0], built.views[0]
     km = torch.from_numpy(np.ascontiguousarray(runs["hit98"][0][:, :K])).to(dev)
+    km0 = torch.from_numpy(np.ascontiguousarray(runs["hit0"][0][:, :K])).to(dev)
     k_km = lambda: ts.search_batch(view, km)
     plain, plain_ms = timed_ms(lambda: ts.search_batch_plain(view, km))
-    record("kmer_search[sharded-matrix]", max_abs_err(k_km(), plain), cuda_ms(k_km, 5), plain_ms,
-           *search_work(di.size_in_bytes(), *km.shape), shape=tuple(km.shape),
-           shards=view.n_shards, flat_ms=cuda_ms(lambda: ts.search_batch(di, km), 5))
+    record("kmer_search[sharded-matrix]", max_abs_err(k_km(), plain)
+           + max_abs_err(ts.search_batch(view, km0), ts.search_batch(di, km0)), cuda_ms(k_km, 5),
+           plain_ms, *search_work(di.size_in_bytes(), *km.shape), shape=tuple(km.shape),
+           shards=view.n_shards, flat_ms=cuda_ms(lambda: ts.search_batch(di, km), 5),
+           hit0_ms=cuda_ms(lambda: ts.search_batch(view, km0), 5))
     del plain
     for mix, (codes_np, ans_np) in runs.items():
         codes = torch.from_numpy(codes_np).to(dev)
@@ -2133,7 +2181,7 @@ def main() -> int:
     counted("device_build", BUILD_KERNELS, t0)
     torch.cuda.empty_cache()
 
-    results, record = recorder(launches, card)
+    results, record = recorder(launches, card, regs)
     t0 = time.perf_counter()
     kernels.reset_launch_counts()
     parallel = run_parallel_path(sbwt, runs)

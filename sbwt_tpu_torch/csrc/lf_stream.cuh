@@ -16,10 +16,10 @@
 // update_interval_batch (:64) and lf_step (:53), which ran the LF steps in
 // lockstep over all lanes with lax.scan. partial_search replaces
 // partial_search_batch (:291) and, given start intervals,
-// update_interval_batch as the facade's update_sbwt_interval calls it. K1's
-// search and partial_search run one thread per lane: the lane's whole
-// chain of steps in registers, stopping at the first empty interval, so
-// dead lanes cost nothing.
+// update_interval_batch as the facade's update_sbwt_interval calls it.
+// K1's search and partial_search run a lane's whole chain of steps in
+// registers, stopping at the first empty interval, and take a wider
+// interval's two ranks in one rank_interval (subset_rank.cuh).
 //
 // K14 walks each read's positions in order, one lane a read, as each lane
 // of K4 (turbo_stream.cuh) does. While the previous answer is a column,
@@ -45,6 +45,15 @@
 // read) staged in shared memory, its answers stored through a shared
 // tile. The rolling state (p-mer index, run of valid chars, previous
 // answer, lenience) stays in registers across tiles.
+//
+// Bound of K1's search and of partial_search on the H100: the codes read
+// (k chars a k-mer; a lane's chars up to where it stops) and the answers
+// written, and the rank rows of the LF steps, a chain of dependent loads a
+// lane. One thread a lane read its row byte by byte, 32 rows k or L bytes
+// apart in every warp instruction, and a partial_search warp ran until its
+// longest lane stopped. So a warp stages its rows through shared memory
+// with 16-byte loads (stream_tile.cuh), and partial_search refills a lane
+// whose search has stopped from a pool of lanes (SearchShape).
 //
 // K1's fill shares interval prefixes: the entries below one node of the
 // p-level tree of intervals share its interval, so a thread runs the
@@ -126,6 +135,32 @@ __device__ __forceinline__ bool lf_step_r(const R& rk, const CArray<P>& Cl, int 
     return true;
 }
 
+// lf_step_r as K1's search and partial_search take it: a wider interval's
+// two ranks from one rank_interval (subset_rank.cuh), and with kUnified a
+// singleton's too, so that the lanes of a warp at different stages of
+// their searches run one code path (partial_search's refilled lanes). In
+// lf_step_r, which K14's and K4's restarts and K1's fill share,
+// rank_interval cost the p = 13 fill 22% on an H100 (tools/lf_ab.py), so
+// they keep rank and rank.
+template <bool kUnified, class R, class P = typename R::pos_t>
+__device__ __forceinline__ bool lf_step_iv(const R& rk, const CArray<P>& Cl, int c, P& l, P& r) {
+    P a, b;
+    if (!kUnified && l == r) {
+        const auto q = rk.rank_pair(c, l);
+        a = q.x;
+        b = q.y;
+    } else {
+        const auto q = rank_interval(rk, c, l, (P)(r + 1));
+        a = q.x;
+        b = q.y;
+    }
+    if (a >= b) return false;
+    const P base = Cl[c];
+    l = base + a;
+    r = base + b - 1;
+    return true;
+}
+
 // Greatest marked column <= col, its row read through the rank type
 template <class R, class P>
 __device__ __forceinline__ P sg_start_r(const R& rk, const int2* __restrict__ sgs_tbl, P col) {
@@ -143,7 +178,7 @@ __device__ __forceinline__ P successor(const R& rk, const int2* __restrict__ sgs
 
 // Colex rank of the k chars at kmer (all 0..3), seeded from the precalc
 // row of its first p chars (packed colex-reversed in pidx), or -1.
-template <class R, class P = typename R::pos_t>
+template <bool kInterval = false, class R, class P = typename R::pos_t>
 __device__ __forceinline__ P search_from_seed(const R& rk, const LFArgs& a, const CArray<P>& Cl,
                                               const int8_t* kmer, unsigned pidx) {
     P l = 0, r = (P)a.n_nodes - 1;
@@ -154,7 +189,11 @@ __device__ __forceinline__ P search_from_seed(const R& rk, const LFArgs& a, cons
         r = seed.y;
     }
     for (int j = a.p; j < a.k; ++j) {
-        if (!lf_step_r(rk, Cl, kmer[j], l, r)) return -1;
+        if constexpr (kInterval) {
+            if (!lf_step_iv<false>(rk, Cl, kmer[j], l, r)) return -1;
+        } else {
+            if (!lf_step_r(rk, Cl, kmer[j], l, r)) return -1;
+        }
     }
     return l;  // a found k-mer's interval is a singleton (SBWT.hh:410-414)
 }
@@ -323,9 +362,133 @@ __global__ void precalc_fill_kernel(R rk, LFArgs a) {
     fill_below<D>(rk, Cl, l, r, live, static_cast<pair_t<P>*>(a.out) + t, n_threads);
 }
 
-// Colex rank of each k-mer row of codes [B, k], or -1; only 0..3 are valid.
+// Launch shape of kmer_search and partial_search: kSearchWarps warps a
+// block; a kmer_search warp owns 32 consecutive k-mers, a partial_search
+// warp a pool of 32 * pool consecutive lanes, whose chars it stages
+// kSearchTile at a time (8 warps, tiles of 8 or 32 and pools of 128 were
+// no faster on an H100, tools/search_ab.py).
+constexpr int kSearchWarps = 4, kSearchTile = 16;
+
+// The rest is a trait of the rank type R, as LFShape is for K14: the
+// partial_search pool, whether its steps are `unified` (every step through
+// rank_interval, lf_step_iv), and for each kernel whether it is staged or
+// keeps its one-thread-a-lane form (the lane's row read byte by byte from
+// global memory). Chosen by A/B turns on an H100 (tools/search_ab.py;
+// PERF.md): staged, kmer_search won 2-14% and partial_search 0.3-9% on
+// the other rank types, and they lost 0.3-14% where the ranks read RRR
+// blocks (whose tables want the L1 that the staged rows take), on
+// plain-concat's partial search and on the giant's (wide). A pool of 64
+// with unified steps won 15% on mef-concat's partial search, whose
+// rank_pair is two tree ranks anyway, and lost 0.5-50% elsewhere: a
+// refilled lane starts from the full interval while the others step
+// singletons, and without unified steps the two paths diverge.
+struct SearchStaged {
+    static constexpr int pool = 1;
+    static constexpr bool unified = false, kmer_staged = true, partial_staged = true;
+};
+struct SearchKmerStaged : SearchStaged {
+    static constexpr bool partial_staged = false;
+};
+struct SearchLanes : SearchStaged {
+    static constexpr bool kmer_staged = false, partial_staged = false;
+};
 template <class R>
-__global__ void kmer_search_kernel(R rk, LFArgs a) {
+struct SearchShape : SearchStaged {};
+template <>
+struct SearchShape<MatrixRank<RRR15>> : SearchLanes {};
+template <>
+struct SearchShape<SubsetWTRank<RRR15>> : SearchLanes {};
+template <>
+struct SearchShape<SplitRank<RRR15>> : SearchKmerStaged {};
+template <>
+struct SearchShape<SplitRank<MEF>> : SearchKmerStaged {};
+template <>
+struct SearchShape<ConcatRank<PlainBV>> : SearchKmerStaged {};
+template <>
+struct SearchShape<WideMatrix> : SearchKmerStaged {};
+template <>
+struct SearchShape<ConcatRank<RRR15>> : SearchStaged {
+    static constexpr int pool = 2;
+    static constexpr bool unified = true, kmer_staged = false;
+};
+
+// Bytes of one kmer_search warp's staged span: its 32 rows of k chars from
+// the 16-byte chunk that holds the first, in whole chunks, and one more
+// chunk that the last row's word reads may reach into
+__host__ __device__ __forceinline__ int kmer_span_bytes(int k) { return 16 * ((32 * k + 30) / 16 + 1); }
+
+// Dynamic shared memory of one partial_search block over R: each warp's
+// 32 staged rows of a tile, then each warp's pool of results (l, r and
+// the matched length)
+template <class R>
+__host__ __device__ __forceinline__ int partial_search_smem_bytes() {
+    return kSearchWarps * 32 *
+           (tile_code_row_bytes(kSearchTile) +
+            SearchShape<R>::pool * (2 * (int)sizeof(typename R::pos_t) + 4));
+}
+
+// Whether the k chars staged at byte `off` of the span (4-byte aligned)
+// are all ACGT, and their first p packed colex-reversed into *pidx (char j
+// at bits 2j). Reads 4-byte words, each funnel-shifted from the two
+// aligned words that hold it: a word is all ACGT iff no byte has a bit
+// above bit 1, and the bytes past the k-mer are zeroed first.
+__device__ __forceinline__ bool staged_kmer_index(const unsigned* span, int off, int k, int p,
+                                                  unsigned* pidx) {
+    const unsigned sh = 8u * (unsigned)(off & 3);
+    unsigned bad = 0, idx = 0;
+    for (int j = 0; j < k; j += 4) {
+        const int w = (off + j) >> 2;
+        unsigned x = __funnelshift_r(span[w], span[w + 1], sh);  // chars j .. j + 3
+        if (k - j < 4) x &= (1u << (8 * (k - j))) - 1u;
+        bad |= x & 0xFCFCFCFCu;
+        if (j < p) {
+            unsigned q = x & 0x03030303u;  // four 2-bit codes into one byte
+            q = (q | (q >> 6)) & 0x000F000Fu;
+            q = (q | (q >> 12)) & 0xFFu;
+            if (p - j < 4) q &= (1u << (2 * (p - j))) - 1u;
+            idx |= q << (2 * j);
+        }
+    }
+    *pidx = idx;
+    return bad == 0;
+}
+
+// Colex rank of each k-mer row of codes [B, k], or -1; only 0..3 are valid.
+// A warp stages its 32 consecutive rows, one contiguous span, with 16-byte
+// loads (stage_span: each chunk loaded once); each lane tests its row and
+// packs its precalc index from 4-byte words of the span, runs its LF steps
+// on chars read from shared memory and stores its answer, a coalesced
+// store across the warp.
+template <class R>
+__global__ void __launch_bounds__(kSearchWarps * 32) kmer_search_kernel(R rk, LFArgs a) {
+    using P = typename R::pos_t;
+    constexpr int W = kSearchWarps;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int64_t b0 = ((int64_t)blockIdx.x * W + warp) * 32;
+    if (b0 >= a.B) return;  // the whole warp
+    const int nrows = (int)min((int64_t)32, (int64_t)(a.B - b0));
+    const int k = a.k;
+    extern __shared__ __align__(16) unsigned char smem[];
+    int8_t* st = reinterpret_cast<int8_t*>(smem) + warp * kmer_span_bytes(k);
+    const int8_t* span = a.codes + b0 * k;
+    stage_span(a.codes, a.B * (int64_t)k, span, nrows * k, st, lane);
+    __syncwarp();
+    if (lane >= nrows) return;
+    const int64_t b = b0 + lane;
+    const int off = (int)((uintptr_t)span & 15) + lane * k;
+    unsigned pidx;
+    P v = -1;
+    if (staged_kmer_index(reinterpret_cast<const unsigned*>(st), off, k, a.p, &pidx)) {
+        const CArray<P> Cl(a.C);
+        v = search_from_seed<true>(rk, a, Cl, st + off, pidx);
+    }
+    __stcs(static_cast<P*>(a.out) + b, v);
+}
+
+// The one-thread-a-lane kmer_search, for a rank type whose SearchShape
+// keeps it.
+template <class R>
+__global__ void kmer_search_lane_kernel(R rk, LFArgs a) {
     using P = typename R::pos_t;
     const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
     if (b >= a.B) return;
@@ -348,8 +511,97 @@ __global__ void kmer_search_kernel(R rk, LFArgs a) {
 // taken as its base, until the first char < 0 or the first step that
 // empties the interval. Writes the last live interval and the number of
 // chars it matched.
+//
+// A warp owns a pool of 32 * pool consecutive lanes and runs 32 of them at
+// a time, in rounds: each round it stages the next `tile` chars of each
+// running lane's row (stage_windows; a row is never staged whole, as
+// update_sbwt_interval may pass any length), each lane takes its LF steps
+// from there, keeping (l, r, t) in registers across rounds, and a lane
+// whose search has stopped leaves its result in shared memory and takes
+// the pool's next unstarted lane (a ballot and a popcount prefix), so a
+// warp's rounds follow the mean matched length, not the longest. The
+// pool's results are stored at the end, three coalesced evict-first runs.
 template <class R>
-__global__ void partial_search_kernel(R rk, LFArgs a) {
+__global__ void __launch_bounds__(kSearchWarps * 32) partial_search_kernel(R rk, LFArgs a) {
+    using P = typename R::pos_t;
+    using S = SearchShape<R>;
+    constexpr int W = kSearchWarps, T = kSearchTile, G = S::pool;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int64_t pool0 = ((int64_t)blockIdx.x * W + warp) * (32 * G);
+    if (pool0 >= a.B) return;  // the whole warp
+    const int n_pool = (int)min((int64_t)(32 * G), (int64_t)(a.B - pool0));
+    const int chunks = tile_code_chunks(T), row_bytes = tile_code_row_bytes(T);
+    extern __shared__ __align__(16) unsigned char smem[];
+    int8_t* st = reinterpret_cast<int8_t*>(smem) + warp * 32 * row_bytes;
+    P* res_l = reinterpret_cast<P*>(smem + W * 32 * row_bytes) + warp * 2 * 32 * G;
+    P* res_r = res_l + 32 * G;
+    int* res_len = reinterpret_cast<int*>(reinterpret_cast<P*>(smem + W * 32 * row_bytes) +
+                                          W * 2 * 32 * G) + warp * 32 * G;
+    const CArray<P> Cl(a.C);
+    const pair_t<P>* start = static_cast<const pair_t<P>*>(a.aux);
+    const int L = a.L;
+    const int64_t total = a.B * (int64_t)L;
+
+    int job = -1, t = 0, len = 0;  // the pool lane this lane runs (-1: none), its chars done and due
+    P l = 0, r = 0;
+    auto begin = [&](int j) {
+        job = j < n_pool ? j : -1;
+        if (job < 0) return;
+        const int64_t b = pool0 + job;
+        if (start != nullptr) {
+            const pair_t<P> s0 = start[b];
+            l = s0.x;
+            r = s0.y;
+        } else {
+            l = 0;
+            r = (P)a.n_nodes - 1;
+        }
+        len = max(0, min(L, a.lengths[b]));
+        t = 0;
+    };
+    begin(lane);
+    int next = 32;  // the pool's first lane not yet begun
+    while (__any_sync(0xFFFFFFFFu, job >= 0)) {
+        const int8_t* read = a.codes + (pool0 + max(job, 0)) * (int64_t)L;
+        const int wlen = job >= 0 ? min(T, len - t) : 0;
+        stage_windows(a.codes, total, read + t, wlen, chunks, row_bytes, st, lane);
+        __syncwarp();
+        bool done = job >= 0 && wlen <= 0;
+        if (wlen > 0) {
+            const int8_t* s = staged_row(st, row_bytes, lane, read, t);
+            const int tend = t + wlen;
+            while (t < tend) {
+                const int c = s[t];
+                if (c < 0 || !lf_step_iv<S::unified>(rk, Cl, c & 3, l, r)) break;
+                ++t;
+            }
+            done = t < tend || t >= len;
+        }
+        if (done) {
+            res_l[job] = l;
+            res_r[job] = r;
+            res_len[job] = t;
+        }
+        __syncwarp();  // the staged rows are reused
+        const unsigned stopped = __ballot_sync(0xFFFFFFFFu, done);
+        if (done) begin(next + __popc(stopped & ((1u << lane) - 1u)));
+        next += __popc(stopped);
+    }
+    __syncwarp();
+    P* out_l = static_cast<P*>(a.out) + pool0;
+    P* out_r = static_cast<P*>(a.out_r) + pool0;
+    int* out_len = a.out_len + pool0;
+    for (int i = lane; i < n_pool; i += 32) {
+        __stcs(out_l + i, res_l[i]);
+        __stcs(out_r + i, res_r[i]);
+        __stcs(out_len + i, res_len[i]);
+    }
+}
+
+// The one-thread-a-lane partial_search, for a rank type whose SearchShape
+// keeps it.
+template <class R>
+__global__ void partial_search_lane_kernel(R rk, LFArgs a) {
     using P = typename R::pos_t;
     const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
     if (b >= a.B) return;

@@ -1,7 +1,7 @@
 // The launch switch of the kernels that are templates over the rank type:
 // K14 and K1 with partial_search (lf_stream.cuh), K2's succ1
-// (succ_table.cuh) and K4 (turbo_stream.cuh), and the launches of K14 and
-// of K1's fill. An instance file
+// (succ_table.cuh) and K4 (turbo_stream.cuh), and the launches of K14, of
+// K1's fill and search and of partial_search. An instance file
 // (lf_stream.cu, lf_split.cu, lf_concat.cu, lf_subsetwt.cu, lf_wide.cu,
 // lf_sharded.cu) calls launch_rank_op<R> for each rank type of its family,
 // which instantiates all six kernels for R, K4 over the flat table.
@@ -40,6 +40,39 @@ int launch_precalc_fill(const R& rk, const LFArgs& a, cudaStream_t s) {
     return (int)cudaGetLastError();
 }
 
+// Launches kmer_search in R's SearchShape: staged, a warp per 32 k-mers
+// (the shared memory a block needs grows with k: 32,768 B at k = 255, and
+// past 48 KB the limit is raised first), or one thread a k-mer
+template <class R>
+int launch_kmer_search(const R& rk, const LFArgs& a, cudaStream_t s) {
+    if constexpr (SearchShape<R>::kmer_staged) {
+        static std::atomic<int> raised[64];
+        const int smem = kSearchWarps * kmer_span_bytes(a.k);
+        if (const int e = raise_smem_limit(kmer_search_kernel<R>, smem, raised)) return e;
+        const unsigned grid = (unsigned)(((a.B + 31) / 32 + kSearchWarps - 1) / kSearchWarps);
+        kmer_search_kernel<R><<<grid, kSearchWarps * 32, smem, s>>>(rk, a);
+    } else {
+        kmer_search_lane_kernel<R><<<grid_for(a.B), kBlock, 0, s>>>(rk, a);
+    }
+    return (int)cudaGetLastError();
+}
+
+// Launches partial_search in R's SearchShape: staged, a warp per pool of
+// 32 * pool lanes, or one thread a lane
+template <class R>
+int launch_partial_search(const R& rk, const LFArgs& a, cudaStream_t s) {
+    using S = SearchShape<R>;
+    if constexpr (S::partial_staged) {
+        const int64_t pools = (a.B + 32 * S::pool - 1) / (32 * S::pool);
+        const unsigned grid = (unsigned)((pools + kSearchWarps - 1) / kSearchWarps);
+        partial_search_kernel<R><<<grid, kSearchWarps * 32, partial_search_smem_bytes<R>(), s>>>(
+            rk, a);
+    } else {
+        partial_search_lane_kernel<R><<<grid_for(a.B), kBlock, 0, s>>>(rk, a);
+    }
+    return (int)cudaGetLastError();
+}
+
 template <class R>
 int launch_rank_op(int op, const void* rank_desc, const LFArgs* args, void* stream) {
     const R rk = *static_cast<const R*>(rank_desc);
@@ -52,11 +85,9 @@ int launch_rank_op(int op, const void* rank_desc, const LFArgs* args, void* stre
         case kPrecalcFill:
             return launch_precalc_fill(rk, a, s);
         case kKmerSearch:
-            kmer_search_kernel<R><<<grid, kBlock, 0, s>>>(rk, a);
-            break;
+            return launch_kmer_search(rk, a, s);
         case kPartialSearch:
-            partial_search_kernel<R><<<grid, kBlock, 0, s>>>(rk, a);
-            break;
+            return launch_partial_search(rk, a, s);
         case kSucc1:
             succ1_kernel<R><<<grid, kBlock, 0, s>>>(rk, a);
             break;

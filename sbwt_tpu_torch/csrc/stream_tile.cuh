@@ -1,5 +1,6 @@
 // The warp-staged tiles that the streaming kernels share: K4
-// (turbo_stream.cuh) and K14 (lf_stream.cuh). A warp owns 32 consecutive
+// (turbo_stream.cuh) and K14 (lf_stream.cuh); K1's search and
+// partial_search (lf_stream.cuh) stage their rows the same way. A warp owns 32 consecutive
 // reads, whose codes are one contiguous [32, L] region and whose answers
 // one contiguous [32, L - k + 1] region, and walks them in tiles of T
 // positions. For each tile it stages the window of chars the tile reads
@@ -39,6 +40,25 @@ __host__ __device__ __forceinline__ int tile_smem_bytes(int warps, int tile, int
     return warps * 32 * (tile_code_row_bytes(win) + (tile + 1) * (int)sizeof(P));
 }
 
+// The aligned 16-byte chunk at `at` of the codes buffer [lo, hi) into dst:
+// one evict-first load, or byte by byte where it crosses either end.
+__device__ __forceinline__ void stage_chunk(uintptr_t at, uintptr_t lo, uintptr_t hi,
+                                            unsigned* dst) {
+    if (at >= lo && at + 16 <= hi) {
+        const int4 v = __ldcs(reinterpret_cast<const int4*>(at));
+        dst[0] = (unsigned)v.x;
+        dst[1] = (unsigned)v.y;
+        dst[2] = (unsigned)v.z;
+        dst[3] = (unsigned)v.w;
+    } else {
+        for (int j = 0; j < 16; ++j) {
+            if (at + j >= lo && at + j < hi) {
+                reinterpret_cast<int8_t*>(dst)[j] = *reinterpret_cast<const int8_t*>(at + j);
+            }
+        }
+    }
+}
+
 // Chars [t0, t0 + win) of the warp's nrows reads (rows of L chars from
 // codes, total chars in all), cut at each read's end, into the staged rows
 // st: row r holds, from its byte 0, the aligned 16-byte chunks that cover
@@ -55,20 +75,40 @@ __device__ __forceinline__ void stage_codes(const int8_t* __restrict__ codes, in
         const uintptr_t g = (uintptr_t)(codes + (b0 + r) * L + t0);
         const uintptr_t at = (g & ~(uintptr_t)15) + 16 * c;
         if (at >= g + wlen) continue;
-        unsigned* dst = reinterpret_cast<unsigned*>(st + r * row_bytes + 16 * c);
-        if (at >= lo && at + 16 <= hi) {
-            const int4 v = __ldcs(reinterpret_cast<const int4*>(at));
-            dst[0] = (unsigned)v.x;
-            dst[1] = (unsigned)v.y;
-            dst[2] = (unsigned)v.z;
-            dst[3] = (unsigned)v.w;
-        } else {
-            for (int j = 0; j < 16; ++j) {
-                if (at + j >= lo && at + j < hi) {
-                    reinterpret_cast<int8_t*>(dst)[j] = *reinterpret_cast<const int8_t*>(at + j);
-                }
-            }
-        }
+        stage_chunk(at, lo, hi, reinterpret_cast<unsigned*>(st + r * row_bytes + 16 * c));
+    }
+}
+
+// Chars [g, g + len) of the codes buffer [codes, codes + total) into st,
+// from the 16-byte chunk that holds g: lanes take consecutive chunks, each
+// loaded once.
+__device__ __forceinline__ void stage_span(const int8_t* __restrict__ codes, int64_t total,
+                                           const int8_t* g, int len, int8_t* st, int lane) {
+    const uintptr_t lo = (uintptr_t)codes, hi = lo + (uintptr_t)total;
+    const uintptr_t at0 = (uintptr_t)g & ~(uintptr_t)15;
+    const int chunks = (int)(((uintptr_t)g + len - at0 + 15) / 16);
+    for (int i = lane; i < chunks; i += 32) {
+        stage_chunk(at0 + 16 * i, lo, hi, reinterpret_cast<unsigned*>(st + 16 * i));
+    }
+}
+
+// Each lane's own window, wlen chars from g (wlen <= 0: none), into row
+// `lane` of the staged rows st, laid out as stage_codes lays a row out.
+// Called by the whole warp: lanes take consecutive chunks, row r's pointer
+// and length shuffled from lane r, so where the windows lie together (the
+// rows of neighbouring lanes) a warp's loads are 16 bytes a lane on
+// neighbouring addresses.
+__device__ __forceinline__ void stage_windows(const int8_t* __restrict__ codes, int64_t total,
+                                              const int8_t* g, int wlen, int chunks,
+                                              int row_bytes, int8_t* st, int lane) {
+    const uintptr_t lo = (uintptr_t)codes, hi = lo + (uintptr_t)total;
+    for (int i = lane; i < 32 * chunks; i += 32) {
+        const int r = i / chunks, c = i - r * chunks;
+        const uintptr_t gr = (uintptr_t)__shfl_sync(0xFFFFFFFFu, (unsigned long long)g, r);
+        const int wr = __shfl_sync(0xFFFFFFFFu, wlen, r);
+        const uintptr_t at = (gr & ~(uintptr_t)15) + 16 * c;
+        if (wr <= 0 || at >= gr + (uintptr_t)wr) continue;
+        stage_chunk(at, lo, hi, reinterpret_cast<unsigned*>(st + r * row_bytes + 16 * c));
     }
 }
 

@@ -5,7 +5,8 @@
 //   rank(c, pos)       count of char c in subsets 0..pos-1, pos in [0, n]
 //   rank_pair(c, pos)  (rank(c, pos), rank(c, pos + 1)), pos in [0, n)
 // and is a plain descriptor passed to a kernel by value (mirrored in
-// Python by sbwt_tpu_torch/kernels). Chars are 0..3. The kernels read a
+// Python by sbwt_tpu_torch/kernels). Chars are 0..3. An interval's two
+// ranks come from the free function rank_interval(rk, c, i, j). The kernels read a
 // suffix-group row through sg_row(rk, sgs_tbl, w): the flat table of the
 // launch's arguments, unless the rank type holds its own (ShardedMatrix).
 //
@@ -305,6 +306,46 @@ struct ShardedMatrix {
 
 __device__ __forceinline__ int2 sg_row(const ShardedMatrix& rk, const int2*, int64_t w) {
     return rk.sg_row((int)w);
+}
+
+// (rank(c, i), rank(c, j)), i <= j in [0, n]: an interval's two LF ranks
+// (lf_stream.cuh). By default both chains, side by side; the plain-matrix
+// rows read one row where i and j share it (i >> 5 == j >> 5), and
+// otherwise load both rows before using either.
+template <class R, class P = typename R::pos_t>
+__device__ __forceinline__ pair_t<P> rank_interval(const R& rk, int c, P i, P j) {
+    return make_pair_of<P>(rk.rank(c, i), rk.rank(c, j));
+}
+
+__device__ __forceinline__ int2 rank_interval(const PlainMatrix& rk, int c, int i, int j) {
+    const int2* rows = rk.rank_tbl + (int64_t)c * rk.n_words;
+    const int2 ri = rows[i >> 5];
+    const int2 rj = (i >> 5) == (j >> 5) ? ri : rows[j >> 5];
+    int bit;
+    return make_int2(rank_in_row(ri, i, &bit), rank_in_row(rj, j, &bit));
+}
+
+__device__ __forceinline__ longlong2 rank_interval(const WideMatrix& rk, int c, int64_t i,
+                                                   int64_t j) {
+    const int* rows = rk.rank_tbl + 3 * (int64_t)c * rk.n_words;
+    const int* ri = rows + 3 * (i >> 5);
+    const int* rj = rows + 3 * (j >> 5);
+    const bool same = (i >> 5) == (j >> 5);
+    const unsigned wi = (unsigned)ri[0], lo_i = (unsigned)ri[1];
+    const int hi_i = ri[2];
+    const unsigned wj = same ? wi : (unsigned)rj[0], lo_j = same ? lo_i : (unsigned)rj[1];
+    const int hi_j = same ? hi_i : rj[2];
+    const unsigned oi = (unsigned)i & 31u, oj = (unsigned)j & 31u;
+    return make_longlong2((((int64_t)hi_i << 32) | lo_i) + __popc(wi & ((1u << oi) - 1u)),
+                          (((int64_t)hi_j << 32) | lo_j) + __popc(wj & ((1u << oj) - 1u)));
+}
+
+__device__ __forceinline__ int2 rank_interval(const ShardedMatrix& rk, int c, int i, int j) {
+    const int base = c * (int)rk.n_words;
+    const int2 ri = rk.rank_row(base + (i >> 5));
+    const int2 rj = (i >> 5) == (j >> 5) ? ri : rk.rank_row(base + (j >> 5));
+    int bit;
+    return make_int2(rank_in_row(ri, i, &bit), rank_in_row(rj, j, &bit));
 }
 
 }  // namespace sbwt

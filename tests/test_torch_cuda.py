@@ -19,6 +19,8 @@ from sbwt_tpu_torch.ops import search as ts
 from sbwt_tpu_torch.ops import turbo as tt
 from sbwt_tpu_torch.utils.dna import encode_query
 
+import search_cases as sc
+
 pytestmark = pytest.mark.cuda
 
 
@@ -645,3 +647,103 @@ def test_answer_stats_equals_plain_version(cuda, dtype, fill):
             assert torch.equal(tt.answer_stats(out), got)
     assert int(got[1]) == {"all_hit": b * p, "all_miss": 0}.get(fill, int(got[1]))
     assert kernels.LAUNCHES[counter] == before + 2 * 4 * len(STATS_SHAPES)
+
+
+# kmer_search and partial_search on the inputs of tests/search_cases.py,
+# which the CPU tests hold to the JAX package and the oracle
+# (test_torch_search.py): every rank type's kernel against its plain version.
+@pytest.fixture(scope="module")
+def case_index(cuda):
+    """(rank type, p) -> the cases' index of that rank type on the card;
+    the sharded one cut into four row shards on this card."""
+    from sbwt_tpu_torch.parallel import sharded
+
+    g, cache = sc.genome(), {}
+
+    def get(rank_type, p):
+        if (rank_type, p) not in cache:
+            sb = SBWT.build([g], sc.K, cuda, precalc_k=p)
+            if rank_type == kernels.WIDE:
+                words = np.stack([bv.pack_bits_host(row) for row in sb.bits])
+                index = from_packed_rows_wide(words, sb.device_index.n_nodes,
+                                              bv.pack_bits_host(sb.suffix_group_starts), sc.K,
+                                              sb.device_index.n_kmers, cuda, precalc_k=p)
+            elif rank_type == kernels.SHARDED:
+                mesh = sharded.make_mesh(1, 4, [cuda])
+                index = sharded.shard_index_rows(sb.device_index, mesh).views[0]
+            else:
+                index = (sb if rank_type == "plain-matrix" else sb.to_variant(rank_type)).device_index
+            cache[rank_type, p] = index
+        return cache[rank_type, p]
+
+    return get
+
+
+def _start_and_tail(di, c, n):
+    """Start intervals from each row's first three chars (its own interval,
+    a singleton or the full one), and the rows' chars after them."""
+    head = ts.partial_search_plain(di, c[:, :3].contiguous(), n.clamp(0, 3))
+    start = sc.start_intervals(head[0].cpu().numpy(), head[1].cpu().numpy(), di.n_nodes, 7)
+    return (torch.from_numpy(start).to(c.device, di.pos_dtype), c[:, 3:].contiguous(), n - 3)
+
+
+def _partial_equal(di, c, n, start=None):
+    got = ts.partial_search_batch(di, c, n, start)
+    torch.cuda.synchronize()
+    want = ts.partial_search_plain(di, c, n, start)
+    return all(g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("rank_type", kernels.RANK_TYPES)
+@pytest.mark.parametrize("p", [0, 4])
+def test_kmer_search_cases_equal_plain_version(case_index, rank_type, p):
+    di = case_index(rank_type, p)
+    counter = kernels.lf_counter("kmer_search", rank_type)
+    before = kernels.LAUNCHES[counter]
+    for case, rows in sc.kmer_cases(sc.genome()).items():
+        km = torch.from_numpy(rows).to(di.device)
+        got = ts.search_batch(di, km)
+        torch.cuda.synchronize()
+        assert got.dtype == di.pos_dtype and torch.equal(got, ts.search_batch_plain(di, km)), case
+    assert kernels.LAUNCHES[counter] == before + len(sc.BATCHES)
+
+
+@pytest.mark.parametrize("rank_type", [v for v in kernels.RANK_TYPES
+                                       if "partial_search" in kernels.RANK_OPS[v]])
+def test_partial_search_cases_equal_plain_version(case_index, rank_type):
+    """From the full interval and from start intervals, rows of 40 and of
+    1,000 chars."""
+    di = case_index(rank_type, 0)
+    for case, (codes, lengths) in sc.partial_cases(sc.genome()).items():
+        c, n = torch.from_numpy(codes).to(di.device), torch.from_numpy(lengths).to(di.device)
+        assert _partial_equal(di, c, n), case
+        start, tail, tlen = _start_and_tail(di, c, n)
+        assert _partial_equal(di, tail, tlen, start), case
+
+
+@pytest.mark.parametrize("rank_type", ["plain-matrix", "rrr-subsetwt", kernels.WIDE,
+                                       kernels.SHARDED])
+def test_search_kernels_take_codes_off_16_bytes(case_index, rank_type):
+    """Codes views whose base pointer is 1-15 bytes past a 16-byte boundary,
+    inside a buffer of other bytes: the staged loads read no byte outside
+    the view."""
+    di = case_index(rank_type, 4)
+    g = sc.genome()
+    rows = torch.from_numpy(sc.kmer_cases(g)["B65"])
+    codes, lengths = sc.partial_cases(g)[f"B33_L{sc.SHORT_L}"]
+    rng = np.random.default_rng(11)
+    for off in range(1, 16):
+        buf = torch.from_numpy(rng.integers(-1, 8, size=4096).astype(np.int8)).to(di.device)
+        at = (off - buf.data_ptr()) % 16
+        km = buf[at:at + rows.numel()].view(rows.shape)
+        km.copy_(rows)
+        assert km.data_ptr() % 16 == off and km.is_contiguous()
+        got = ts.search_batch(di, km)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ts.search_batch_plain(di, km.contiguous())), off
+        if "partial_search" not in kernels.RANK_OPS[rank_type]:
+            continue
+        c = buf[at:at + codes.size].view(codes.shape)
+        c.copy_(torch.from_numpy(codes))
+        n = torch.from_numpy(lengths).to(di.device)
+        assert _partial_equal(di, c, n), off

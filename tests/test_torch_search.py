@@ -10,6 +10,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import search_cases as sc
 from oracle import OracleIndex
 from sbwt_tpu.models.matrix import with_precalc as jax_with_precalc
 from sbwt_tpu.models.sbwt import SBWT
@@ -17,7 +18,7 @@ from sbwt_tpu.ops.search import forward_jit, search_jit, update_interval_jit
 from sbwt_tpu.utils.dna import encode_query
 from sbwt_tpu_torch.models import matrix as tm
 from sbwt_tpu_torch.ops import search as ts
-from torch_state import matrix_state
+from torch_state import matrix_state, search_answer_sets
 
 K = 14
 
@@ -149,3 +150,95 @@ def test_lf_streaming_needs_streaming_support():
     ti = tm.from_numpy_state(matrix_state(js.device_index), "cpu")
     with pytest.raises(ValueError, match="streaming support"):
         ts.streaming_search(ti, torch.zeros((1, 8), dtype=torch.int8))
+
+
+# The cases of tests/search_cases.py (the kernels take the same inputs in
+# test_torch_cuda.py): the JAX answers are computed once a process
+# (torch_state.search_answer_sets), the port's plain versions per case.
+KMER_CASES = [f"B{B}" for B in sc.BATCHES]
+PARTIAL_CASES = [f"B{B}_L{sc.SHORT_L}" for B in sc.BATCHES] + [f"B65_L{sc.LONG_L}"]
+
+
+@pytest.fixture(scope="module")
+def answer_sets():
+    return search_answer_sets()
+
+
+@pytest.fixture(scope="module")
+def case_oracle():
+    return OracleIndex([sc.genome()], sc.K)
+
+
+def _text(row) -> str:
+    return "".join("ACGT"[c] if 0 <= c < 4 else "N" for c in row)
+
+
+def _oracle_partial(orc, row, length, l, r):
+    """SBWT::partial_search by the oracle: lowercase as its base, stop at
+    the first char < 0 or the first step that empties the interval."""
+    n = max(0, min(len(row), int(length)))
+    for t in range(n):
+        c = int(row[t])
+        if c < 0:
+            return l, r, t
+        nl, nr = orc.update_interval("ACGT"[c & 3], l, r)
+        if nl == -1:
+            return l, r, t
+        l, r = nl, nr
+    return l, r, n
+
+
+@pytest.mark.parametrize("p", [0, 4])
+@pytest.mark.parametrize("case", KMER_CASES)
+def test_kmer_search_cases_match_jax_and_oracle(answer_sets, case_oracle, p, case):
+    rows = sc.kmer_cases(sc.genome())[case]
+    ti = tm.from_numpy_state(answer_sets["state4" if p else "state"], "cpu")
+    got = ts.search_batch(ti, torch.from_numpy(rows)).numpy()
+    np.testing.assert_array_equal(got, answer_sets["kmer"][p][case])
+    for row, a in zip(rows, got):
+        assert a == case_oracle.search(_text(row)), _text(row)
+    if len(rows) > 31:  # hits, misses, lowercase and N all present
+        assert (got >= 0).any() and (got < 0).any()
+        assert ((rows >= 4).any(axis=1) & (got < 0)).any() and (rows < 0).any()
+
+
+@pytest.mark.parametrize("case", PARTIAL_CASES)
+def test_partial_search_cases_match_jax_and_oracle(answer_sets, case_oracle, case):
+    codes, lengths = sc.partial_cases(sc.genome())[case]
+    ti = tm.from_numpy_state(answer_sets["state"], "cpu")
+    assert case_oracle.n == ti.n_nodes
+    got = [t.numpy() for t in ts.partial_search_batch(ti, torch.from_numpy(codes),
+                                                      torch.from_numpy(lengths))]
+    for g, w in zip(got, answer_sets["partial"][case]):
+        np.testing.assert_array_equal(g, w)
+    for i in range(len(codes)):
+        assert tuple(int(g[i]) for g in got) == _oracle_partial(
+            case_oracle, codes[i], lengths[i], 0, ti.n_nodes - 1), i
+    l, r, m = got
+    L = codes.shape[1]
+    assert {0, 1, L} <= set(np.clip(lengths, 0, L).tolist()) or len(codes) == 1
+    if len(codes) > 31:  # whole rows matched, stops short, a match run on past k
+        assert (m == np.clip(lengths, 0, L)).any() and (m < np.clip(lengths, 0, L)).any()
+        assert m.max() > sc.K
+
+
+@pytest.mark.parametrize("case", PARTIAL_CASES)
+def test_partial_search_from_start_intervals_matches_jax_and_oracle(answer_sets, case_oracle,
+                                                                    case):
+    """update_sbwt_interval's path: singleton, own and full start intervals
+    over each row's chars after its first three."""
+    codes, lengths = sc.partial_cases(sc.genome())[case]
+    start, jl, jr, alive = answer_sets["start"][case]
+    ti = tm.from_numpy_state(answer_sets["state"], "cpu")
+    tail, tlen = codes[:, 3:], lengths - 3
+    l, r, m = (t.numpy() for t in ts.partial_search_batch(
+        ti, torch.from_numpy(np.ascontiguousarray(tail)), torch.from_numpy(tlen),
+        torch.from_numpy(start)))
+    np.testing.assert_array_equal(l, jl)
+    np.testing.assert_array_equal(r, jr)
+    assert (m[alive] == np.clip(tlen[alive], 0, tail.shape[1])).all()
+    for i in range(len(codes)):
+        assert (int(l[i]), int(r[i]), int(m[i])) == _oracle_partial(
+            case_oracle, tail[i], tlen[i], int(start[i, 0]), int(start[i, 1])), i
+    if len(codes) > 31:
+        assert (start[:, 0] == start[:, 1]).any() and (start[:, 1] - start[:, 0] > 1000).any()

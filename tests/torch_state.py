@@ -6,6 +6,8 @@ processes at once, and a torch thread pool in each of them oversubscribes
 the cores (one CLI test took 190 s in each of four concurrent workers with
 the default pool, 42 s with one thread).
 """
+import functools
+
 import numpy as np
 import torch
 
@@ -113,3 +115,64 @@ def chimeric_corpora(enc, k, rng, L, n=96):
         chim[i, cut:] = src[i, : L - cut]
     rand = rng.integers(0, 4, size=(n, L)).astype(np.int8)
     return {"genomic": _full(gen), "chimeric": _full(chim), "random": _full(rand)}
+
+
+@functools.lru_cache(maxsize=None)
+def search_answer_sets() -> dict:
+    """The JAX package's answers to the inputs of tests/search_cases.py,
+    computed once a process with one JAX call for each kind of case over
+    all cases at once (no engine compiled per case). Keys: "state" (the
+    index at p = 0 as numpy state), "kmer" {p: {case: answers}} for p = 0
+    and 4 with "state4", "partial" {case: (l, r, matched)}, and "start"
+    {case: (start [B, 2], l, r, alive)}: update_interval from start
+    intervals over each row's chars after its first three, cut at its
+    length by -1s."""
+    import jax.numpy as jnp
+    from jax import jit
+
+    import search_cases as sc
+    from sbwt_tpu.models.matrix import with_precalc
+    from sbwt_tpu.models.sbwt import SBWT
+    from sbwt_tpu.ops.search import partial_search_batch, search_jit, update_interval_jit
+
+    g = sc.genome()
+    js = SBWT.build([g], sc.K, precalc_k=0)
+    di0 = js.device_index
+    di4 = with_precalc(di0, 4)
+    out = {"state": matrix_state(di0), "state4": matrix_state(di4), "kmer": {}, "partial": {},
+           "start": {}}
+    kcases = sc.kmer_cases(g)
+    rows = np.concatenate(list(kcases.values()))
+    for p, di in ((0, di0), (4, di4)):
+        ans = np.asarray(search_jit(di, jnp.asarray(rows)))
+        out["kmer"][p] = _split(kcases, ans)
+    # every partial case padded to the longest rows with -1s
+    pcases = sc.partial_cases(g)
+    codes = np.concatenate([np.pad(c, ((0, 0), (0, sc.LONG_L - c.shape[1])), constant_values=-1)
+                            for c, _ in pcases.values()])
+    lengths = np.concatenate([n for _, n in pcases.values()])
+    res = [np.asarray(a) for a in jit(partial_search_batch)(di0, jnp.asarray(codes),
+                                                            jnp.asarray(lengths))]
+    for name, part in _split(pcases, np.stack(res, axis=1)).items():
+        out["partial"][name] = tuple(part.T)
+    # from start intervals: the head's intervals, as they are, as singletons or full
+    head = [np.asarray(a) for a in jit(partial_search_batch)(
+        di0, jnp.asarray(codes[:, :3]), jnp.asarray(np.clip(lengths, 0, 3)))]
+    start = sc.start_intervals(head[0], head[1], di0.n_nodes, 7)
+    tail = np.where(np.arange(3, sc.LONG_L)[None, :] < lengths[:, None], codes[:, 3:], -1)
+    res = [np.asarray(a) for a in update_interval_jit(
+        di0, jnp.asarray(tail.astype(np.int8)), jnp.asarray(start[:, 0].astype(np.int32)),
+        jnp.asarray(start[:, 1].astype(np.int32)))]
+    for name, part in _split(pcases, np.concatenate([start, np.stack(res, axis=1)], axis=1)).items():
+        out["start"][name] = (part[:, :2], part[:, 2], part[:, 3], part[:, 4].astype(bool))
+    return out
+
+
+def _split(cases: dict, rows: np.ndarray) -> dict:
+    """The rows of a concatenation of the cases, back by case."""
+    out, at = {}, 0
+    for name, case in cases.items():
+        n = len(case[0] if isinstance(case, tuple) else case)
+        out[name] = rows[at:at + n]
+        at += n
+    return out
