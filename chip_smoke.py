@@ -29,7 +29,8 @@ Phases, one line each; any failure exits nonzero:
    plain-matrix's, and ``streaming_search_batch`` of both batches through
    K4 of its rank type, equal to plain-matrix's answers; one table at a
    time. For all ten variants, ``partial_search_batch`` and
-   ``forward_batch`` of 1M lanes, equal to plain-matrix's;
+   ``forward_batch`` of 1M lanes (the rank type's forward kernel, one char
+   a lane), equal to plain-matrix's;
 6. wide turbo (launches counted): the same genome index forced onto the
    wide (int64) tier through ``from_packed_rows_wide`` (K18: the wide K1
    fill at p = 13), its LF answers (wide K14) and, after
@@ -54,7 +55,8 @@ Phases, one line each; any failure exits nonzero:
    to the host constructor at order 8. ``search_batch`` of 1M 16-mers,
    ``streaming_search_batch`` of 1M reads of 100 bp and of the same reads
    with an N every 20-40 bases, ``partial_search_batch`` and
-   ``forward_batch`` of 1M lanes, every answer against the closed form
+   ``forward_batch`` of 1M lanes (the wide forward kernel), every answer
+   against the closed form
    1 + sum code_i * 4^i; ``enable_turbo(None)`` must find no room for a
    table (137 GB) and leave the LF engine;
 9. device build (launches counted): ``SBWT.build_on_device`` (K19) of the
@@ -221,6 +223,7 @@ for _v in VARIANTS:
         VARIANT_TURBO_KERNELS[f"succ1[{_v}]"] = (_src, "sbwt_tpu/ops/turbo.py:294")
         VARIANT_TURBO_KERNELS[f"turbo_stream[{_v}]"] = (_src, "sbwt_tpu/ops/turbo.py:610")
     VARIANT_TURBO_KERNELS[f"partial_search[{_v}]"] = (_src, "sbwt_tpu/ops/search.py:291")
+    VARIANT_TURBO_KERNELS[f"forward[{_v}]"] = (_src, "sbwt_tpu/ops/search.py:136")
 # K18, the wide tier: the same templates at 64-bit positions
 _WIDE_SRC = "sbwt_tpu_torch/csrc/lf_wide.cu"
 WIDE_KERNELS = {
@@ -233,9 +236,13 @@ WIDE_KERNELS = {
     f"turbo_stream[{WIDE}]": (_WIDE_SRC, "sbwt_tpu/ops/turbo.py:661"),
     f"answer_stats[{WIDE}]": ("sbwt_tpu_torch/csrc/answer_stats.cu", "sbwt_tpu/ops/turbo.py:1382"),
 }
-# what the giant's path launches: it can have no table, so no K4 and no seed bits
+# the wide forward kernel, which only the giant's path launches
+GIANT_FORWARD = {f"forward[{WIDE}]": (_WIDE_SRC, "sbwt_tpu/ops/search.py:136")}
+# what the giant's path launches: it can have no table, so no K4, no seed
+# bits and no succ1 (its succ1 entry, over 1M sampled columns, keeps the
+# forced-wide path's count)
 GIANT_KERNELS = [f"{op}[{WIDE}]" for op in
-                 ("precalc_fill", "kmer_search", "lf_stream", "partial_search", "succ1")]
+                 ("precalc_fill", "kmer_search", "lf_stream", "partial_search", "forward")]
 
 # K20, the row-sharded (TP) path (csrc/lf_sharded.cu, succ_table.cu), and
 # K21, the gather probe (csrc/gather_chain.cu)
@@ -264,6 +271,7 @@ FAST_COLUMNS = 1000  # of them, the labels get_kmer_fast gives one by one
 COUNTER = {"succ1": "succ1[plain-matrix]", "turbo_stream": "turbo_stream[plain-matrix]"}
 
 ALL_KERNELS = {**KERNELS, **LF_KERNELS, **BUILD_KERNELS, **VARIANT_TURBO_KERNELS, **WIDE_KERNELS,
+               **GIANT_FORWARD,
                **PARALLEL_KERNELS, **PROBE_KERNELS, **KMER_ACCESS_KERNELS}
 
 
@@ -422,6 +430,32 @@ def answer_walk(precalc, k: int, p: int, codes, lengths, ans, chunk: int = 1 << 
                    seed=precalc[pidx].long() if p > 0 else None)
 
 
+def table_row_bytes(turbo) -> int:
+    """The bytes of the table row a step of K4's or fast_search's walk
+    reads: 8 at arity 2, 16 at arity 1 and 3 (the wide tier: the 16-byte
+    half of the int64 [n, 4] row that the char picks)."""
+    return 8 if turbo.arity == 2 else 16
+
+
+def walk_rows(turbo, col, chars) -> int:
+    """The table rows the walks from the singleton seeds col (-1: none)
+    over the chars [m, k - p] read: min(arity, chars left) chars a row, up
+    to the walk's end or first -1 (walk_singleton, fast_search)."""
+    A, rows = turbo.arity, 0
+    for j in range(0, chars.shape[1], A):
+        take = min(A, chars.shape[1] - j)
+        alive = col >= 0
+        rows += int(alive.sum())
+        ch = [chars[:, j + t].long() & 3 for t in range(take)]
+        if A == 1:
+            nxt = turbo.row(col.clamp(min=0)).gather(-1, ch[0][:, None])[:, 0]
+        else:
+            sub = sum(ch[t] * 4 ** (A - 1 - t) for t in range(take))
+            nxt = turbo.row(col.clamp(min=0), sub)[:, take - 1]
+        col = torch.where(alive, nxt.long(), -1)
+    return rows
+
+
 def turbo_work(turbo, index, codes, lengths, ans, chunk: int = 1 << 16):
     """K4 and K20b: codes and lengths in, answers out, and the rows read at
     random that this run's answers and codes ask for. A chain (the
@@ -439,7 +473,7 @@ def turbo_work(turbo, index, codes, lengths, ans, chunk: int = 1 << 16):
 
     k, p, A = turbo.k, turbo.precalc_k, turbo.arity
     B, P = ans.shape
-    row_bytes, precalc_bytes = (8 if A == 2 else 16), 2 * turbo.precalc.element_size()
+    row_bytes, precalc_bytes = table_row_bytes(turbo), 2 * turbo.precalc.element_size()
     seen = torch.zeros(4**p // 16 + 1, dtype=torch.bool, device=ans.device)
     n = dict(chain_rows=0, restarts=0, live_seeds=0, walk_rows=0, lf_rank_rows=0)
     for w in answer_walk(turbo.precalc, k, p, codes, lengths, ans, chunk):
@@ -455,18 +489,9 @@ def turbo_work(turbo, index, codes, lengths, ans, chunk: int = 1 << 16):
         live = seed[:, 0] >= 0
         n["live_seeds"] += int(live.sum())
         single = live & (seed[:, 0] == seed[:, 1])
-        col, wb, wc = seed[single, 0], rb[single], ci[single]
-        for j in range(0, k - p, A):
-            take = min(A, k - p - j)
-            alive = col >= 0
-            n["walk_rows"] += int(alive.sum())
-            ch = [c[wb, wc + p + j + t].long() & 3 for t in range(take)]
-            if A == 1:
-                nxt = turbo.row(col.clamp(min=0)).gather(-1, ch[0][:, None])[:, 0]
-            else:
-                sub = sum(ch[t] * 4 ** (A - 1 - t) for t in range(take))
-                nxt = turbo.row(col.clamp(min=0), sub)[:, take - 1]
-            col = torch.where(alive, nxt.long(), -1)
+        wb, wc = rb[single], ci[single]
+        n["walk_rows"] += walk_rows(turbo, seed[single, 0],
+                                    c[wb[:, None], wc[:, None] + p + torch.arange(k - p, device=c.device)])
         wide = live & (seed[:, 0] != seed[:, 1])
         l, r, lb, lc = seed[wide, 0], seed[wide, 1], rb[wide], ci[wide]
         alive = torch.ones_like(l, dtype=torch.bool)
@@ -747,6 +772,14 @@ def lane_batch(runs, seed: int = 31, width: int = 40):
     return codes, lengths, rng
 
 
+def forward_lanes(runs, n: int):
+    """The 1M (node, char) lanes of forward: random nodes of n and chars,
+    drawn after lane_batch's lengths."""
+    _, _, rng = lane_batch(runs)
+    nodes = rng.integers(0, n, size=len(runs["hit98"][0]))
+    return nodes, rng.integers(0, 4, size=len(nodes))
+
+
 def run_variant_turbo_path(sbwt, runs, variants):
     """Turbo from each compressed variant's own ranks, through the entry
     points: ``enable_turbo(3)`` (succ1 of the variant's rank type, then
@@ -756,10 +789,8 @@ def run_variant_turbo_path(sbwt, runs, variants):
     ``partial_search_batch`` and ``forward_batch`` of 1M lanes on all ten
     variants, equal to plain-matrix's."""
     plain_tbl = sbwt._turbo.tbl
-    codes, lengths, rng = lane_batch(runs)
-    n = sbwt.number_of_subsets()
-    nodes = rng.integers(0, n, size=len(codes))
-    chars = rng.integers(0, 4, size=len(codes))
+    codes, lengths, _ = lane_batch(runs)
+    nodes, chars = forward_lanes(runs, sbwt.number_of_subsets())
     ref_partial = sbwt.partial_search_batch(codes, lengths)
     ref_forward = sbwt.forward_batch(nodes, chars)
     check(int(ref_partial[2].max()) > K and int((ref_partial[2] == lengths).sum()) > 0
@@ -1536,15 +1567,42 @@ def compare_lf_kernels(dev, genome, sbwt, runs, variants, record):
         del plain
 
 
+def forward_work(cols, out):
+    """forward: the columns and chars read, the successors written, and of
+    each lane a suffix-group row and a rank row (8 bytes each, counted low
+    for the compressed and wide rank types); one rank pair a lane."""
+    return nbytes(cols, out) + cols.numel() * (1 + 16), cols.numel() * LF_OPS
+
+
+def compare_forward(name, di, cols, chars, record, **extra):
+    """The forward kernel of di's rank type over the lanes (cols, chars)
+    against its plain version, beside succ1 over the same columns and the
+    gather of one of its four successors, what forward_batch launched
+    before it had its own kernel."""
+    from sbwt_tpu_torch import kernels
+    from sbwt_tpu_torch.ops import search as ts
+
+    k_fw = lambda: ts.forward_batch(di, cols, chars)
+    ch = chars.long()
+    plain, plain_ms = timed_ms(lambda: ts.extend_from_column(di, cols, ch).to(di.pos_dtype))
+    old = lambda: kernels.succ1(di.variant, di.kernel_desc(cols.device), di.sgs_tbl, di.C,
+                                di.n_nodes, cols=cols, row_major=True).gather(1, ch[:, None])[:, 0]
+    err = max_abs_err(k_fw(), plain) + max_abs_err(old(), plain)
+    record(name, err, cuda_ms(k_fw, 5), plain_ms, *forward_work(cols, plain),
+           shape=tuple(cols.shape), succ1_gather_ms=cuda_ms(old, 5), **extra)
+
+
 def compare_variant_turbo_kernels(dev, runs, variants, lanes, record):
-    """partial_search of each of the ten variants on the 1M lanes, and succ1
-    (all columns) and K4 of each compressed variant: K4 on each whole batch
-    beside K14 on the same variant (rates), and on the first
-    TURBO_PLAIN_READS reads of each mix against its plain version."""
+    """partial_search and forward of each of the ten variants on the 1M
+    lanes, and succ1 (all columns) and K4 of each compressed variant: K4 on
+    each whole batch beside K14 on the same variant (rates), and on the
+    first TURBO_PLAIN_READS reads of each mix against its plain version."""
     from sbwt_tpu_torch.ops import search as ts
     from sbwt_tpu_torch.ops import turbo as tt
 
     lane_codes, lane_len = (torch.from_numpy(a).to(dev) for a in lanes)
+    nodes, chars = forward_lanes(runs, next(iter(variants.values()))[0].number_of_subsets())
+    fw_chars = torch.from_numpy(chars).to(dev, torch.int8)
     batches = {}
     for mix, (codes_np, _) in runs.items():
         codes = torch.from_numpy(codes_np).to(dev)
@@ -1557,6 +1615,8 @@ def compare_variant_turbo_kernels(dev, runs, variants, lanes, record):
                cuda_ms(k_ps, 5), plain_ms, *partial_work(lane_len, plain[2]),
                shape=tuple(lane_codes.shape))
         del plain
+        compare_forward(f"forward[{v}]", di, torch.from_numpy(nodes).to(dev, di.pos_dtype),
+                        fw_chars, record)
         if v == "plain-matrix":
             continue
         k_s1 = lambda: tt.succ1(di)
@@ -1665,22 +1725,19 @@ def compare_wide_kernels_4m(dev, sbwt, wsb, runs, record):
 
 def fast_search_work(turbo, km, ans, slow):
     """fast_search: codes in, ans and needs_slow out, a precalc row for each
-    valid row, and the successor each table step must read (one position a
-    step): all ceil((k - p) / A) steps of a row that ends on a column, at
-    least one of a row with a singleton seed whose walk ends at -1 (counted
-    low). Operations: a check and a shift of each code, a select and a row
-    address a step."""
-    k, p, A = turbo.k, turbo.precalc_k, turbo.arity
-    pos = ans.element_size()
+    valid row, and the table rows that the walks from its singleton seeds
+    read (walk_rows, at K4's row bytes: table_row_bytes), as turbo_work
+    counts K4's. Operations: a check and a shift of each code, a select and
+    a row address a table row."""
+    k, p = turbo.k, turbo.precalc_k
     valid = ((km >= 0) & (km < 4)).all(dim=1)
     pidx = ((km[:, :p].long() & 3) << (2 * torch.arange(p, device=km.device))).sum(dim=1)
-    seed = turbo.precalc[pidx]
+    seed = turbo.precalc[pidx].long()
     singleton = valid & (seed[:, 0] >= 0) & (seed[:, 0] == seed[:, 1])
-    steps = int((ans >= 0).sum()) * -(-(k - p) // A)
-    if k > p:
-        steps += int((singleton & (ans < 0)).sum())
-    moved = nbytes(km, ans, slow) + int(valid.sum()) * 2 * pos + steps * pos
-    return moved, len(km) * 2 * k + steps * 8
+    rows = walk_rows(turbo, seed[singleton, 0], km[singleton, p:])
+    moved = (nbytes(km, ans, slow) + int(valid.sum()) * 2 * turbo.precalc.element_size()
+             + rows * table_row_bytes(turbo))
+    return moved, len(km) * 2 * k + rows * 8
 
 
 def compare_fast_search(dev, genome, sbwt, wsb, runs, record):
@@ -1723,7 +1780,7 @@ def compare_giant_kernels(dev, sb, reads, with_n, prefix_len, record):
     """The wide kernels at the giant's size against their plain versions:
     K1's p = 8 fill and 1M-k-mer search, K14 on the first PLAIN_READS reads
     of each batch (and its time on each whole batch), partial_search of the
-    1M prefixes and succ1 over 1M sampled columns (what forward launches)."""
+    1M prefixes, succ1 over 1M sampled columns and forward over them."""
     from sbwt_tpu_torch import kernels
     from sbwt_tpu_torch.models import matrix as tm
     from sbwt_tpu_torch.ops import search as ts
@@ -1796,6 +1853,10 @@ def compare_giant_kernels(dev, sb, reads, with_n, prefix_len, record):
     record(f"succ1[{WIDE}]", max_abs_err(succ, plain.t().contiguous()), cuda_ms(k_s1, 5), plain_ms,
            len(cols) * (8 + 8 + 4 * 12 + 32), succ.numel() * LF_OPS, shape=tuple(succ.shape),
            n_columns=di.n_nodes, columns="1M sampled")
+    del succ, plain
+    chars = torch.from_numpy(np.random.default_rng(8).integers(0, 4, size=len(cols))).to(dev, torch.int8)
+    compare_forward(f"forward[{WIDE}]", di, cols, chars, record, n_columns=di.n_nodes,
+                    columns="1M sampled")
 
 
 def card_list() -> list:

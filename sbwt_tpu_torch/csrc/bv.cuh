@@ -3,6 +3,10 @@
 //   rank(pos)       number of set bits before pos, pos in [0, n]
 //   rank_pair(pos)  (rank(pos), rank(pos + 1)), pos in [0, n)
 //   get(pos)        the bit at pos
+//   bits(pos, len, &r)  bits pos .. pos + len - 1 (len in [0, 32]) in the
+//                   low len bits, the rest zero, and rank(pos) into r;
+//                   reads only the rows that hold those bits and rank(pos)
+//                   (succ1's whole-table decode, succ_table.cuh)
 // over the int32 layouts of sbwt_tpu/ops/bv.py (built on the host by
 // sbwt_tpu_torch/ops/bv.py). The types are plain descriptors of device
 // pointers, passed to a kernel by value; Python mirrors them with ctypes
@@ -24,6 +28,21 @@
 #include <cuda_runtime.h>
 
 namespace sbwt {
+
+// The low n bits set, n in [0, 32]
+__device__ __forceinline__ unsigned low_mask(int n) { return n >= 32 ? ~0u : (1u << n) - 1u; }
+
+// The low bits of v, in order, at the set bits of m (x86's pdep)
+__device__ __forceinline__ unsigned deposit(unsigned v, unsigned m) {
+    unsigned r = 0;
+    while (m) {
+        const unsigned low = m & (0u - m);
+        if (v & 1u) r |= low;
+        v >>= 1;
+        m ^= low;
+    }
+    return r;
+}
 
 // ---------------------------------------------------------------------------
 // Plain: int2 [W] (bits word, exclusive cum popcount)
@@ -52,6 +71,15 @@ struct PlainBV {
         int bit;
         rank_get(pos, &bit);
         return bit;
+    }
+    // the next row only where the bits cross into it
+    __device__ __forceinline__ unsigned bits(int pos, int len, int* r) const {
+        const int2 row = tbl[pos >> 5];
+        const unsigned o = (unsigned)pos & 31u;
+        *r = row.y + __popc((unsigned)row.x & ((1u << o) - 1u));
+        unsigned v = (unsigned)row.x >> o;
+        if ((int)o + len > 32) v |= (unsigned)tbl[(pos >> 5) + 1].x << (32u - o);
+        return v & low_mask(len);
     }
 };
 
@@ -127,6 +155,50 @@ struct RRR15 {
         int before;
         return (int)((pattern_at(pos, &o, &before) >> o) & 1u);
     }
+    // The blocks that hold the bits, up to four: one class-sum pass over
+    // pos's superblock gives the first block's offset pointer, and the
+    // offsets of the blocks after it follow in the stream, so their loads
+    // do not wait on each other.
+    __device__ __forceinline__ unsigned bits(int pos, int len, int* r) const {
+        const int blk = pos / 15;
+        const unsigned o = (unsigned)(pos - blk * 15);
+        int4 row = meta[blk >> 4];
+        const int before = row.x;
+        const unsigned j = (unsigned)blk & 15u;
+        int cls_sum = 0, bitp = row.y;
+#pragma unroll
+        for (unsigned t = 0; t < 16u; ++t) {
+            const unsigned cls = class_of(row, t);
+            if (t < j) {
+                cls_sum += (int)cls;
+                bitp += (int)width15(cls);
+            }
+        }
+        const int nb = len > 0 ? ((int)o + len - 1) / 15 + 1 : 1;
+        unsigned long long acc = 0;
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+            if (t >= nb) break;
+            const unsigned jb = (unsigned)(blk + t) & 15u;
+            if (t > 0 && jb == 0u) {
+                row = meta[(blk + t) >> 4];
+                bitp = row.y;
+            }
+            const unsigned cls = class_of(row, jb);
+            const unsigned sh = (unsigned)bitp & 31u;
+            const unsigned s0 = offs[bitp >> 5];
+            const unsigned s1 = offs[(bitp >> 5) + 1];
+            const unsigned raw = (s0 >> sh) | (sh ? s1 << (32u - sh) : 0u);
+            const unsigned off = raw & ((1u << width15(cls)) - 1u);
+            acc |= (unsigned long long)(unsigned)lut[base[cls] + (int)off] << (15 * t);
+            bitp += (int)width15(cls);
+        }
+        *r = before + cls_sum + __popc((unsigned)acc & ((1u << o) - 1u));
+        return (unsigned)(acc >> o) & low_mask(len);
+    }
+    __device__ __forceinline__ static unsigned class_of(const int4& row, unsigned t) {
+        return ((t < 8u ? (unsigned)row.z : (unsigned)row.w) >> (4u * (t & 7u))) & 15u;
+    }
 };
 
 // ---------------------------------------------------------------------------
@@ -158,6 +230,32 @@ struct MEF {
         int keep;
         const int lpos = lower_pos(pos, &keep);
         return keep ? lower.get(lpos) : 0;
+    }
+    // The kept buckets among those the bits touch are consecutive in lower
+    // from lower_pos(pos): one run of lower's bits, spread back over the
+    // touched buckets with zeros where a bucket is not kept.
+    __device__ __forceinline__ unsigned bits(int pos, int len, int* r) const {
+        const int bs = 1 << wl, o = pos & (bs - 1);
+        const int nbk = len > 0 ? ((o + len - 1) >> wl) + 1 : 1;  // buckets touched, <= 32
+        int u;
+        const unsigned kept = upper.bits(pos >> wl, nbk, &u);
+        int total = 0;
+        for (int t = 0, done = 0; t < nbk; ++t) {
+            const int seg = min(t == 0 ? bs - o : bs, len - done);
+            if ((kept >> t) & 1u) total += seg;
+            done += seg;
+        }
+        const unsigned run = lower.bits((u << wl) + ((kept & 1u) ? o : 0), total, r);
+        unsigned v = 0;
+        for (int t = 0, done = 0, src = 0; t < nbk; ++t) {
+            const int seg = min(t == 0 ? bs - o : bs, len - done);
+            if ((kept >> t) & 1u) {
+                v |= ((src < 32 ? run >> src : 0u) & low_mask(seg)) << done;
+                src += seg;
+            }
+            done += seg;
+        }
+        return v;
     }
 };
 

@@ -1,5 +1,5 @@
 // fast_search: the colex rank of full k-mers from a singleton precalc
-// seed through the turbo successor table, one thread per k-mer row.
+// seed through the turbo successor table, a warp per 32 rows.
 //
 // Replaces the XLA program of sbwt_tpu/ops/turbo.py fast_search (:491,
 // jitted at :1353 as fast_search_jit) with _walk_rem (:474) and _step
@@ -8,8 +8,8 @@
 // pidx packing the first p chars (char j at bits 2j); the row is dead if
 // it is invalid or its seed empty; needs_slow marks a live seed wider than
 // one column, which only exact LF steps can answer; a live singleton walks
-// the k - p remaining chars with table rows (walk_singleton, shared with
-// K4's restarts in turbo_stream.cuh). ans is -1 where dead or needs_slow.
+// the k - p remaining chars with table rows, as K4's restarts do
+// (walk_singleton, turbo_stream.cuh). ans is -1 where dead or needs_slow.
 // The seed-bits table is never read (fast_search does not read it), and no
 // rank structure is: the table is the same for every variant, so the
 // kernel is templated on the position type only.
@@ -19,42 +19,61 @@
 // Bound on the H100: a chain of 1 + ceil((k - p) / arity) dependent loads
 // a row (the precalc row, then the table rows), each an HBM round trip in
 // a table far past L2; bytes are small beside it (k codes in, 5 or 9
-// bytes out). Design: one thread a row keeps the chain in registers, so
-// many rows are in flight at once to hide the latency; the codes reads are
-// strided by row, as in K1's kmer_search.
+// bytes out). One thread a row read its k codes byte by byte, 32 rows k
+// bytes apart in every warp instruction, and twice: for the validity and
+// seed index, and again in the walk. So a warp stages its 32 consecutive
+// rows, one contiguous span, into shared memory with 16-byte loads
+// (stage_span, as K1's kmer_search does); each lane tests its row and
+// packs its seed index from 4-byte words of the span (staged_kmer_index),
+// walks on chars read from shared memory (its own walk, so that K4's
+// walk_singleton is not touched) and stores its answer and needs_slow,
+// coalesced across the warp. A lane that walked two or four rows side by
+// side, to keep more table loads in flight, was slower on an H100 at both
+// mixes (tools/fast_search_ab.py; PERF.md), as were 8 warps a block.
 #include "turbo_stream.cuh"
 
 namespace sbwt {
 
+constexpr int kFastWarps = 4;  // warps a block
+
 template <class P>
-__global__ void fast_search_kernel(const void* __restrict__ tbl, int arity,
-                                   const void* __restrict__ precalc, int p,
-                                   const int8_t* __restrict__ codes, long long B, int k,
-                                   P* __restrict__ ans, uint8_t* __restrict__ needs_slow) {
-    const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (b >= B) return;
-    const int8_t* kmer = codes + b * k;
-    unsigned pidx = 0;
-    bool valid = true;
-    for (int j = 0; j < k; ++j) {
-        const int c = kmer[j];
-        valid &= is_base(c);
-        if (j < p) pidx |= (unsigned)(c & 3) << (2 * j);
-    }
-    P out = -1;
+__global__ void __launch_bounds__(kFastWarps * 32)
+    fast_search_kernel(const void* __restrict__ tbl, int arity, const void* __restrict__ precalc,
+                       int p, const int8_t* __restrict__ codes, long long B, int k,
+                       P* __restrict__ ans, uint8_t* __restrict__ needs_slow) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int64_t b0 = ((int64_t)blockIdx.x * kFastWarps + warp) * 32;
+    if (b0 >= B) return;  // the whole warp
+    const int nrows = (int)min((int64_t)32, (int64_t)(B - b0));
+    extern __shared__ __align__(16) unsigned char smem[];
+    int8_t* st = reinterpret_cast<int8_t*>(smem) + warp * kmer_span_bytes(k);
+    const int8_t* span = codes + b0 * k;
+    stage_span(codes, B * (int64_t)k, span, nrows * k, st, lane);
+    __syncwarp();
+    if (lane >= nrows) return;
+    const int off = (int)((uintptr_t)span & 15) + lane * k;
+    unsigned pidx;
+    P col = -1;
     uint8_t slow = 0;
-    if (valid) {
+    if (staged_kmer_index(reinterpret_cast<const unsigned*>(st), off, k, p, &pidx)) {
         const pair_t<P> seed = static_cast<const pair_t<P>*>(precalc)[pidx];
         if (seed.x >= 0) {
             if (seed.x == seed.y) {
-                out = walk_singleton<P>(FlatTable{}, tbl, arity, seed.x, kmer + p, k - p);
+                col = seed.x;
             } else {
                 slow = 1;
             }
         }
     }
-    ans[b] = out;
-    needs_slow[b] = slow;
+    // the k - p chars after the seed's, min(arity, chars left) a table row
+    const int8_t* chars = st + off + p;
+    const int rem = k - p;
+    for (int j = 0; j < rem && col >= 0; j += arity) {
+        const int take = min(arity, rem - j);
+        col = component(table_row<P>(tbl, arity, col, chars + j, take), take - 1);
+    }
+    ans[b0 + lane] = col;
+    needs_slow[b0 + lane] = slow;
 }
 
 }  // namespace sbwt
@@ -72,11 +91,16 @@ extern "C" int sbwt_fast_search(int device, int wide, const void* tbl, int arity
     const cudaStream_t s = (cudaStream_t)stream;
     const int8_t* c = static_cast<const int8_t*>(codes);
     uint8_t* slow = static_cast<uint8_t*>(needs_slow);
+    const int smem = kFastWarps * kmer_span_bytes(k);
+    const unsigned grid = (unsigned)((B + 32 * kFastWarps - 1) / (32 * kFastWarps));
+    static std::atomic<int> raised_narrow[64], raised_wide[64];
     if (wide) {
-        fast_search_kernel<int64_t><<<grid_for(B), kBlock, 0, s>>>(
+        if (const int e = raise_smem_limit(fast_search_kernel<int64_t>, smem, raised_wide)) return e;
+        fast_search_kernel<int64_t><<<grid, kFastWarps * 32, smem, s>>>(
             tbl, arity, precalc, p, c, B, k, static_cast<int64_t*>(ans), slow);
     } else {
-        fast_search_kernel<int><<<grid_for(B), kBlock, 0, s>>>(
+        if (const int e = raise_smem_limit(fast_search_kernel<int>, smem, raised_narrow)) return e;
+        fast_search_kernel<int><<<grid, kFastWarps * 32, smem, s>>>(
             tbl, arity, precalc, p, c, B, k, static_cast<int*>(ans), slow);
     }
     return (int)cudaGetLastError();

@@ -3,7 +3,7 @@
 // mesh.
 //   K20a  the rank-templated kernels (rank_ops.cuh) over ShardedMatrix
 //         (subset_rank.cuh): kmer_search and lf_stream, what tp_search and
-//         tp_streaming_search run; the other four ops are refused.
+//         tp_streaming_search run; the other ops are refused.
 //   K20b  K4 (turbo_stream.cuh) over plain-matrix ranks and a ShardedTable,
 //         what tp_turbo_streaming_search runs.
 // A shard may lie on another card than the one that runs the kernel: the

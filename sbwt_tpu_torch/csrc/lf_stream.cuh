@@ -76,15 +76,16 @@ struct LFArgs {
     const int2* sgs_tbl;        // [W] (suffix-group-start word w, word w - 1)
     const void* C;              // pos [4]
     const void* precalc;        // pair [4^p] (l, r), (-1, -1) when empty
-    const int8_t* codes;        // lf_stream, turbo_stream, partial_search [B, L]; kmer_search [B, k]
+    const int8_t* codes;        // lf_stream, turbo_stream, partial_search [B, L]; kmer_search [B, k];
+                                // forward: chars [B]
     const int* lengths;         // [B]
     const void* aux;            // partial_search: pair [B] start intervals, or null for (0, n - 1);
-                                // succ1: pos [B] columns, or null for 0..B-1
+                                // succ1: pos [B] columns, or null for 0..B-1; forward: pos [B] columns
     const void* tbl;            // turbo_stream: the arity-A successor table
     const unsigned* seed_bits;  // turbo_stream: 2-bit pair entries, or null
     void* out;                  // lf_stream, turbo_stream pos [B, L - k + 1]; kmer_search pos [B];
                                 // precalc_fill pair [4^p]; partial_search l pos [B];
-                                // succ1 pos [4, B], or [B, 4] when row_major
+                                // succ1 pos [4, B], or [B, 4] when row_major; forward pos [B]
     void* out_r;                // partial_search: r pos [B]
     int* out_len;               // partial_search: matched length [B]
     long long B;                // reads, k-mers, precalc entries or columns
@@ -97,7 +98,7 @@ struct LFArgs {
 };
 
 enum LFOp { kLFStream = 0, kPrecalcFill = 1, kKmerSearch = 2, kPartialSearch = 3, kSucc1 = 4,
-            kTurboStream = 5 };
+            kTurboStream = 5, kForward = 6 };
 
 // C[0..3] in registers, picked by selects
 template <class P>

@@ -1,10 +1,10 @@
 // The launch switch of the kernels that are templates over the rank type:
-// K14 and K1 with partial_search (lf_stream.cuh), K2's succ1
+// K14 and K1 with partial_search (lf_stream.cuh), K2's succ1 and forward
 // (succ_table.cuh) and K4 (turbo_stream.cuh), and the launches of K14, of
 // K1's fill and search and of partial_search. An instance file
 // (lf_stream.cu, lf_split.cu, lf_concat.cu, lf_subsetwt.cu, lf_wide.cu,
 // lf_sharded.cu) calls launch_rank_op<R> for each rank type of its family,
-// which instantiates all six kernels for R, K4 over the flat table.
+// which instantiates all seven kernels for R, K4 over the flat table.
 #pragma once
 
 #include "lf_stream.cuh"
@@ -89,7 +89,19 @@ int launch_rank_op(int op, const void* rank_desc, const LFArgs* args, void* stre
         case kPartialSearch:
             return launch_partial_search(rk, a, s);
         case kSucc1:
+            if constexpr (SuccSpan<R>::value) {
+                if (a.aux == nullptr) {
+                    const int64_t warps = (a.B + kSuccSpan - 1) / kSuccSpan;
+                    succ1_span_kernel<R><<<(unsigned)((warps + kSuccWarps - 1) / kSuccWarps),
+                                           kSuccWarps * 32, 0, s>>>(rk, a);
+                    break;
+                }
+            }
             succ1_kernel<R><<<grid, kBlock, 0, s>>>(rk, a);
+            break;
+        case kForward:
+            if (a.aux == nullptr || a.codes == nullptr) return (int)cudaErrorInvalidValue;
+            forward_kernel<R><<<grid, kBlock, 0, s>>>(rk, a);
             break;
         case kTurboStream:
             // the wide tier's table has arity 1 only

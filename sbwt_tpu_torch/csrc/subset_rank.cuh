@@ -4,6 +4,11 @@
 //   pos_t              the type of a position: int, or int64_t for WideMatrix
 //   rank(c, pos)       count of char c in subsets 0..pos-1, pos in [0, n]
 //   rank_pair(c, pos)  (rank(c, pos), rank(c, pos + 1)), pos in [0, n)
+//   subsets(pos, len, w)  (the nine compressed types) bit j of w[c] is
+//                      whether char c is in column pos + j's subset, for j
+//                      < len (len in 1..32), the other bits zero: succ1's
+//                      whole-table decode (succ_table.cuh), a run of
+//                      columns from one bits call a bit vector or tree node
 // and is a plain descriptor passed to a kernel by value (mirrored in
 // Python by sbwt_tpu_torch/kernels). Chars are 0..3. An interval's two
 // ranks come from the free function rank_interval(rk, c, i, j). The kernels read a
@@ -108,6 +113,11 @@ struct MatrixRank {
         const int b = pick4(base, c);
         return make_int2(r.x - b, r.y - b);
     }
+    __device__ __forceinline__ void subsets(int pos, int len, unsigned (&w)[4]) const {
+        int r;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) w[c] = bv.bits(c * n + pos, len, &r);
+    }
 };
 
 // plain-split, rrr-split, mef-split: X marks columns with != 1 out-edge;
@@ -133,6 +143,22 @@ struct SplitRank {
         const int2 z = Z.rank_pair(c * n_b + x.x);
         const int zb = pick4(z_base, c);
         return make_int2(y.x + z.x - zb, (x.y > x.x ? y.x + z.y : y.y + z.x) - zb);
+    }
+    // X's bits split the run: its set bits take Z's run from rank xr, the
+    // others Y's symbols from pos - xr
+    __device__ __forceinline__ void subsets(int pos, int len, unsigned (&w)[4]) const {
+        int xr;
+        const unsigned xw = X.bits(pos, len, &xr);
+        const int nx = __popc(xw), ny = len - nx;
+        const unsigned yw = ~xw & low_mask(len);
+        const Planes4 y = planes4(tree4(Y), pos - xr, ny);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+            int r;
+            const unsigned z = Z.bits(c * n_b + xr, nx, &r);
+            const unsigned eq = ((c & 2) ? y.hi : ~y.hi) & ((c & 1) ? y.lo : ~y.lo) & low_mask(ny);
+            w[c] = deposit(z, xw) | deposit(eq, yw);
+        }
     }
 };
 
@@ -195,6 +221,37 @@ struct ConcatRank {
         return make_int2(wt.rank(c + 1, select_in(s, lo, hi, rem + 1)),
                          wt.rank(c + 1, select_in(s, lo, hi, rem + 2)));
     }
+    // From the start of column pos's set (a select), 32 symbols at a time:
+    // L's zeros in the chunk mark the sets, the tree's symbols in it
+    // (planes5) the members; up to the start of the set after the run's
+    // last, which no chunk passes (sets hold <= 4 symbols: <= 5 chunks)
+    __device__ __forceinline__ void subsets(int pos, int len, unsigned (&w)[4]) const {
+        int s, rem;
+        unsigned lo, hi;
+        window(pos, &s, &rem, &lo, &hi);
+        int x = select_in(s, lo, hi, rem + 1);
+        w[0] = w[1] = w[2] = w[3] = 0u;
+        for (int seen = 0;;) {  // seen: sets started before the chunk
+            const int2 row = l_words[x >> 5];
+            const unsigned zm = ~__funnelshift_r((unsigned)row.x, (unsigned)row.y, (unsigned)x & 31u);
+            const int cz = __popc(zm), need = len + 1 - seen;
+            const int m = cz >= need ? nth_set_bit(zm, need) : 32;  // symbols of the run here
+            if (m > 0) {
+                unsigned e[4];
+                planes5(wt, x, m, e);
+#pragma unroll
+                for (int c = 0; c < 4; ++c) {
+                    for (unsigned v = e[c]; v; v &= v - 1u) {
+                        const int b = __ffs(v) - 1;
+                        w[c] |= 1u << (seen + __popc(zm & low_mask(b + 1)) - 1);
+                    }
+                }
+            }
+            if (cz >= need) break;
+            seen += cz;
+            x += 32;
+        }
+    }
 };
 
 // plain-subsetwt, rrr-subsetwt (SubsetWT.hh:41-113): acgt over
@@ -205,17 +262,7 @@ struct SubsetWTRank {
     using pos_t = int;
     WaveletTree<BV> acgt, ac, gt;
 
-    // What the rank of a sigma-4 tree reads: level 0 counts symbols {2, 3};
-    // its children, node ids 1 and 2, sit in level 1. A value copy, so that
-    // picking the ac or the gt tree by char selects registers.
-    struct Tree4 {
-        BV l0, l1;
-        int base_l, rank_l, base_r, rank_r;
-    };
-    __device__ __forceinline__ static Tree4 tree4(const WaveletTree<BV>& t) {
-        return Tree4{t.level[0], t.level[1], t.step[0][1][0], t.step[0][1][1],
-                     t.step[2][1][0], t.step[2][1][1]};
-    }
+    using Tree4 = sbwt::Tree4<BV>;  // wavelet.cuh
 
     // (count of symbol 1, count of symbol 3) before pos, given level 0's
     // rank r at pos
@@ -265,6 +312,18 @@ struct SubsetWTRank {
         if ((c & 1) == 0) return make_int2(t0.x, t_rq);
         const int4 q = pair_rank_pair(t, x, xadv, t0.x, t_rq - t0.x);
         return make_int2(q.x + q.y, q.z + q.w);
+    }
+    // acgt's planes are the AC- and GT-present marks of the run; each marks
+    // a run of the ac or gt tree, from the count of its marks before pos,
+    // whose planes are A and C, or G and T
+    __device__ __forceinline__ void subsets(int pos, int len, unsigned (&w)[4]) const {
+        const Planes4 root = planes4(tree4(acgt), pos, len);
+        const Planes4 a = planes4(tree4(ac), root.r0, __popc(root.hi));
+        const Planes4 g = planes4(tree4(gt), root.c1 + root.c3, __popc(root.lo));
+        w[0] = deposit(a.hi, root.hi);
+        w[1] = deposit(a.lo, root.hi);
+        w[2] = deposit(g.hi, root.lo);
+        w[3] = deposit(g.lo, root.lo);
     }
 };
 

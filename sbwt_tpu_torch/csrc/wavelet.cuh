@@ -14,6 +14,13 @@
 // Bound on the H100: one dependent bit-vector rank per level (2 or 3);
 // rank_pair costs the same, since p and q = p + 1 stay equal or adjacent
 // down the tree (q - p in {0, 1}), so each level's rank_pair serves both.
+//
+// planes4 and planes5 decode the symbols of a run of up to 32 consecutive
+// positions at once, for succ1's whole-table decode (succ_table.cuh): a
+// node's run of the positions starts at the rank that its parent's bits
+// call gives, and holds as many as the parent sent that way; a child's
+// bits go back to the parent's positions by deposit. So a run costs one
+// bits call a node, not one rank chain a position.
 #pragma once
 
 #include "bv.cuh"
@@ -68,5 +75,65 @@ struct WaveletTree {
         return make_int2(p, q);
     }
 };
+
+// What a sigma-4 tree's rank reads: level 0 counts symbols {2, 3}; its
+// children, node ids 1 and 2, sit in level 1. A value copy, so that picking
+// one of several trees by a char selects registers.
+template <class BV>
+struct Tree4 {
+    BV l0, l1;
+    int base_l, rank_l, base_r, rank_r;
+};
+
+template <class BV>
+__device__ __forceinline__ Tree4<BV> tree4(const WaveletTree<BV>& t) {
+    return Tree4<BV>{t.level[0], t.level[1], t.step[0][1][0], t.step[0][1][1], t.step[2][1][0],
+                     t.step[2][1][1]};
+}
+
+// The symbols of positions pos .. pos + len - 1 (len in [0, 32]) of a
+// sigma-4 tree as two bit planes: hi (symbol >= 2) and lo (symbol & 1);
+// and the counts before pos of symbols {2, 3} (r0), 1 (c1) and 3 (c3).
+struct Planes4 {
+    unsigned hi, lo;
+    int r0, c1, c3;
+};
+
+template <class BV>
+__device__ __forceinline__ Planes4 planes4(const Tree4<BV>& t, int pos, int len) {
+    Planes4 q;
+    q.hi = t.l0.bits(pos, len, &q.r0);
+    const int nh = __popc(q.hi);
+    int rl, rr;
+    const unsigned lo_l = t.l1.bits(t.base_l + (pos - q.r0), len - nh, &rl);
+    const unsigned lo_r = t.l1.bits(t.base_r + q.r0, nh, &rr);
+    q.c1 = rl - t.rank_l;
+    q.c3 = rr - t.rank_r;
+    q.lo = deposit(lo_l, ~q.hi & low_mask(len)) | deposit(lo_r, q.hi);
+    return q;
+}
+
+// Where each of symbols 1..4 of a sigma-5 tree (ConcatRank's) is among
+// positions pos .. pos + len - 1: m[s - 1]. The tree splits {0, 1, 2 | 3, 4}
+// at the root, {0, 1 | 2} and {3 | 4} at depth 1, {0 | 1} at depth 2
+// (sbwt_tpu_torch/ops/wavelet.py _build_shape), so the nodes are those of
+// symbols 0 and 3 at depth 1 and of symbol 0 at depth 2.
+template <class BV>
+__device__ __forceinline__ void planes5(const WaveletTree<BV>& wt, int pos, int len,
+                                        unsigned (&m)[4]) {
+    int r0, rl, rr, rll;
+    const unsigned right = wt.level[0].bits(pos, len, &r0);  // symbols 3, 4
+    const unsigned left = ~right & low_mask(len);
+    const int nr = __popc(right), nl = len - nr;
+    const int pl = pos - r0;  // the left node's elements before the run
+    const unsigned sym2 = wt.level[1].bits(wt.step[0][1][0] + pl, nl, &rl);
+    const unsigned sym4 = wt.level[1].bits(wt.step[3][1][0] + r0, nr, &rr);
+    const int pll = pl - (rl - wt.step[0][1][1]);
+    const unsigned sym1 = wt.level[2].bits(wt.step[0][2][0] + pll, nl - __popc(sym2), &rll);
+    m[0] = deposit(deposit(sym1, ~sym2 & low_mask(nl)), left);
+    m[1] = deposit(sym2, left);
+    m[2] = deposit(~sym4 & low_mask(nr), right);
+    m[3] = deposit(sym4, right);
+}
 
 }  // namespace sbwt

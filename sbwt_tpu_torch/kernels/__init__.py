@@ -57,8 +57,9 @@ FAMILY[WIDE] = "wide"
 FAMILY[SHARDED] = "sharded"
 # the kernels that are templates over the rank type (csrc/rank_ops.cuh), in
 # the order of the LFOp enum: K14, K1's fill and search, partial_search,
-# K2's succ1 and K4
-LF_OPS = ("lf_stream", "precalc_fill", "kmer_search", "partial_search", "succ1", "turbo_stream")
+# K2's succ1, K4 and forward (one char a column)
+LF_OPS = ("lf_stream", "precalc_fill", "kmer_search", "partial_search", "succ1", "turbo_stream",
+          "forward")
 # the ops each rank type's entry point launches: the sharded type serves the
 # TP search and streaming search only
 RANK_OPS = {v: LF_OPS for v in VARIANTS + (WIDE,)}
@@ -498,6 +499,24 @@ def succ1(variant: str, rank_desc, sgs_tbl, C, n_nodes: int, cols=None,
                aux=0 if cols is None else _check(cols, "cols", dt, dev, (B,), dt.itemsize),
                out=_check(out, "succ", dt, dev, align=16), B=B, n_nodes=n_nodes,
                row_major=int(row_major))
+    return out
+
+
+def forward(variant: str, rank_desc, sgs_tbl, C, n_nodes: int, cols, chars) -> torch.Tensor:
+    """forward (succ_table.cuh): the successor of each column of ``cols``
+    [B] by its char of ``chars`` int8 [B] (0..3), or -1, over the rank
+    type's ranks: one rank pair a column."""
+    dev = _cuda_device(C)
+    dt = pos_dtype(variant)
+    B = cols.shape[0]
+    out = torch.empty(B, dtype=dt, device=dev)
+    if B == 0:
+        return out
+    _lf_launch("forward", variant, rank_desc, dev,
+               sgs_tbl=_check(sgs_tbl, "sgs_tbl", torch.int32, dev, align=8),
+               C=_check_C(C, variant, dev), aux=_check(cols, "cols", dt, dev, (B,), dt.itemsize),
+               codes=_check(chars, "chars", torch.int8, dev, (B,), 1),
+               out=_check(out, "out", dt, dev), B=B, n_nodes=n_nodes)
     return out
 
 

@@ -10,7 +10,7 @@ plain PyTorch over int64 lanes, written against the rank interface
 (``pos_dtype``: int32, or int64 on the wide tier). On a CUDA index,
 ``search_batch`` launches K1, ``streaming_search`` K14,
 ``partial_search_batch`` the partial_search kernel and ``forward_batch``
-K2's succ1 over the given columns, each the instance of the index's rank
+the forward kernel (one char a column), each the instance of the index's rank
 type (csrc/rank_ops.cuh); the plain versions serve CPU tensors and are
 what the kernels are checked against.
 """
@@ -89,14 +89,13 @@ def extend_from_column(index, col, c):
 
 def forward_batch(index, nodes, c):
     """Vectorized SBWT::forward (SBWT.hh:369-381): the successor of each
-    node by its char c (0..3), or -1. CUDA nodes launch K2's succ1 over
-    them, which gives all four successors of each; c picks one."""
+    node by its char c (0..3), or -1. CUDA nodes launch the rank type's
+    forward kernel: one rank pair a node."""
     if nodes.device.type != "cuda":
-        return extend_from_column(index, nodes, c).to(index.pos_dtype)
-    succ = kernels.succ1(index.variant, index.kernel_desc(nodes.device), index.sgs_tbl, index.C,
-                         index.n_nodes, cols=nodes.to(index.pos_dtype).contiguous(),
-                         row_major=True)
-    return succ.gather(1, c.long()[:, None])[:, 0]
+        return extend_from_column(index, nodes, c.long()).to(index.pos_dtype)
+    return kernels.forward(index.variant, index.kernel_desc(nodes.device), index.sgs_tbl, index.C,
+                           index.n_nodes, nodes.to(index.pos_dtype).contiguous(),
+                           c.to(torch.int8).contiguous())
 
 
 def streaming_search_plain(index, codes, lengths, chunk: int = 1 << 20):

@@ -13,6 +13,7 @@ from sbwt_tpu_torch import kernels
 from sbwt_tpu_torch.construct import device as td
 from sbwt_tpu_torch.models import matrix as tm
 from sbwt_tpu_torch.models.sbwt import SBWT, VARIANT_NAMES
+from sbwt_tpu_torch.models.variants import build_generic_index
 from sbwt_tpu_torch.models.wide import WideMatrixIndex, from_packed_rows_wide
 from sbwt_tpu_torch.ops import bitvector as bv
 from sbwt_tpu_torch.ops import search as ts
@@ -109,9 +110,15 @@ def _rank_op_checks(di, c, n, rng):
     succ = tt.succ1(di)
     assert succ.dtype == di.pos_dtype and torch.equal(succ, tt.succ1_plain(di))
     assert torch.equal(tt.succ1(di, row_major=True), succ.t())
-    cols = torch.from_numpy(rng.integers(0, di.n_nodes, size=999)).to(di.device)
-    chars = torch.from_numpy(rng.integers(0, 4, size=999)).to(di.device)
+    # forward: one char a node, nodes 0 and n - 1 by every char among them
+    ends = np.repeat([0, di.n_nodes - 1], 4)
+    cols = torch.from_numpy(np.concatenate([ends, rng.integers(0, di.n_nodes, size=999)])).to(di.device)
+    chars = torch.from_numpy(np.concatenate([np.tile(np.arange(4), 2),
+                                             rng.integers(0, 4, size=999)])).to(di.device)
+    name = kernels.lf_counter("forward", di.variant)
+    before = kernels.LAUNCHES[name]
     fwd = ts.forward_batch(di, cols, chars)
+    assert kernels.LAUNCHES[name] == before + 1
     assert fwd.dtype == di.pos_dtype
     assert torch.equal(fwd, ts.extend_from_column(di, cols, chars).to(di.pos_dtype))
 
@@ -139,6 +146,51 @@ def test_variant_turbo_kernels_equal_plain_versions(cuda, variant, k, p):
         assert torch.equal(got, lf)
     counters = [kernels.lf_counter(op, variant) for op in ("succ1", "turbo_stream", "partial_search")]
     assert all(kernels.LAUNCHES[name] > 0 for name in counters)
+
+
+@pytest.mark.parametrize("variant", VARIANT_NAMES[1:])
+@pytest.mark.parametrize("size,k", [(12, 5), (9000, 7), (40000, 6)])
+def test_succ1_spans_equal_plain_version(cuda, variant, size, k):
+    """succ1 over all columns of each compressed variant, by warp over spans
+    of 1024 columns 32 a step, against its plain version and plain-matrix's
+    kernel: fewer than 32 columns; column counts off 32 and off the span;
+    suffix groups that straddle a step's and a span's first column."""
+    rng = np.random.default_rng(800 + size + k)
+    g = "".join(rng.choice(list("ACGT"), size=size))
+    plain = SBWT.build([g], k, cuda)
+    di = plain.to_variant(variant).device_index
+    n = di.n_nodes
+    name = kernels.lf_counter("succ1", variant)
+    before = kernels.LAUNCHES[name]
+    succ = tt.succ1(di)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == before + 1
+    assert torch.equal(succ, tt.succ1_plain(di))
+    assert torch.equal(succ, tt.succ1(plain.device_index))
+    if size == 12:
+        assert n < 32
+        return
+    starts = np.asarray(plain.suffix_group_starts, dtype=bool)
+    straddle = [b for b in range(32, n, 32) if not starts[b]]
+    assert n % 32 and straddle
+    if n > 1024:
+        assert n % 1024 and any(b % 1024 == 0 for b in straddle)
+
+
+@pytest.mark.parametrize("variant", ["plain-concat", "mef-concat"])
+def test_dense_concat_succ1_agrees_with_oracle(cuda, variant):
+    """F1 at the card's span decode: every column holds all four chars, so
+    each is its own suffix group and rank(c, i) = i, as the string oracle
+    counts; the JAX package's select0 loses the ninth zero of such a
+    window."""
+    n = 3000
+    bits = np.ones((4, n), dtype=bool)
+    di = build_generic_index(variant, bits, np.ones(n, dtype=bool), 3, 0, cuda)
+    succ = tt.succ1(di)
+    C = di.C.tolist()
+    for c in range(4):
+        assert succ[c].tolist() == [C[c] + i for i in range(n)]
+    assert torch.equal(succ, tt.succ1_plain(di))
 
 
 def _offset_counts(wide, offset):
@@ -193,12 +245,15 @@ def test_wide_kernels_equal_plain_versions_and_narrow(cuda, k, p):
         assert torch.equal(fill, tm.precalc_fill_plain(shifted, 1)) and int(fill.max()) > 2**31
 
 
-@pytest.mark.parametrize("k,p", [(14, 6), (9, 9), (10, 7), (12, 8), (31, 13)])
+@pytest.mark.parametrize("k,p", [(14, 6), (9, 9), (10, 7), (12, 8), (31, 13), (30, 13),
+                                 (36, 12)])
 def test_fast_search_equals_plain_version(cuda, k, p):
     """fast_search on the narrow tables of arity 1-3 and the wide arity-1
-    one, against its plain version (k - p = 0, 1, 2, 3 and 4, 8, 18 mod
-    the arity); where needs_slow is false, ans is K1's search answer.
-    compute_dummy_node_marks launches succ1 once a BFS level."""
+    one, against its plain version (k - p = 0, 1, 2, 3 and 4, 8, 17, 18, 24
+    mod the arity; rows with N and lowercase); where needs_slow is false,
+    ans is K1's search answer; and on codes 1-15 bytes past a 16-byte
+    boundary, B not a multiple of 32. compute_dummy_node_marks launches
+    succ1 once a BFS level."""
     rng = np.random.default_rng(700 + k + p)
     g = "".join(rng.choice(list("ACGT"), size=4000)) + "ACGT" * 60
     sb = SBWT.build([g, g[500:900], g[2000:2040]], k, cuda, precalc_k=p)
@@ -221,6 +276,16 @@ def test_fast_search_equals_plain_version(cuda, k, p):
         assert torch.equal(ans, want[0]) and torch.equal(slow, want[1])
         assert torch.equal(ans[~slow].long(), want_search[~slow].long())
         assert 0 < int((ans >= 0).sum()) and int((ans == -1).sum()) > 0
+        for off in (1, 7, 15):
+            rows = km[: 4096 - 7 * off]
+            buf = torch.zeros(rows.numel() + 32, dtype=torch.int8, device=cuda)
+            at = (off - buf.data_ptr()) % 16
+            view = buf[at : at + rows.numel()].view(rows.shape)
+            view.copy_(rows)
+            assert view.data_ptr() % 16 == off and len(rows) % 32
+            got = tt.fast_search(turbo, view)
+            assert torch.equal(got[0], want[0][: len(rows)])
+            assert torch.equal(got[1], want[1][: len(rows)])
     before = kernels.LAUNCHES["succ1[plain-matrix]"]
     marks = sb.compute_dummy_node_marks()
     levels = kernels.LAUNCHES["succ1[plain-matrix]"] - before

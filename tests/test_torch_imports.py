@@ -228,12 +228,16 @@ def _wide_desc():
     lambda t: kernels.fast_search(t["rank"].long(), 1, t["pre"].long(), 1, t["codes"], 4),
     lambda t: kernels.answer_stats(t["rank"]),
     lambda t: kernels.answer_stats(t["rank"].long()),
+    lambda t: kernels.forward("plain-matrix", _rank_desc("plain-matrix"), t["sgs"], t["C"], 10,
+                              torch.zeros(2, dtype=torch.int32), torch.zeros(2, dtype=torch.int8)),
+    lambda t: kernels.forward("rrr-subsetwt", _rank_desc("rrr-subsetwt"), t["sgs"], t["C"], 10,
+                              torch.zeros(2, dtype=torch.int32), torch.zeros(2, dtype=torch.int8)),
 ], ids=["precalc_fill", "kmer_search", "succ1", "succ_compose", "seed_bits", "turbo_stream",
         "lf_stream", "variant_precalc_fill", "variant_kmer_search", "variant_partial_search",
         "variant_succ1", "variant_turbo_stream", "wide_seed_bits", "wide_precalc_fill",
         "sharded_kmer_search", "sharded_lf_stream", "turbo_stream_sharded_table",
         "succ_compose_column_range", "gather_chain", "shard_pointers", "fast_search",
-        "wide_fast_search", "answer_stats", "wide_answer_stats"])
+        "wide_fast_search", "answer_stats", "wide_answer_stats", "forward", "variant_forward"])
 def test_wrappers_refuse_cpu_tensors(call):
     tensors = {
         "rank": torch.zeros((4, 2), dtype=torch.int32),
@@ -250,10 +254,10 @@ def test_wrappers_refuse_cpu_tensors(call):
 
 def test_launch_counters_name_every_lf_instance():
     lf = [name for name in kernels.LAUNCHES if "[" in name]
-    # six ops on eleven rank types and two on the sharded one (K20a); the
+    # seven ops on eleven rank types and two on the sharded one (K20a); the
     # wide tier's seed bits, K20b, K20c, the narrow and wide fast_search and
     # the wide tier's answer stats have counters of their own
-    assert len(lf) == 6 * 11 + 2 + 3 + 2 + 1
+    assert len(lf) == 7 * 11 + 2 + 3 + 2 + 1
     assert set(kernels.FAST_SEARCH.values()) == {"fast_search[plain-matrix]",
                                                  f"fast_search[{kernels.WIDE}]"}
     for op in kernels.LF_OPS:
@@ -526,7 +530,7 @@ def test_copied_host_module_gives_the_jax_packages_bytes(module, tmp_path):
 
 
 def test_sharded_rank_type_refuses_the_ops_it_has_no_instance_of():
-    for op in ("precalc_fill", "partial_search", "succ1", "turbo_stream"):
+    for op in ("precalc_fill", "partial_search", "succ1", "turbo_stream", "forward"):
         with pytest.raises(ValueError, match=f"no {op} instance"):
             kernels._lf_launch(op, kernels.SHARDED, kernels.ShardedMatrixDesc(), None)
 
