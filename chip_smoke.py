@@ -97,10 +97,12 @@ Phases, one line each; any failure exits nonzero:
    K14's shared memory per block), and on a batch with lowercase, N
    and short lengths; each variant's K1 search on the 1M 30-mers and fill
    at p = 8, and its p = 12 table of phase 4 against the plain version's;
-   K19's four kernels at the genome build's shapes, the build's sorts, and
-   the build's time split by stage; succ1 and K4 of each compressed
+   K19's four kernels at the genome build's shapes (edge_src_probe beside
+   ``torch.searchsorted`` of its queries, its library time), the build's
+   sorts, and the build's time split by stage; succ1 and K4 of each compressed
    variant and partial_search of all eleven rank types; the wide kernels
-   at the 4M-column index (whole batches, beside the narrow times) and at
+   at the 4M-column index (whole batches, beside the narrow times; succ1
+   over all its columns, as the table build launches it) and at
    the giant's size (K14 on 2^16 reads, the others on 1M lanes; the giant
    can have no table, so wide K4 is held at 4M columns only); fast_search
    over each table on the 1M first k-mers of each mix;
@@ -1250,6 +1252,37 @@ def radix_sort_bytes(rows: int, columns: int) -> int:
     return columns * rows * (8 + 8 * 2 * 16)
 
 
+def searchsorted_probe(dv: torch.Tensor, k: int):
+    """The PyTorch yardstick of edge_src_probe for W <= 2: each k-mer's
+    (k-1)-prefix (pred) and each key with its first char cleared, packed as
+    one int64 with the sign bit flipped so that signed order is the
+    unsigned word order; then the lower bound of every pred by
+    ``torch.searchsorted`` in the masked list and the equality gather.
+    Returns the timed call (packing excluded) and its answer: bool [n],
+    whether each k-mer has a predecessor."""
+    from sbwt_tpu_torch.construct import device as td
+    from sbwt_tpu_torch.ops import bitvector as bv
+
+    n, W = dv.shape
+    if W > 2:
+        raise ValueError(f"searchsorted_probe: {W} key words do not fit one int64")
+    u = bv.word_u32(dv)
+    pred = (u << 2) & 0xFFFFFFFF
+    pred[:, :-1] |= u[:, 1:] >> 30
+
+    def pack(words):
+        low = words[:, 1] if W == 2 else torch.zeros_like(words[:, 0])
+        return ((words[:, 0] << 32) | low) ^ (-(1 << 63))
+
+    masked, queries = pack(td._drop_first(u, k)), pack(pred)
+
+    def call():
+        lb = torch.searchsorted(masked, queries)
+        return (lb < n) & (masked[lb.clamp(max=n - 1)] == queries)
+
+    return call, call()
+
+
 def compare_build_kernels(dev, genome, record):
     """K19's four kernels against their plain versions at the genome
     build's shapes, the build's sorts timed alone, and the whole build's
@@ -1275,12 +1308,20 @@ def compare_build_kernels(dev, genome, record):
     probe = kernels.edge_src_probe(dv, K)
     plain = td.edge_src_probe_plain(dv, K)
     groups = int(probe[1].sum())
-    # a search is ceil(log2 n) steps of W word compares; four a group start, one a k-mer
+    library, has_pred = searchsorted_probe(dv, K)
+    check(torch.equal(has_pred, ~probe[2]), "edge_src_probe: sources differ from torch.searchsorted's")
+    # bound: the keys read once and three bytes a k-mer written; operations,
+    # one W-word compare a merge step (four runs of the n list keys, and the
+    # n queries). Beside it, the operations of the binary searches the merge
+    # replaced: ceil(log2 n) steps of W word compares, four a group start
+    # and one a k-mer.
     record("edge_src_probe", sum(max_abs_err(a, b) for a, b in zip(probe, plain)),
            cuda_ms(lambda: kernels.edge_src_probe(dv, K), 5),
            cuda_ms(lambda: td.edge_src_probe_plain(dv, K), 1),
-           nbytes(dv, *probe), (4 * groups + n) * n.bit_length() * 4 * W,
-           shape=tuple(dv.shape), group_starts=groups, sources=int(probe[2].sum()))
+           nbytes(dv, *probe), 5 * n * W, library_ms=cuda_ms(library, 5),
+           shape=tuple(dv.shape), group_starts=groups, sources=int(probe[2].sum()),
+           binary_search_ops_bound_ms=bound_ms(0, (4 * groups + n) * n.bit_length() * 4 * W),
+           library="torch.searchsorted of the sign-flipped int64 keys, and the equality gather")
     src = dv[probe[2]]
     del plain
 
@@ -1677,6 +1718,20 @@ def compare_wide_kernels_4m(dev, sbwt, wsb, runs, record):
            cuda_ms(k_sb, 5), cuda_ms(lambda: tt.seed_bits_plain(wide.precalc, p), 1),
            *seed_bits_work(wide.precalc, wturbo.seed_bits, p),
            shape=tuple(wturbo.seed_bits.shape), narrow_ms=cuda_ms(lambda: kernels.seed_bits(di.precalc, p), 5))
+    # succ1 over all columns, as the forced-wide table build launched it (the
+    # kernels line keeps the giant's 1M sampled columns)
+    k_s1 = lambda: tt.succ1(wide, row_major=True)
+    succ = k_s1()
+    check(torch.equal(succ, wturbo.tbl), "wide succ1 over all columns: rerun differs from the table")
+    plain, plain_ms = timed_ms(lambda: tt.succ1_plain(wide))
+    err = max_abs_err(succ, plain.t().contiguous())
+    check(err == 0, "wide succ1 over all columns: kernel differs from its plain version")
+    del plain
+    say("kernel", name=f"succ1[{WIDE}]", columns="all", n_columns=wide.n_nodes,
+        shape=tuple(succ.shape), max_abs_err=err, ms=cuda_ms(k_s1, 5), plain_ms=plain_ms,
+        bound_ms=bound_ms(*succ_work(wide.size_in_bytes(), wide.sgs_tbl, succ)),
+        narrow_ms=cuda_ms(lambda: tt.succ1(di), 5))
+    del succ
     km = torch.from_numpy(np.ascontiguousarray(runs["hit98"][0][:, :K])).to(dev)
     err = max_abs_err(ts.search_batch(wide, km), ts.search_batch_plain(wide, km))
     check(err == 0, "wide kmer_search at 4M columns: kernel differs from its plain version")

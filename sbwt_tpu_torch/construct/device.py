@@ -18,9 +18,12 @@ Not carried over from the JAX program, whose shape follows XLA's limits:
   padding word: the tables equal ``models.matrix.from_host_arrays`` of the
   host build word for word. ``src_pad`` only keeps the JAX package's
   ``ValueError`` for callers that set a budget.
-* membership in the sorted distinct k-mer list is a W-word binary search
-  per query inside ``edge_src_probe``, not five concatenate-and-sort
-  passes.
+* membership in the sorted distinct k-mer list is not five
+  concatenate-and-sort passes: the ``edge_src_probe`` kernel merges the
+  k-mers' predecessor keys, four sorted runs by last char, against the
+  list of (k-1)-suffixes once, and one lower bound a k-mer gives its
+  source bit and its group's edge bit (csrc/build_sbwt.cu); its plain
+  version runs a W-word binary search per query.
 
 Four stages are hand-written CUDA kernels (csrc/build_sbwt.cu), each with
 its plain PyTorch version here: ``pack_windows``, ``edge_src_probe``,

@@ -89,6 +89,10 @@ int launch_rank_op(int op, const void* rank_desc, const LFArgs* args, void* stre
         case kPartialSearch:
             return launch_partial_search(rk, a, s);
         case kSucc1:
+            if constexpr (SuccRound<R>::value) {
+                succ1_wide_kernel<R><<<grid, kBlock, 0, s>>>(rk, a);
+                break;
+            }
             if constexpr (SuccSpan<R>::value) {
                 if (a.aux == nullptr) {
                     const int64_t warps = (a.B + kSuccSpan - 1) / kSuccSpan;

@@ -1,6 +1,8 @@
 // K2 succ1 as a template over the rank type R of subset_rank.cuh: the
 // out-edges of columns, one thread per column, or, over all columns of a
-// compressed rank type, by warp over whole-table spans (succ1_span_kernel).
+// compressed rank type, by warp over whole-table spans (succ1_span_kernel),
+// or, on the wide tier, one thread a column with the column's rows
+// requested in one round (succ1_wide_kernel).
 //
 // Replaces the XLA programs of sbwt_tpu/ops/turbo.py _succ1 (:294) over a
 // MatrixIndex or any variant's GenericIndex, and, for WideMatrix, K18c: the
@@ -38,7 +40,8 @@ namespace sbwt {
 
 // Whether succ1 over all columns of R runs by span: the nine compressed
 // types. PlainMatrix's one row a rank is within 2x of its bound one thread a
-// column; the wide tier's and the sharded type's stay as they are.
+// column; the wide tier has its own kernel (SuccRound) and the sharded type
+// stays as it is.
 template <class R>
 struct SuccSpan {
     static constexpr bool value = false;
@@ -57,6 +60,18 @@ struct SuccSpan<ConcatRank<BV>> {
 };
 template <class BV>
 struct SuccSpan<SubsetWTRank<BV>> {
+    static constexpr bool value = true;
+};
+
+// Whether succ1 of R loads a column's rows in one round
+// (succ1_wide_kernel): the wide tier, whose columns in the giant's use are
+// random over a 6.4 GB table, so that each load is a trip to device memory.
+template <class R>
+struct SuccRound {
+    static constexpr bool value = false;
+};
+template <>
+struct SuccRound<WideMatrix> {
     static constexpr bool value = true;
 };
 
@@ -140,6 +155,69 @@ __global__ void __launch_bounds__(kSuccWarps * 32) succ1_span_kernel(R rk, LFArg
             }
             if (col < n) out[a.row_major ? (int64_t)col * 4 + c : (int64_t)c * n + col] = bit ? Cl[c] + r : -1;
         }
+    }
+}
+
+// Row r of the wide rank table as (bits word, cum). A row is 12 bytes:
+// three 4-byte loads beat one aligned 8-byte and one 4-byte load, which
+// needs the row's parity to pick the pair (tools/succ_ab.py; PERF.md).
+struct WideRow {
+    unsigned word;
+    int64_t cum;
+};
+
+__device__ __forceinline__ WideRow wide_row(const int* __restrict__ tbl, int64_t r) {
+    const int* row = tbl + 3 * r;
+    return WideRow{(unsigned)row[0], ((int64_t)row[2] << 32) | (unsigned)row[1]};
+}
+
+// succ1 of the wide tier, one thread a column. A column's suffix group
+// starts within 3 columns before it, so almost always in the column's own
+// word w: the suffix-group row and the four rank rows of word w are
+// requested together, in one round of loads (succ1_kernel waits for the
+// suffix-group row before it asks for any rank row). Where the group began
+// in word w - 1 (col & 31 < 3 only), rank(s) is word w's cum less the bits
+// of word w - 1 from s on, so only those four words are loaded again.
+// Padding lanes read column 0 and store nothing. Two and four columns a
+// thread, to keep more loads in flight, were slower on an H100.
+template <class R>
+__global__ void __launch_bounds__(kBlock) succ1_wide_kernel(R rk, LFArgs a) {
+    static_assert(SuccRound<R>::value, "succ1_wide_kernel reads WideMatrix rows");
+    const int64_t i = (int64_t)blockIdx.x * kBlock + threadIdx.x;
+    const int64_t col =
+        i >= a.B ? 0 : (a.aux != nullptr ? static_cast<const int64_t*>(a.aux)[i] : i);
+    const int64_t w = col >> 5;
+    const int2 sg = sg_row(rk, a.sgs_tbl, w);
+    WideRow row[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) row[c] = wide_row(rk.rank_tbl, c * rk.n_words + w);
+    const int64_t s = sg_start_in(sg, col);
+    const unsigned o = (unsigned)s & 31u;
+    const CArray<int64_t> Cl(a.C);
+    int64_t succ[4];
+    if ((s >> 5) == w) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+            const unsigned word = row[c].word;
+            succ[c] = (word >> o) & 1u ? Cl[c] + row[c].cum + __popc(word & ((1u << o) - 1u))
+                                       : (int64_t)-1;
+        }
+    } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+            const unsigned h = (unsigned)rk.rank_tbl[3 * (c * rk.n_words + w - 1)] >> o;
+            succ[c] = h & 1u ? Cl[c] + row[c].cum - __popc(h) : (int64_t)-1;
+        }
+    }
+    if (i >= a.B) return;
+    int64_t* out = static_cast<int64_t*>(a.out);
+    if (a.row_major) {
+        longlong2* dst = reinterpret_cast<longlong2*>(out + i * 4);
+        dst[0] = make_longlong2(succ[0], succ[1]);
+        dst[1] = make_longlong2(succ[2], succ[3]);
+    } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) out[c * a.B + i] = succ[c];
     }
 }
 

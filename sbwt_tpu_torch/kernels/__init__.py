@@ -123,7 +123,10 @@ _SIGNATURES = {
     # (k, rank type): K14's
     "sbwt_lf_smem_bytes": [_I, _I],
     "sbwt_pack_windows": [_I, _P, _LL, _I, _P, _P, _P],
-    "sbwt_edge_src_probe": [_I, _P, _I, _I, _P, _P, _P, _P],
+    # (device, keys, n, k, edges, gstart, is_src, scratch, stream)
+    "sbwt_edge_src_probe": [_I, _P, _I, _I, _P, _P, _P, _P, _P],
+    # (k): the list keys a block of edge_src_probe takes at most
+    "sbwt_edge_src_share": [_I],
     "sbwt_emit_dummies": [_I, _P, _LL, _I, _P, _P, _P, _P],
     "sbwt_finalize_tables": [_I, _P, _P, _P, _LL, _I, _LL, _P, _P, _P, _P],
     # (device, PlainMatrix*, ShardedTable*, LFArgs*, stream)
@@ -727,17 +730,28 @@ def edge_src_probe(keys, k: int):
     predecessor in the set)."""
     dev = _cuda_device(keys)
     n = keys.shape[0]
-    edges = torch.empty(n, dtype=torch.uint8, device=dev)
+    # the kernel ORs each edge bit into its 4-byte word: whole words, aligned
+    edges = torch.empty(-(-n // 4) * 4, dtype=torch.uint8, device=dev)[:n]
     gstart = torch.empty(n, dtype=torch.bool, device=dev)
     is_src = torch.empty(n, dtype=torch.bool, device=dev)
     if n == 0:
         return edges, gstart, is_src
+    # every partition's split and the run starts (merge_parts in build_sbwt.cu)
+    parts = -(-2 * n // edge_src_share(k))
+    scratch = torch.empty(4 * (parts + 1) + 4, dtype=torch.int64, device=dev)
     _launch("sbwt_edge_src_probe", "edge_src_probe", dev,
             _check(keys, "keys", torch.int32, dev, (n, key_words(k))), n, k,
-            _check(edges, "edges", torch.uint8, dev, align=1),
+            _check(edges, "edges", torch.uint8, dev),
             _check(gstart, "gstart", torch.bool, dev, align=1),
-            _check(is_src, "is_src", torch.bool, dev, align=1))
+            _check(is_src, "is_src", torch.bool, dev, align=1),
+            _check(scratch, "scratch", torch.int64, dev, align=8))
     return edges, gstart, is_src
+
+
+def edge_src_share(k: int) -> int:
+    """The list keys one block of the edge_src_probe kernel takes at most
+    at this k: its merge partitions are ceil(2 n / share) a run."""
+    return _library().sbwt_edge_src_share(k)
 
 
 def emit_dummies(src, k: int):

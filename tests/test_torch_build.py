@@ -6,6 +6,8 @@ Held against the port's own host build, the JAX package's device build
 (tests/oracle.py). Inputs come from numpy seeds; every output is an
 integer, so each comparison is exact (tolerance 0).
 """
+import bisect
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -187,18 +189,69 @@ def test_membership_matches_jax_member_sorted(k):
     assert got[:60].all() and not got.all()
 
 
-@pytest.mark.parametrize("k", [4, 9, 16, 31, 32, 33, 64])
-def test_edge_src_probe_plain_matches_jax_stages(k):
-    """Suffix-group starts, edges and sources as stages :221-245 of the JAX
-    program compute them, on a de Bruijn-like set with shared suffixes."""
+def _probe_input(k):
+    """Sorted distinct k-mers of a de Bruijn-like set with shared suffixes."""
     rng = np.random.default_rng(70 + k)
     text = "".join(rng.choice(list("AC" if k < 8 else "ACGT"), size=400))
     codes = td.prepare_device_codes([text, text[50:120] + "G" + text[121:180]], k, "cpu")
     keys, valid = td.pack_windows_plain(codes, k)
     keys = keys[valid]
     keys = keys[td.colex_order(keys)]
-    dv = keys[td._differs_from_left(keys)]
+    return keys[td._differs_from_left(keys)]
+
+
+def _merge_identity(dv, k):
+    """edge_src_probe's outputs as the kernel's sorted merge derives them,
+    each key an integer (word 0 most significant): the lower bound of
+    pred(j) = the key without its last char, shifted up one char, in the
+    list with every key's first char cleared. Checks on the way that pred
+    is strictly increasing within each run of equal last char and that a
+    lower bound that equals pred(j) is a suffix-group start. Returns uint8
+    edges, bool group starts, bool sources, as numpy arrays."""
+    W = dv.shape[1]
+    bits = 32 * W
+    first = 32 * (W - 1 - ((k - 1) >> 4)) + 30 - 2 * ((k - 1) & 15)
+    vals = [sum(int(w) << (32 * (W - 1 - j)) for j, w in enumerate(row)) for row in _u32(dv)]
+    masked = [v & ~(3 << first) for v in vals]
+    pred = [(v << 2) & ((1 << bits) - 1) for v in vals]
+    last = [v >> (bits - 2) for v in vals]
+    n = len(vals)
+    assert all(last[j] < last[j + 1] or pred[j] < pred[j + 1] for j in range(n - 1))
+    gstart = np.array([i == 0 or masked[i] != masked[i - 1] for i in range(n)])
+    edges = np.zeros(n, dtype=np.uint8)
+    is_src = np.ones(n, dtype=bool)
+    for j in range(n):
+        lb = bisect.bisect_left(masked, pred[j])
+        if lb < n and masked[lb] == pred[j]:
+            assert gstart[lb]
+            edges[lb] |= 1 << last[j]
+            is_src[j] = False
+    return edges, gstart, is_src
+
+
+@pytest.mark.parametrize("k", [4, 16, 17, 30, 33, 64, 255])
+def test_edge_src_merge_identity(k):
+    """The identity the edge_src_probe kernel's merge rests on: one lower
+    bound a k-mer gives the edges, group starts and sources of the plain
+    version (held to the JAX stages in the test below)."""
+    dv = _probe_input(k)
+    edges, gstart, is_src = _merge_identity(dv, k)
+    want = td.edge_src_probe_plain(dv, k)
+    np.testing.assert_array_equal(edges, want[0].numpy())
+    np.testing.assert_array_equal(gstart, want[1].numpy())
+    np.testing.assert_array_equal(is_src, want[2].numpy())
+    assert edges.any() and not is_src.all()
+
+
+@pytest.mark.parametrize("k", [4, 9, 16, 31, 32, 33, 64])
+def test_edge_src_probe_plain_matches_jax_stages(k):
+    """Suffix-group starts, edges and sources as stages :221-245 of the JAX
+    program compute them, on a de Bruijn-like set with shared suffixes; the
+    kernel's merge identity gives the same."""
+    dv = _probe_input(k)
     edges, gstart, is_src = td.edge_src_probe_plain(dv, k)
+    for got, want in zip(_merge_identity(dv, k), (edges, gstart, is_src)):
+        np.testing.assert_array_equal(got, want.numpy())
     n = len(dv)
     ws = _jax_words(dv)
     sf = jd._drop_first(ws, k)

@@ -5,6 +5,8 @@ with one and no JAX, run
 ``python -m pytest --noconftest tests/test_torch_cuda.py -q``. Inputs come
 from numpy seeds; every output is an integer, so equality is exact.
 """
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -334,6 +336,121 @@ def test_build_kernels_equal_plain_versions(cuda, k):
         _same(kernels.finalize_tables(a_keys, a_len, a_edges, k, streaming),
               td.finalize_tables_plain(a_keys, a_len, a_edges, k, streaming))
     torch.cuda.synchronize()
+
+
+def _random_kmer_keys(rng, n, k, dev, last=None):
+    """n of the distinct k-mers of a random text, as sorted key rows int32
+    [n, W] on dev: about half have their predecessor among them. With
+    ``last``, a text mostly of G and the k-mers ending in G only."""
+    size = 3 * n + k + 64
+    if last is None:
+        text = rng.integers(0, 4, size=size).astype(np.int8)
+    else:
+        text = rng.choice(np.array([0, 2], np.int8), p=[0.25, 0.75], size=size)
+    keys, valid = td.pack_windows_plain(torch.from_numpy(text), k)
+    keys = keys[valid]
+    if last is not None:
+        keys = keys[(bv.word_u32(keys[:, 0]) >> 30) == last]
+    keys = keys[td.colex_order(keys)]
+    keys = keys[td._differs_from_left(keys)]
+    pick = np.sort(rng.choice(len(keys), size=n, replace=False))
+    return keys[torch.from_numpy(pick)].to(dev)
+
+
+@pytest.mark.parametrize("case", ["n1", "half_share", "half_share_plus_1", "share",
+                                  "share_plus_1", "one_run", "complete_k4", "one_read",
+                                  "off_16_bytes", "k255", "k255_share_plus_1"])
+def test_edge_src_probe_merge_partitions(cuda, case):
+    """The edge_src_probe kernel, one sorted merge of four query runs
+    against the masked list in partitions of at most one block's share,
+    against its plain version where the partition is stressed: one key;
+    2n just at and past one share (one partition a run, then two), n at
+    and past it; every k-mer ending in G (one run, three empty); the
+    complete k = 4 graph (256 keys, no source, every group full); one long
+    read (one source); keys 4 bytes off a 16-byte boundary (the window
+    staged word by word); k = 255."""
+    rng = np.random.default_rng(1200 + len(case))
+    k = 255 if case.startswith("k255") else 4 if case == "complete_k4" else 30
+    share = kernels.edge_src_share(k)
+    if case == "complete_k4":
+        dv = td.sorted_distinct_kmers(td.prepare_device_codes(
+            ["".join(p) for p in itertools.product("ACGT", repeat=4)], 4, cuda), 4)
+        assert len(dv) == 256
+    elif case in ("one_read", "k255"):
+        g = "".join(rng.choice(list("ACGT"), size=20000 if case == "one_read" else 3000))
+        dv = td.sorted_distinct_kmers(td.prepare_device_codes([g], k, cuda), k)
+    elif case == "off_16_bytes":
+        dv = _random_kmer_keys(rng, share + 7, 16, cuda)[1:]
+        k = 16
+        assert dv.data_ptr() % 16 == 4
+    else:
+        n = {"n1": 1, "half_share": share // 2, "half_share_plus_1": share // 2 + 1,
+             "share": share, "share_plus_1": share + 1, "one_run": 3 * share + 5,
+             "k255_share_plus_1": share + 1}[case]
+        dv = _random_kmer_keys(rng, n, k, cuda, last=2 if case == "one_run" else None)
+    before = kernels.LAUNCHES["edge_src_probe"]
+    got = kernels.edge_src_probe(dv, k)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["edge_src_probe"] == before + 1
+    want = td.edge_src_probe_plain(dv, k)
+    _same(got, want)
+    edges, gstart, is_src = want
+    if case == "complete_k4":
+        assert not is_src.any() and bool((edges[gstart] == 15).all()) and int(gstart.sum()) == 64
+    if case == "one_read":
+        assert int(is_src.sum()) == 1
+    if case == "one_run":
+        assert bool((edges[edges > 0] == 4).all()) and edges.any()
+
+
+@pytest.fixture(scope="module")
+def wide_succ_index(cuda):
+    """A small index on the wide tier whose suffix groups straddle word
+    boundaries, with its suffix-group starts."""
+    rng = np.random.default_rng(1300)
+    g = "".join(rng.choice(list("ACGT"), size=9000))
+    sb = SBWT.build([g], 6, cuda)
+    narrow = sb.device_index
+    words = np.stack([bv.pack_bits_host(row) for row in sb.bits])
+    wide = from_packed_rows_wide(words, narrow.n_nodes, bv.pack_bits_host(sb.suffix_group_starts),
+                                 6, narrow.n_kmers, cuda)
+    return wide, np.asarray(sb.suffix_group_starts, dtype=bool)
+
+
+@pytest.mark.parametrize("row_major", [True, False])
+@pytest.mark.parametrize("cols", ["all", "reversed", "repeats", "word_start_straddles", "last",
+                                  "odd_count"])
+def test_succ1_wide_rounds_equal_plain_version(wide_succ_index, cols, row_major):
+    """succ1 of the wide tier, a column's suffix-group row and rank rows in
+    one round of loads, against its plain version: all columns, reversed,
+    with repeats; columns 32m .. 32m + 2 whose group began in the word
+    before (the previous word's rows loaded again); the last column alone;
+    a count that is not a multiple of a block (padding lanes)."""
+    wide, starts = wide_succ_index
+    n = wide.n_nodes
+    dev = wide.device
+    rng = np.random.default_rng(1301)
+    if cols == "all":
+        c = None
+    elif cols == "reversed":
+        c = torch.arange(n - 1, -1, -1, device=dev)
+    elif cols == "repeats":
+        c = torch.from_numpy(rng.integers(0, n, size=3 * n)).to(dev)
+    elif cols == "word_start_straddles":
+        heads = [b for b in range(32, n, 32) if not starts[b]]
+        assert len(heads) > 10
+        c = torch.tensor([b + d for b in heads for d in range(3) if b + d < n], device=dev)
+    elif cols == "last":
+        c = torch.tensor([n - 1], device=dev)
+    else:
+        c = torch.from_numpy(rng.integers(0, n, size=1001)).to(dev)
+    before = kernels.LAUNCHES[f"succ1[{kernels.WIDE}]"]
+    got = tt.succ1(wide, c, row_major=row_major)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[f"succ1[{kernels.WIDE}]"] == before + 1
+    want = tt.succ1_plain(wide, c)
+    assert got.dtype == torch.int64
+    assert torch.equal(got, want.t().contiguous() if row_major else want)
 
 
 @pytest.mark.parametrize("k,n_seqs,size", [(7, 1, 3000), (30, 3, 4000), (32, 40, 150),
