@@ -304,26 +304,40 @@ def ptxas_lines(log: str) -> list:
     return out
 
 
-# each rank type as it stands in the kernels' mangled entry points
+# each rank type as it stands in the kernels' mangled entry points (regular
+# expressions: K14 runs rrr-subsetwt as SubsetWTRank<RRR15Staged>)
 MANGLED = {"plain-matrix": "11PlainMatrix", "rrr-matrix": "10MatrixRankINS_5RRR15",
            "mef-matrix": "10MatrixRankINS_3MEF", "plain-split": "9SplitRankINS_7PlainBV",
            "rrr-split": "9SplitRankINS_5RRR15", "mef-split": "9SplitRankINS_3MEF",
            "plain-concat": "10ConcatRankINS_7PlainBV", "mef-concat": "10ConcatRankINS_5RRR15",
            "plain-subsetwt": "12SubsetWTRankINS_7PlainBV",
-           "rrr-subsetwt": "12SubsetWTRankINS_5RRR15", WIDE: "10WideMatrix",
+           "rrr-subsetwt": "12SubsetWTRankINS_(?:5RRR15|11RRR15Staged)", WIDE: "10WideMatrix",
            "sharded-matrix": "13ShardedMatrix"}
 SEARCH_OPS = ("kmer_search", "partial_search")  # the kernels whose records carry their registers
+# and every rank-templated kernel (kernels.LF_OPS) of these rank types: RRR15
+# and ConcatRank inside
+RANK_OPS = ("lf_stream", "precalc_fill", "kmer_search", "partial_search", "succ1", "turbo_stream",
+            "forward")
+REGISTER_RANK_TYPES = ("rrr-matrix", "rrr-split", "plain-concat", "mef-concat", "rrr-subsetwt")
+
+
+def carries_registers(name: str) -> bool:
+    op, _, rank_type = name[:-1].partition("[")
+    return op in SEARCH_OPS or (op in RANK_OPS and rank_type in REGISTER_RANK_TYPES)
 
 
 def instance_registers(regs: list, name: str) -> dict:
-    """Registers and spill bytes of the entry point of one search kernel's
-    instance ``op[rank type]``: the staged form's or, where the rank type
-    keeps it, the one-thread-a-lane form's (one of the two is compiled)."""
+    """Registers and spill bytes of the entry points of one rank-templated
+    kernel's instance ``op[rank type]``: the most registers and the spill
+    bytes summed over them. A search kernel has one (its staged form or,
+    where the rank type keeps it, its one-thread-a-lane form), the fill one
+    a subtree depth, succ1 its span form beside its one-a-column form."""
     op, rank_type = name[:-1].split("[")
-    pattern = re.compile(rf"\d+{op}(_lane)?_kernelINS_{MANGLED[rank_type]}E")
+    pattern = re.compile(rf"\d+{op}(_lane|_span)?_kernelI(Li\d+E)?NS_{MANGLED[rank_type]}E")
     found = [(r, s) for entry, r, s in regs if pattern.search(entry)]
-    check(len(found) == 1, f"{name}: {len(found)} entry points in the ptxas log")
-    return {"registers": found[0][0], "spill_bytes": found[0][1]}
+    check(len(found) >= 1 and (op not in SEARCH_OPS or len(found) == 1),
+          f"{name}: {len(found)} entry points in the ptxas log")
+    return {"registers": max(r for r, _ in found), "spill_bytes": sum(s for _, s in found)}
 
 
 def nvidia_smi_line() -> str:
@@ -1390,7 +1404,7 @@ def recorder(launches: dict, card: str, regs: list):
                          "bound_by": "bytes" if moved / HBM_BYTES_PER_S >= ops / ALU_OPS_PER_S
                          else "operations",
                          "library_ms": library_ms}
-        if name.split("[")[0] in SEARCH_OPS:
+        if carries_registers(name):
             extra = {**instance_registers(regs, name), **extra}
         say("kernel", name=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
             bound_ms=results[name]["bound_ms"], bound_by=results[name]["bound_by"],

@@ -117,11 +117,15 @@ struct CArray {
 };
 
 // One LF step of [l, r] by char c (SBWT.hh:430-433); false, with (l, r)
-// unchanged, when the interval empties.
-template <class R, class P = typename R::pos_t>
+// unchanged, when the interval empties. kPair: a singleton's two ranks by
+// one rank_pair (K14's and K4's restarts); K1's fill takes them down the
+// same path as a wider interval's, so that a warp's singletons and wider
+// intervals do not diverge: the fill at p = 12 ran 1.0-3.6x faster so on
+// an H100, where K14's restarts on ConcatRank lost 14-33% (PERF.md).
+template <bool kPair = true, class R, class P = typename R::pos_t>
 __device__ __forceinline__ bool lf_step_r(const R& rk, const CArray<P>& Cl, int c, P& l, P& r) {
     P a, b;
-    if (l == r) {
+    if (kPair && l == r) {
         const auto q = rk.rank_pair(c, l);
         a = q.x;
         b = q.y;
@@ -199,16 +203,17 @@ __device__ __forceinline__ P search_from_seed(const R& rk, const LFArgs& a, cons
     return l;  // a found k-mer's interval is a singleton (SBWT.hh:410-414)
 }
 
-// Launch shape of K14 over rank type R: `warps` warps a block, each
-// owning 32 consecutive reads, walked `tile` positions at a time;
-// `min_blocks` blocks an SM cap nvcc's registers at
+// Launch shape of K14 over rank type R (StagedRank's): `warps` warps a
+// block, each owning 32 consecutive reads, walked `tile` positions at a
+// time; `min_blocks` blocks an SM cap nvcc's registers at
 // 65536 / (32 * warps * min_blocks) a thread. Chosen by sweeps on an H100
 // (tools/lf_ab.py; PERF.md): tiles of 16, 4 warps and at most 64 registers
 // for most rank types; the wide tier's int64 answers run faster in tiles
-// of 8, and the two RRR wavelet-tree ranks, whose ranks are long chains of
-// dependent loads, with at most 48 registers and 1,280 threads an SM
-// (staged, these two stay 1.5-5% behind one lane a read in one of the
-// two mixes in every shape tried).
+// of 8; mef-concat, whose ranks are long chains of dependent loads, with
+// at most 56 registers and 1,152 threads an SM (48 spilled 8 bytes and ran
+// 2.5% faster at hit0, 64 ran 4% slower; PERF.md); the staged pattern
+// table's 64 KB leave one block an SM, so that block is 32 warps (fewer
+// where a long k's tiles would not fit).
 template <class R>
 struct LFShape {
     static constexpr int warps = 4, tile = 16, min_blocks = 8;
@@ -217,22 +222,44 @@ template <>
 struct LFShape<WideMatrix> {
     static constexpr int warps = 4, tile = 8, min_blocks = 8;
 };
-struct LFShapeRRRWavelet {
-    static constexpr int warps = 4, tile = 16, min_blocks = 10;
+template <>
+struct LFShape<ConcatRank<RRR15>> {
+    static constexpr int warps = 4, tile = 16, min_blocks = 9;
 };
 template <>
-struct LFShape<ConcatRank<RRR15>> : LFShapeRRRWavelet {};
-template <>
-struct LFShape<SubsetWTRank<RRR15>> : LFShapeRRRWavelet {};
+struct LFShape<SubsetWTRank<RRR15Staged>> {
+    static constexpr int warps = 32, tile = 16, min_blocks = 1;
+};
 
 // K14's window: a tile's positions and the k - 1 chars after its last
 __host__ __device__ __forceinline__ int lf_window(int tile, int k) { return tile + k - 1; }
 
-// Dynamic shared memory of one K14 block over R at k
+// The shared memory an H100 block may take once its limit is raised
+constexpr int kMaxBlockSmem = 232448;
+
+// Warps of a K14 block over R (StagedRank's) at k: LFShape's, halved
+// while the staged pattern table and the tiles would not fit a block
+template <class R>
+__host__ __device__ __forceinline__ int lf_warps(int k) {
+    using S = LFShape<R>;
+    int w = S::warps;
+    if (StagesPatterns<R>::value) {
+        while (w > 1 && kPatternTableBytes + tile_smem_bytes<typename R::pos_t>(
+                                                 w, S::tile, lf_window(S::tile, k)) >
+                            kMaxBlockSmem) {
+            w >>= 1;
+        }
+    }
+    return w;
+}
+
+// Dynamic shared memory of one K14 block over the variant's rank type R at k
 template <class R>
 __host__ __device__ __forceinline__ int lf_smem_bytes(int k) {
-    using S = LFShape<R>;
-    return tile_smem_bytes<typename R::pos_t>(S::warps, S::tile, lf_window(S::tile, k));
+    using K = typename StagedRank<R>::type;
+    using S = LFShape<K>;
+    return tile_smem_bytes<typename K::pos_t>(lf_warps<K>(k), S::tile, lf_window(S::tile, k)) +
+           (StagesPatterns<K>::value ? kPatternTableBytes : 0);
 }
 
 // One warp per 32 consecutive reads. For each tile of positions the warp
@@ -245,8 +272,16 @@ template <class R>
 __global__ void __launch_bounds__(LFShape<R>::warps * 32, LFShape<R>::min_blocks)
     lf_stream_kernel(R rk, LFArgs a) {
     using P = typename R::pos_t;
-    constexpr int T = LFShape<R>::tile, W = LFShape<R>::warps;
+    constexpr int T = LFShape<R>::tile;
+    const int W = StagesPatterns<R>::value ? (int)(blockDim.x >> 5) : LFShape<R>::warps;
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    extern __shared__ __align__(16) unsigned char smem_base[];
+    unsigned char* smem = smem_base;
+    if constexpr (StagesPatterns<R>::value) {
+        stage_patterns();
+        __syncthreads();
+        smem += kPatternTableBytes;
+    }
     const int64_t b0 = ((int64_t)blockIdx.x * W + warp) * 32;
     if (b0 >= a.B) return;  // the whole warp
     const int nrows = (int)min((int64_t)32, (int64_t)(a.B - b0));
@@ -256,7 +291,6 @@ __global__ void __launch_bounds__(LFShape<R>::warps * 32, LFShape<R>::min_blocks
     const int n_pos = lane < nrows ? max(0, min(P_out, a.lengths[b] - k + 1)) : 0;
     const int win = lf_window(T, k);
     const int chunks = tile_code_chunks(win), row_bytes = tile_code_row_bytes(win);
-    extern __shared__ __align__(16) unsigned char smem[];
     int8_t* st = reinterpret_cast<int8_t*>(smem) + warp * 32 * row_bytes;
     P* sa = reinterpret_cast<P*>(smem + W * 32 * row_bytes) + warp * 32 * (T + 1);
     P* out = static_cast<P*>(a.out);
@@ -331,14 +365,14 @@ __device__ __forceinline__ void fill_below(const R& rk, const CArray<P>& Cl, P l
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
             P cl = l, cr = r;
-            const bool child = live && lf_step_r(rk, Cl, c, cl, cr);
+            const bool child = live && lf_step_r<false>(rk, Cl, c, cl, cr);
             fill_below<0>(rk, Cl, cl, cr, child, out + c * stride, 4 * stride);
         }
     } else {
 #pragma unroll 1
         for (int c = 0; c < 4; ++c) {
             P cl = l, cr = r;
-            const bool child = live && lf_step_r(rk, Cl, c, cl, cr);
+            const bool child = live && lf_step_r<false>(rk, Cl, c, cl, cr);
             fill_below<D - 1>(rk, Cl, cl, cr, child, out + c * stride, 4 * stride);
         }
     }
@@ -359,7 +393,7 @@ __global__ void precalc_fill_kernel(R rk, LFArgs a) {
     const CArray<P> Cl(a.C);
     P l = 0, r = (P)a.n_nodes - 1;
     bool live = true;
-    for (int j = 0; j < above && live; ++j) live = lf_step_r(rk, Cl, (int)((t >> (2 * j)) & 3), l, r);
+    for (int j = 0; j < above && live; ++j) live = lf_step_r<false>(rk, Cl, (int)((t >> (2 * j)) & 3), l, r);
     fill_below<D>(rk, Cl, l, r, live, static_cast<pair_t<P>*>(a.out) + t, n_threads);
 }
 
@@ -376,13 +410,14 @@ constexpr int kSearchWarps = 4, kSearchTile = 16;
 // keeps its one-thread-a-lane form (the lane's row read byte by byte from
 // global memory). Chosen by A/B turns on an H100 (tools/search_ab.py;
 // PERF.md): staged, kmer_search won 2-14% and partial_search 0.3-9% on
-// the other rank types, and they lost 0.3-14% where the ranks read RRR
-// blocks (whose tables want the L1 that the staged rows take), on
-// plain-concat's partial search and on the giant's (wide). A pool of 64
-// with unified steps won 15% on mef-concat's partial search, whose
-// rank_pair is two tree ranks anyway, and lost 0.5-50% elsewhere: a
-// refilled lane starts from the full interval while the others step
-// singletons, and without unified steps the two paths diverge.
+// the other rank types, and partial_search lost 4-9% where the ranks read
+// RRR blocks (swept again with the patterns decoded in registers, so not
+// for want of L1 by a table), on plain-concat and on the giant (wide);
+// kmer_search staged on rrr-matrix won 10% but spilled 32 bytes. A pool
+// of 64 with unified steps won 15% on mef-concat's partial search and lost
+// 0.5-50% elsewhere: a refilled lane starts from the full interval while
+// the others step singletons, and without unified steps the two paths
+// diverge.
 struct SearchStaged {
     static constexpr int pool = 1;
     static constexpr bool unified = false, kmer_staged = true, partial_staged = true;
@@ -410,7 +445,7 @@ struct SearchShape<WideMatrix> : SearchKmerStaged {};
 template <>
 struct SearchShape<ConcatRank<RRR15>> : SearchStaged {
     static constexpr int pool = 2;
-    static constexpr bool unified = true, kmer_staged = false;
+    static constexpr bool unified = true;
 };
 
 // Bytes of one kmer_search warp's staged span: its 32 rows of k chars from

@@ -13,17 +13,20 @@
 
 namespace sbwt {
 
-// Launches K14; the shared memory a block needs grows with k and the
-// tile (46,592 B at most for k <= 255 with LFShape's tiles), and past
-// 48 KB the kernel's limit is raised first.
+// Launches K14 over StagedRank's type; the shared memory a block needs
+// grows with k and the tile (46,592 B at most for k <= 255 with LFShape's
+// tiles, without a staged pattern table), and past 48 KB the kernel's
+// limit is raised first.
 template <class R>
-int launch_lf_stream(const R& rk, const LFArgs& a, cudaStream_t s) {
+int launch_lf_stream(const R& rank, const LFArgs& a, cudaStream_t s) {
+    using K = typename StagedRank<R>::type;
+    const K rk = as_rank<K>(rank);
     static std::atomic<int> raised[64];
     const int smem = lf_smem_bytes<R>(a.k);
-    if (const int e = raise_smem_limit(lf_stream_kernel<R>, smem, raised)) return e;
-    constexpr int W = LFShape<R>::warps;
+    if (const int e = raise_smem_limit(lf_stream_kernel<K>, smem, raised)) return e;
+    const int W = lf_warps<K>(a.k);
     const unsigned grid = (unsigned)(((a.B + 31) / 32 + W - 1) / W);
-    lf_stream_kernel<R><<<grid, W * 32, smem, s>>>(rk, a);
+    lf_stream_kernel<K><<<grid, W * 32, smem, s>>>(rk, a);
     return (int)cudaGetLastError();
 }
 
@@ -73,6 +76,21 @@ int launch_partial_search(const R& rk, const LFArgs& a, cudaStream_t s) {
     return (int)cudaGetLastError();
 }
 
+// Launches succ1 over all columns by span, over StagedRank's type: with
+// the staged pattern table (64 KB) its limit is raised first
+template <class R>
+int launch_succ1_span(const R& rank, const LFArgs& a, cudaStream_t s) {
+    using K = typename StagedRank<R>::type;
+    const K rk = as_rank<K>(rank);
+    static std::atomic<int> raised[64];
+    const int smem = StagesPatterns<K>::value ? kPatternTableBytes : 0;
+    if (const int e = raise_smem_limit(succ1_span_kernel<K>, smem, raised)) return e;
+    const int64_t warps = (a.B + kSuccSpan - 1) / kSuccSpan;
+    succ1_span_kernel<K><<<(unsigned)((warps + kSuccWarps - 1) / kSuccWarps), kSuccWarps * 32,
+                           smem, s>>>(rk, a);
+    return (int)cudaGetLastError();
+}
+
 template <class R>
 int launch_rank_op(int op, const void* rank_desc, const LFArgs* args, void* stream) {
     const R rk = *static_cast<const R*>(rank_desc);
@@ -94,12 +112,7 @@ int launch_rank_op(int op, const void* rank_desc, const LFArgs* args, void* stre
                 break;
             }
             if constexpr (SuccSpan<R>::value) {
-                if (a.aux == nullptr) {
-                    const int64_t warps = (a.B + kSuccSpan - 1) / kSuccSpan;
-                    succ1_span_kernel<R><<<(unsigned)((warps + kSuccWarps - 1) / kSuccWarps),
-                                           kSuccWarps * 32, 0, s>>>(rk, a);
-                    break;
-                }
+                if (a.aux == nullptr) return launch_succ1_span(rk, a, s);
             }
             succ1_kernel<R><<<grid, kBlock, 0, s>>>(rk, a);
             break;

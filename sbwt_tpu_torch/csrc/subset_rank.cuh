@@ -26,14 +26,16 @@
 // (bv.cuh, wavelet.cuh): one for PlainMatrix, one for MatrixRank, X then
 // Y's two levels and Z for SplitRank, a sample and a window row then three
 // levels for ConcatRank, and up to six for SubsetWTRank. rank_pair shares
-// every load between the two positions, except ConcatRank's two tree
-// ranks, whose set starts can be up to 4 symbols apart.
+// every load between the two positions; ConcatRank's two set starts, up to
+// 4 symbols apart, share one walk of the tree (WaveletTree::rank_span).
 //
 // ConcatRank's select0 takes the window's high word as z1 >> o for every
 // o. The JAX package zeroes it when o == 0 (subsetrank.py:321, :363),
 // which loses the ninth zero of a fully dense window (ROADMAP Queue 3,
 // F1); it is not ported.
 #pragma once
+
+#include <cstring>
 
 #include "sbwt_common.cuh"
 #include "wavelet.cuh"
@@ -213,13 +215,14 @@ struct ConcatRank {
         return wt.rank(c + 1, select_in(s, lo, hi, rem + 1));
     }
     // zeros pos and pos + 1 come from one window: sets hold <= 4 symbols,
-    // so they lie within 33 bits of the sample
+    // so they lie within 33 bits of the sample, at most 4 apart, and one
+    // walk of the tree ranks both (rank_span)
     __device__ __forceinline__ int2 rank_pair(int c, int pos) const {
         int s, rem;
         unsigned lo, hi;
         window(pos, &s, &rem, &lo, &hi);
-        return make_int2(wt.rank(c + 1, select_in(s, lo, hi, rem + 1)),
-                         wt.rank(c + 1, select_in(s, lo, hi, rem + 2)));
+        const int x = select_in(s, lo, hi, rem + 1);
+        return wt.rank_span(c + 1, x, select_in(s, lo, hi, rem + 2) - x);
     }
     // From the start of column pos's set (a select), 32 symbols at a time:
     // L's zeros in the chunk mark the sets, the tree's symbols in it
@@ -326,6 +329,40 @@ struct SubsetWTRank {
         w[3] = deposit(g.lo, root.lo);
     }
 };
+
+// The rank type that K14 (lf_stream.cuh) and succ1's span kernel
+// (succ_table.cuh) run over R: R itself, or for SubsetWTRank<RRR15> its twin
+// with RRR15Staged in place of RRR15 (bv.cuh), the same descriptor read by
+// a kernel that stages the pattern table in shared memory first. Its four
+// RRR ranks chained a step made the register decode's latency K14's: on an
+// H100 the table won 33% there and 7% in the span kernel, and ran 0-39%
+// slower on the other RRR types (one block an SM; PERF.md).
+template <class R>
+struct StagedRank {
+    using type = R;
+};
+template <>
+struct StagedRank<SubsetWTRank<RRR15>> {
+    using type = SubsetWTRank<RRR15Staged>;
+};
+// Whether a kernel over R must stage the pattern table first
+template <class R>
+struct StagesPatterns {
+    static constexpr bool value = false;
+};
+template <>
+struct StagesPatterns<SubsetWTRank<RRR15Staged>> {
+    static constexpr bool value = true;
+};
+
+// The descriptor of R read as its twin K (same layout)
+template <class K, class R>
+__host__ __forceinline__ K as_rank(const R& rk) {
+    static_assert(sizeof(K) == sizeof(R), "a rank type's twin reads its descriptor");
+    K out;
+    memcpy(&out, &rk, sizeof out);
+    return out;
+}
 
 // K20a, plain-matrix over row shards: the rank table int2 [4 * n_words]
 // and the suffix-group table int2 [n_words], each zero-padded to a

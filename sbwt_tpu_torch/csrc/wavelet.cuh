@@ -13,7 +13,9 @@
 //
 // Bound on the H100: one dependent bit-vector rank per level (2 or 3);
 // rank_pair costs the same, since p and q = p + 1 stay equal or adjacent
-// down the tree (q - p in {0, 1}), so each level's rank_pair serves both.
+// down the tree (q - p in {0, 1}), so each level's rank_pair serves both;
+// rank_span likewise for q - p up to 31, by one bits call a level
+// (ConcatRank's two set starts, at most 4 apart).
 //
 // planes4 and planes5 decode the symbols of a run of up to 32 consecutive
 // positions at once, for succ1's whole-table decode (succ_table.cuh): a
@@ -64,6 +66,29 @@ struct WaveletTree {
             const int nrank = pick(sym, d, 1);
             const int rp = r.x - nrank;
             const int rq = (q == p ? r.x : r.y) - nrank;
+            if (pick(sym, d, 2)) {
+                p = rp;
+                q = rq;
+            } else {
+                p -= rp;
+                q -= rq;
+            }
+        }
+        return make_int2(p, q);
+    }
+
+    // (rank(sym, pos), rank(sym, pos + len)), len in [0, 31], in one walk:
+    // at each level one bits call from p gives rank(p) and the run's bits,
+    // and rank(q) = rank(p) + their popcount; the node-local span only
+    // narrows on the way down (q - p <= len)
+    __device__ __forceinline__ int2 rank_span(int sym, int pos, int len) const {
+        int p = pos, q = pos + len;
+#pragma unroll
+        for (int d = 0; d < kMaxDepth; ++d) {
+            if (d >= depth || !pick(sym, d, 3)) break;
+            int r;
+            const unsigned v = level[d].bits(pick(sym, d, 0) + p, q - p, &r);
+            const int rp = r - pick(sym, d, 1), rq = rp + __popc(v);
             if (pick(sym, d, 2)) {
                 p = rp;
                 q = rq;

@@ -158,7 +158,7 @@ def c_ints(values) -> ctypes.Array:
 
 
 PlainBVDesc = _struct("PlainBV", [("tbl", _P)])
-RRRDesc = _struct("RRR15", [("meta", _P), ("offs", _P), ("lut", _P), ("base", _P)])
+RRRDesc = _struct("RRR15", [("meta", _P), ("offs", _P)])
 MEFDesc = _struct("MEF", [("upper", PlainBVDesc), ("lower", PlainBVDesc), ("wl", _I)])
 BV_DESCS = {"plain": PlainBVDesc, "rrr": RRRDesc, "mef": MEFDesc}
 # levels[3]; step[5][3][4] = (node base, node rank, go-right bit, valid); depth

@@ -84,7 +84,7 @@ class PlainBV(nn.Module):
 # RRR over 15-bit blocks
 # ---------------------------------------------------------------------------
 
-BLK15 = 15  # bits per block: the offset -> pattern decode is one LUT load
+BLK15 = 15  # bits per block: here the offset -> pattern decode is one LUT load
 SBB15 = 16  # blocks per superblock; 16 four-bit classes fill two words
 
 # (class, offset) <-> pattern over all 2^15 patterns: the offset of a
@@ -123,7 +123,9 @@ def _rrr_constants(device):
 class RRRBV(nn.Module):
     """meta int32 [n_sb, 4] = (cum rank, offset bit pointer, classes of
     blocks 0-7, classes of blocks 8-15); offs int32 packed offset stream;
-    lut int32 [2^15] and base int32 [16] shared by every RRR vector."""
+    lut int32 [2^15] and base int32 [16] shared by every RRR vector, read
+    by the plain version only (the device type decodes a pattern from its
+    class and offset in registers, csrc/bv.cuh)."""
 
     def __init__(self, meta: torch.Tensor, offs: torch.Tensor, n_bits: int):
         super().__init__()
@@ -227,9 +229,9 @@ class RRRBV(nn.Module):
         return (self.meta.numel() + self.offs.numel()) * 4
 
     def desc(self, dev) -> kernels.RRRDesc:
-        return kernels.RRRDesc(
-            kernels.ptr(self.meta, "rrr.meta", dev, 16), kernels.ptr(self.offs, "rrr.offs", dev),
-            kernels.ptr(self.lut, "rrr.lut", dev), kernels.ptr(self.base, "rrr.base", dev))
+        # the device type decodes patterns in registers: no LUT
+        return kernels.RRRDesc(kernels.ptr(self.meta, "rrr.meta", dev, 16),
+                               kernels.ptr(self.offs, "rrr.offs", dev))
 
 
 def _rrr_arrays(classes: np.ndarray, offsets: np.ndarray):

@@ -195,6 +195,172 @@ def test_dense_concat_succ1_agrees_with_oracle(cuda, variant):
     assert torch.equal(succ, tt.succ1_plain(di))
 
 
+RANK_CASES = ("runs", "sets_1_4", "dense", "random")
+
+
+def _rank_case_bits(case, rng):
+    """[4, n] bits of one case, followed by empty columns up to n, the
+    ones' count plus one, raised until neither 4n nor n is a multiple of
+    15, so that the RRR vectors of every rank type end inside a block.
+    runs: runs of 1-63 equal bits, so RRR blocks of class 0 and 15;
+    sets_1_4: sets of one char, of all four and empty ones (one '$');
+    dense: every set of 4."""
+    n = {"runs": 2003, "sets_1_4": 1999, "dense": 3001, "random": 4093}[case]
+    if case == "runs":
+        bits = np.zeros((4, n), dtype=bool)
+        for c in range(4):
+            at, on = 0, bool(rng.integers(2))
+            while at < n:
+                run = int(rng.integers(1, 64))
+                bits[c, at:at + run] = on
+                at, on = at + run, not on
+    elif case == "sets_1_4":
+        kind = rng.integers(0, 6, size=n)  # 0-3 one char, 4 all four, 5 empty
+        bits = np.zeros((4, n), dtype=bool)
+        bits[kind[kind < 4], np.flatnonzero(kind < 4)] = True
+        bits[:, kind == 4] = True
+    elif case == "dense":
+        bits = np.ones((4, n), dtype=bool)
+    else:
+        bits = rng.random((4, n)) < 0.4
+    # empty columns after the case's own, so that the ones number fewer
+    # than the columns: every LF interval then stays inside [0, n)
+    m = int(bits.sum()) + 1
+    while (4 * m) % 15 == 0 or m % 15 == 0:
+        m += 1
+    return np.concatenate([bits, np.zeros((4, max(0, m - n)), dtype=bool)], axis=1)
+
+
+@pytest.mark.parametrize("variant", ["rrr-matrix", "rrr-split", "plain-concat", "mef-concat",
+                                     "rrr-subsetwt"])
+@pytest.mark.parametrize("case", RANK_CASES)
+def test_rank_cases_kernels_equal_plain_versions(cuda, variant, case):
+    """The RRR and concat rank types' device ranks (the register decode of
+    RRR15, ConcatRank's one-walk rank_pair) through every kernel that
+    inlines them, against the plain versions, at bit patterns that reach
+    their edges: RRR blocks of class 0 and 15, vectors that end inside a
+    block, concat sets of 1 and 4 symbols at a sample edge of L, and sets
+    that straddle a 15-bit block and a 240-bit superblock of the tree's
+    first level. forward ranks every (column, char) pair. K14 is held on
+    real indexes (test_lf_kernels_low_complexity_equal_plain_versions)."""
+    rng = np.random.default_rng(RANK_CASES.index(case) + 77)
+    bits = _rank_case_bits(case, rng)
+    n = bits.shape[1]
+    assert (4 * n) % 15 and n % 15 and int(bits.sum()) < n
+    flat = np.concatenate([bits.ravel(), np.zeros(-(4 * n) % 15, dtype=bool)])
+    ones = flat.reshape(-1, 15).sum(axis=1)
+    if case in ("runs", "dense"):
+        assert (ones == 15).any() and (case == "dense" or (ones == 0).any())
+    sizes = np.maximum(bits.sum(axis=0), 1)
+    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    if case == "sets_1_4":
+        edge = sizes[(np.arange(n) % 8 == 0) | (np.arange(n) % 8 == 7)]
+        assert (edge == 1).any() and (edge == 4).any()
+    if case != "dense":
+        assert ((starts % 15) + sizes > 15).any() and ((starts % 240) + sizes > 240).any()
+    di = build_generic_index(variant, bits, np.ones(n, dtype=bool), 8, 0, cuda)
+
+    def launched(op, fn):
+        name = kernels.lf_counter(op, variant)
+        before = kernels.LAUNCHES[name]
+        out = fn()
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES[name] > before, name
+        return out
+
+    cols = torch.arange(n, device=cuda).repeat(4)
+    chars = torch.arange(4, device=cuda).repeat_interleave(n)
+    fwd = launched("forward", lambda: ts.forward_batch(di, cols, chars))
+    assert torch.equal(fwd, ts.extend_from_column(di, cols, chars).to(di.pos_dtype))
+    assert torch.equal(launched("succ1", lambda: tt.succ1(di)), tt.succ1_plain(di))
+    pre = launched("precalc_fill", lambda: kernels.precalc_fill(
+        variant, di.kernel_desc(cuda), di.C, di.n_nodes, 5))
+    assert torch.equal(pre, tm.precalc_fill_plain(di, 5))
+    km = torch.from_numpy(rng.integers(0, 4, size=(4096, 8)).astype(np.int8)).to(cuda)
+    assert torch.equal(launched("kmer_search", lambda: ts.search_batch(di, km)),
+                       ts.search_batch_plain(di, km))
+    codes = torch.from_numpy(rng.integers(0, 4, size=(4096, 12)).astype(np.int8)).to(cuda)
+    lengths = torch.from_numpy(rng.integers(0, 13, size=4096).astype(np.int32)).to(cuda)
+    got = launched("partial_search", lambda: ts.partial_search_batch(di, codes, lengths))
+    for g, w in zip(got, ts.partial_search_plain(di, codes, lengths)):
+        assert torch.equal(g, w)
+
+
+def _rrr_blocks(struct):
+    """(length, classes of its blocks) of every RRR vector of a structure."""
+    from sbwt_tpu_torch.ops.bv import RRRBV
+
+    out = []
+    for m in struct.modules():
+        if isinstance(m, RRRBV):
+            classes, _ = m._host_blocks()
+            out.append((m.n_bits, classes[: (m.n_bits + 14) // 15]))
+    return out
+
+
+@pytest.mark.parametrize("variant", ["rrr-matrix", "rrr-split", "plain-concat", "mef-concat",
+                                     "rrr-subsetwt"])
+def test_lf_kernels_low_complexity_equal_plain_versions(cuda, variant):
+    """K14, K1's fill and search and partial_search of the RRR and concat
+    rank types on a real index of a genome with homopolymers and short
+    tandem repeats beside random sequence, whose RRR vectors end inside a
+    block and hold blocks of class 0 and 15. K14's chain needs an SBWT
+    (on arbitrary bits an extension and a full search of the same k-mer
+    may differ), hence a real index here and bit patterns in
+    test_rank_cases_kernels_equal_plain_versions."""
+    rng = np.random.default_rng(5)
+
+    def rand(n):
+        return "".join(rng.choice(list("ACGT"), size=n))
+
+    g = (rand(1500) + "A" * 200 + "ACGT" * 60 + rand(500) + "AC" * 100 + "GT" * 100 + rand(800)
+         + "AAAAAAC" * 30 + rand(300))
+    sb = SBWT.build([g], 12, cuda, precalc_k=4).to_variant(variant)
+    di = sb.device_index
+    blocks = _rrr_blocks(di.struct)
+    assert all(n % 15 for n, _ in blocks)
+    classes = np.concatenate([c for _, c in blocks]) if blocks else np.zeros(0)
+    assert (variant == "plain-concat") == (len(blocks) == 0)
+    assert variant in ("plain-concat", "mef-concat") or (classes == 0).any()
+    assert variant not in ("mef-concat", "rrr-subsetwt") or (classes == 15).any()
+    codes, lengths = _reads(g, rng, 1024, 52, 12)
+    c, n = torch.from_numpy(codes).to(cuda), torch.from_numpy(lengths).to(cuda)
+    counters = {op: kernels.LAUNCHES[kernels.lf_counter(op, variant)]
+                for op in ("lf_stream", "precalc_fill", "kmer_search", "partial_search")}
+    got = ts.streaming_search(di, c, n)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ts.streaming_search_plain(di, c, n))
+    km = c[:, :12].contiguous()
+    assert torch.equal(ts.search_batch(di, km), ts.search_batch_plain(di, km))
+    for g_, w in zip(ts.partial_search_batch(di, c, n), ts.partial_search_plain(di, c, n)):
+        assert torch.equal(g_, w)
+    ref = tm.precalc_fill_plain(di, 6)
+    tm.with_precalc(di, 6)
+    assert torch.equal(di.precalc, ref)
+    assert all(kernels.LAUNCHES[kernels.lf_counter(op, variant)] > before
+               for op, before in counters.items())
+
+
+@pytest.mark.parametrize("k,p", [(30, 6), (64, 6), (255, 8)])
+def test_lf_stream_staged_patterns_equal_plain_version(cuda, k, p):
+    """K14 on rrr-subsetwt, whose blocks stage the RRR pattern table in
+    shared memory: 32 warps a block at k = 30, fewer where a long k's tiles
+    and the table would not fit one block's shared memory."""
+    rng = np.random.default_rng(900 + k)
+    g = "".join(rng.choice(list("ACGT"), size=3000))
+    di = SBWT.build([g], k, cuda, precalc_k=p).to_variant("rrr-subsetwt").device_index
+    smem = kernels.lf_smem_bytes("rrr-subsetwt", k)
+    assert 65_600 < smem <= 232_448
+    codes, lengths = _reads(g, rng, 1100, k + 50, k)
+    c, n = torch.from_numpy(codes).to(cuda), torch.from_numpy(lengths).to(cuda)
+    name = kernels.lf_counter("lf_stream", "rrr-subsetwt")
+    before = kernels.LAUNCHES[name]
+    got = ts.streaming_search(di, c, n)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == before + 1
+    assert torch.equal(got, ts.streaming_search_plain(di, c, n))
+
+
 def _offset_counts(wide, offset):
     """The same index with every cumulative count raised by ``offset``: its
     ranks are the real ones plus the offset, past 32 bits."""

@@ -34,7 +34,8 @@ from sbwt_tpu_torch.models.sbwt import SBWT, VARIANT_NAMES
 from sbwt_tpu_torch.models.variants import build_generic_index
 from sbwt_tpu_torch.ops import turbo as tt
 from test_torch_bv import assert_payload_equal
-from torch_state import generic_from_jax, main_corpora
+from torch_state import (CONCAT_CASES, concat_case_bits, concat_rank_pair_answers,
+                         generic_from_jax, main_corpora)
 
 K = 14
 P = 6
@@ -269,6 +270,80 @@ def test_dense_concat_rank_pair_agrees_with_oracle():
     jst = jax_build_struct("plain-concat", bits)
     _, j2 = jst.rank_pair(jnp.zeros(n, jnp.int32), jnp.arange(n, dtype=jnp.int32))
     assert (np.asarray(j2) != r2.numpy()).any()
+
+
+def _rank_span(wt, sym, pos, length):
+    """WaveletTree::rank_span of csrc/wavelet.cuh, transcribed: one walk
+    from the span [pos, pos + length), at each level one run of the level's
+    bits from p, whose popcount gives rank(q) = rank(p) + popc(run). The
+    identity is checked against the level's own rank at q on every level."""
+    p, q = pos.clone(), pos + length
+    for d in range(wt.depth):
+        valid = wt.path_valid[sym, d].bool()
+        node = wt.path_node[sym, d]
+        base, nrank = wt.node_base[node], wt.node_rank[node]
+        lvl = wt.levels[d]
+        r = lvl.rank(base + p)
+        span = q - p
+        run = torch.zeros_like(p)
+        for j in range(32):
+            at = torch.clamp(base + p + j, 0, lvl.n_bits - 1)
+            run += torch.where(j < span, lvl.get(at).long(), 0)
+        assert torch.equal(torch.where(valid, lvl.rank(base + q), 0),
+                           torch.where(valid, r + run, 0)), d
+        rp, rq = r - nrank, r - nrank + run
+        right = wt.path_bit[sym, d].bool()
+        p, q = (torch.where(valid, torch.where(right, rp, p - rp), p),
+                torch.where(valid, torch.where(right, rq, q - rq), q))
+    return p, q
+
+
+@pytest.mark.parametrize("wt_kind", ["plain", "rrr"])
+@pytest.mark.parametrize("case", list(CONCAT_CASES))
+def test_concat_one_walk_rank_pair(case, wt_kind):
+    """ConcatRank::rank_pair of csrc/subset_rank.cuh as the card runs it:
+    both set starts from one window of L, then one walk of the tree over
+    the span between them (1-4 symbols). Held to the port's plain
+    rank_pair, to the cumulative counts, and to the JAX answers, except on
+    the dense index (F1), where it is held to the string oracle."""
+    bits = concat_case_bits(case)
+    n = bits.shape[1]
+    st = tsr.ConcatRank.from_bits(bits, wt_kind)
+    c = torch.arange(4).repeat_interleave(n)
+    pos = torch.arange(n).repeat(4)
+    x, y = st.select0_pair(pos)
+    assert int((y - x).min()) >= 1 and int((y - x).max()) <= 4
+    p, q = _rank_span(st.wt, c + 1, x, y - x)
+    r1, r2 = st.rank_pair(c, pos)
+    np.testing.assert_array_equal(p.numpy(), r1.numpy())
+    np.testing.assert_array_equal(q.numpy(), r2.numpy())
+    cum = np.concatenate([np.zeros((4, 1), np.int64), np.cumsum(bits, axis=1)], axis=1)
+    np.testing.assert_array_equal(p.numpy(), cum[c, pos])
+    np.testing.assert_array_equal(q.numpy(), cum[c, pos + 1])
+    if case == "dense":
+        orc = OracleIndex.__new__(OracleIndex)
+        orc.bits = {ch: list(bits[i]) for i, ch in enumerate("ACGT")}
+        assert p.tolist() == [orc.rank(i, "ACGT"[ci]) for ci in range(4) for i in range(n)]
+        assert q.tolist() == [orc.rank(i + 1, "ACGT"[ci]) for ci in range(4) for i in range(n)]
+    else:
+        j1, j2 = concat_rank_pair_answers(case, wt_kind)
+        np.testing.assert_array_equal(p.numpy(), j1)
+        np.testing.assert_array_equal(q.numpy(), j2)
+
+
+@pytest.mark.parametrize("wt_kind", ["plain", "rrr"])
+def test_wavelet_rank_span_any_length(wt_kind):
+    """rank_span's walk at spans of 0-31 symbols from random positions of a
+    ConcatRank's sigma-5 tree: both ends equal the tree's own ranks."""
+    st = tsr.ConcatRank.from_bits(concat_case_bits("random"), wt_kind)
+    wt = st.wt
+    rng = np.random.default_rng(31)
+    pos = torch.from_numpy(rng.integers(0, wt.n + 1, size=2000))
+    length = torch.minimum(torch.from_numpy(rng.integers(0, 32, size=2000)), wt.n - pos)
+    sym = torch.from_numpy(rng.integers(0, 5, size=2000))
+    p, q = _rank_span(wt, sym, pos, length)
+    np.testing.assert_array_equal(p.numpy(), wt.rank(sym, pos).numpy())
+    np.testing.assert_array_equal(q.numpy(), wt.rank(sym, pos + length).numpy())
 
 
 # ---------------------------------------------------------------------------

@@ -176,3 +176,32 @@ def _split(cases: dict, rows: np.ndarray) -> dict:
         out[name] = rows[at:at + n]
         at += n
     return out
+
+
+# ConcatRank indexes of the one-walk rank_pair tests: (columns, density of
+# the [4, n] bits). Sparse columns are mostly empty sets (one '$' each); the
+# dense one has every set of 4 symbols (F1, where the JAX answer is wrong).
+CONCAT_CASES = {"random": (700, 0.45), "sparse": (900, 0.04), "dense": (256, 1.0)}
+
+
+def concat_case_bits(case: str) -> np.ndarray:
+    n, density = CONCAT_CASES[case]
+    return np.random.default_rng(n).random((4, n)) < density
+
+
+@functools.lru_cache(maxsize=None)
+def concat_rank_pair_answers(case: str, wt_kind: str):
+    """The JAX ConcatRank's rank_pair at every (char, column) of a case,
+    char-major, as two numpy arrays: one JAX program a case and tree kind."""
+    import jax
+    import jax.numpy as jnp
+
+    from sbwt_tpu.models.subsetrank import build_struct
+
+    bits = concat_case_bits(case)
+    n = bits.shape[1]
+    jst = build_struct("plain-concat" if wt_kind == "plain" else "mef-concat", bits)
+    c = np.repeat(np.arange(4, dtype=np.int32), n)
+    pos = np.tile(np.arange(n, dtype=np.int32), 4)
+    r1, r2 = jax.jit(jst.rank_pair)(jnp.asarray(c), jnp.asarray(pos))
+    return np.asarray(r1), np.asarray(r2)

@@ -37,13 +37,14 @@ from sbwt_tpu_torch.parallel import sharded  # noqa: E402
 K, P, READ_LEN, N_READS, SHARDS = 30, 13, 100, 1 << 20, 4
 VARIANTS = ("rrr-matrix", "mef-matrix", "plain-split", "rrr-split", "mef-split", "plain-concat",
             "mef-concat", "plain-subsetwt", "rrr-subsetwt")
-# mangled rank types of the instances timed here, as ptxas names them
+# mangled rank types of the instances timed here, as ptxas names them (regular
+# expressions: K14 runs rrr-subsetwt as SubsetWTRank<RRR15Staged>)
 RANK_TYPES = {"plain": "11PlainMatrix", "rrr-matrix": "10MatrixRankINS_5RRR15",
               "mef-matrix": "10MatrixRankINS_3MEF", "plain-split": "9SplitRankINS_7PlainBV",
               "rrr-split": "9SplitRankINS_5RRR15", "mef-split": "9SplitRankINS_3MEF",
               "plain-concat": "10ConcatRankINS_7PlainBV", "mef-concat": "10ConcatRankINS_5RRR15",
               "plain-subsetwt": "12SubsetWTRankINS_7PlainBV",
-              "rrr-subsetwt": "12SubsetWTRankINS_5RRR15", "wide": "10WideMatrix",
+              "rrr-subsetwt": "12SubsetWTRankINS_(5RRR15|11RRR15Staged)", "wide": "10WideMatrix",
               "sharded": "13ShardedMatrix"}
 
 
@@ -59,7 +60,7 @@ def ptxas(log: str) -> dict:
             for kern in ("lf_stream_kernel", "precalc_fill_kernel"):
                 for name, mangled in RANK_TYPES.items():
                     timed = kern == "lf_stream_kernel" or name in ("plain", "wide")
-                    if timed and kern in entry and mangled in entry:
+                    if timed and kern in entry and re.search(mangled, entry):
                         # the fill may have one instance a subtree depth D
                         d = re.search(r"kernelILi(\d+)E", entry)
                         key = f"{kern.split('_kernel')[0]}{'_d' + d.group(1) if d else ''}_{name}"
