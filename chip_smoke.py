@@ -305,7 +305,8 @@ def ptxas_lines(log: str) -> list:
 
 
 # each rank type as it stands in the kernels' mangled entry points (regular
-# expressions: K14 runs rrr-subsetwt as SubsetWTRank<RRR15Staged>)
+# expressions: K1's fill and partial_search run rrr-subsetwt as
+# SubsetWTRank<RRR15Staged>)
 MANGLED = {"plain-matrix": "11PlainMatrix", "rrr-matrix": "10MatrixRankINS_5RRR15",
            "mef-matrix": "10MatrixRankINS_3MEF", "plain-split": "9SplitRankINS_7PlainBV",
            "rrr-split": "9SplitRankINS_5RRR15", "mef-split": "9SplitRankINS_3MEF",
@@ -318,7 +319,8 @@ SEARCH_OPS = ("kmer_search", "partial_search")  # the kernels whose records carr
 # and ConcatRank inside
 RANK_OPS = ("lf_stream", "precalc_fill", "kmer_search", "partial_search", "succ1", "turbo_stream",
             "forward")
-REGISTER_RANK_TYPES = ("rrr-matrix", "rrr-split", "plain-concat", "mef-concat", "rrr-subsetwt")
+REGISTER_RANK_TYPES = ("rrr-matrix", "rrr-split", "plain-concat", "mef-concat", "plain-subsetwt",
+                       "rrr-subsetwt")
 
 
 def carries_registers(name: str) -> bool:
@@ -408,6 +410,12 @@ def nbytes(*tensors) -> int:
 # its interval update: shifts, masks, a popcount, adds, read off the
 # source). The bound stays a lower bound.
 LF_OPS = 40
+
+
+def device_bytes(di) -> int:
+    """The bytes of an index's rank structure as the card holds it (a
+    subset wavelet tree's device form differs from its file form)."""
+    return di.device_bytes() if hasattr(di, "device_bytes") else di.size_in_bytes()
 
 
 def fill_work(structure_bytes: int, p: int):
@@ -775,6 +783,7 @@ def run_variants_path(sbwt, runs):
         out[v] = (vs, kernels.precalc_fill(v, di.kernel_desc(di.device), di.C, di.n_nodes,
                                            GENERIC_P))
         say("variant", name=v, structure_bytes=vs.structure_size_in_bytes(),
+            device_structure_bytes=device_bytes(di),
             to_variant_seconds=round(build_s, 3), **fields)
     return out
 
@@ -1585,7 +1594,7 @@ def compare_lf_kernels(dev, genome, sbwt, runs, variants, record):
                   f"{name} {mix}: sample differs from K4's answers")
             moved, ops, work = k14_bounds(
                 main_lf_rows(sbwt.device_index, runs, mix, PLAIN_READS),
-                main_lf_rows(sbwt.device_index, runs, mix, len(codes)), di, di.size_in_bytes(),
+                main_lf_rows(sbwt.device_index, runs, mix, len(codes)), di, device_bytes(di),
                 PLAIN_READS, len(codes))
             extra = dict(variant=v, mix=mix, shape=tuple(sc.shape), full_batch_ms=ms_full,
                          answers_per_s=answers / (ms_full / 1e3),
@@ -1609,7 +1618,7 @@ def compare_lf_kernels(dev, genome, sbwt, runs, variants, record):
         plain, plain_ms = timed_ms(lambda: ts.search_batch_plain(di, km))
         record(f"kmer_search[{v}]", max_abs_err(k_km(), plain)
                + max_abs_err(ts.search_batch(di, km0), want0), cuda_ms(k_km, 5), plain_ms,
-               *search_work(di.size_in_bytes(), *km.shape), shape=tuple(km.shape),
+               *search_work(device_bytes(di), *km.shape), shape=tuple(km.shape),
                hit0_ms=cuda_ms(lambda: ts.search_batch(di, km0), 5))
         desc = di.kernel_desc(dev)
         k_pre = lambda: kernels.precalc_fill(v, desc, di.C, di.n_nodes, 8)
@@ -1617,7 +1626,7 @@ def compare_lf_kernels(dev, genome, sbwt, runs, variants, record):
         err = max_abs_err(k_pre(), plain)
         ms12 = cuda_ms(lambda: kernels.precalc_fill(v, desc, di.C, di.n_nodes, GENERIC_P), 3)
         record(f"precalc_fill[{v}]", err, cuda_ms(k_pre, 5), plain_ms,
-               *fill_work(di.size_in_bytes(), 8), shape=(4**8, 2),
+               *fill_work(device_bytes(di), 8), shape=(4**8, 2),
                p12_ms=ms12, p12_shape=tuple(ref12.shape))
         del plain
 
@@ -1678,7 +1687,7 @@ def compare_variant_turbo_kernels(dev, runs, variants, lanes, record):
         succ = k_s1()
         plain, plain_ms = timed_ms(lambda: tt.succ1_plain(di))
         record(f"succ1[{v}]", max_abs_err(succ, plain), cuda_ms(k_s1, 5), plain_ms,
-               *succ_work(di.size_in_bytes(), di.sgs_tbl, succ), shape=tuple(succ.shape))
+               *succ_work(device_bytes(di), di.sgs_tbl, succ), shape=tuple(succ.shape))
         del succ, plain
         turbo = tt.build_turbo(di, ARITY)
         name = f"turbo_stream[{v}]"

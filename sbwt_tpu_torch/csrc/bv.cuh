@@ -98,7 +98,7 @@ struct PlainBV {
 // is set iff what is left of off is at least C(b, k), k the ones not yet
 // placed. RRR15 decodes so; RRR15Staged reads the pattern from a table of
 // all 2^15 that the kernel staged in shared memory (stage_patterns), which
-// K14 and succ1's span kernel do for SubsetWTRank<RRR15> (subset_rank.cuh
+// K1's fill and partial_search do for SubsetWTRank<RRR15> (subset_rank.cuh
 // StagedRank).
 // ---------------------------------------------------------------------------
 

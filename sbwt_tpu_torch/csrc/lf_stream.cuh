@@ -203,17 +203,15 @@ __device__ __forceinline__ P search_from_seed(const R& rk, const LFArgs& a, cons
     return l;  // a found k-mer's interval is a singleton (SBWT.hh:410-414)
 }
 
-// Launch shape of K14 over rank type R (StagedRank's): `warps` warps a
-// block, each owning 32 consecutive reads, walked `tile` positions at a
-// time; `min_blocks` blocks an SM cap nvcc's registers at
-// 65536 / (32 * warps * min_blocks) a thread. Chosen by sweeps on an H100
-// (tools/lf_ab.py; PERF.md): tiles of 16, 4 warps and at most 64 registers
-// for most rank types; the wide tier's int64 answers run faster in tiles
-// of 8; mef-concat, whose ranks are long chains of dependent loads, with
-// at most 56 registers and 1,152 threads an SM (48 spilled 8 bytes and ran
-// 2.5% faster at hit0, 64 ran 4% slower; PERF.md); the staged pattern
-// table's 64 KB leave one block an SM, so that block is 32 warps (fewer
-// where a long k's tiles would not fit).
+// Launch shape of K14 over rank type R: `warps` warps a block, each owning
+// 32 consecutive reads, walked `tile` positions at a time; `min_blocks`
+// blocks an SM cap nvcc's registers at 65536 / (32 * warps * min_blocks) a
+// thread. Chosen by sweeps on an H100 (tools/lf_ab.py; PERF.md): tiles of
+// 16, 4 warps and at most 64 registers for most rank types; the wide
+// tier's int64 answers run faster in tiles of 8; mef-concat, whose ranks
+// are long chains of dependent loads, with at most 56 registers and 1,152
+// threads an SM (48 spilled 8 bytes and ran 2.5% faster at hit0, 64 ran 4%
+// slower; PERF.md).
 template <class R>
 struct LFShape {
     static constexpr int warps = 4, tile = 16, min_blocks = 8;
@@ -226,40 +224,15 @@ template <>
 struct LFShape<ConcatRank<RRR15>> {
     static constexpr int warps = 4, tile = 16, min_blocks = 9;
 };
-template <>
-struct LFShape<SubsetWTRank<RRR15Staged>> {
-    static constexpr int warps = 32, tile = 16, min_blocks = 1;
-};
 
 // K14's window: a tile's positions and the k - 1 chars after its last
 __host__ __device__ __forceinline__ int lf_window(int tile, int k) { return tile + k - 1; }
 
-// The shared memory an H100 block may take once its limit is raised
-constexpr int kMaxBlockSmem = 232448;
-
-// Warps of a K14 block over R (StagedRank's) at k: LFShape's, halved
-// while the staged pattern table and the tiles would not fit a block
-template <class R>
-__host__ __device__ __forceinline__ int lf_warps(int k) {
-    using S = LFShape<R>;
-    int w = S::warps;
-    if (StagesPatterns<R>::value) {
-        while (w > 1 && kPatternTableBytes + tile_smem_bytes<typename R::pos_t>(
-                                                 w, S::tile, lf_window(S::tile, k)) >
-                            kMaxBlockSmem) {
-            w >>= 1;
-        }
-    }
-    return w;
-}
-
 // Dynamic shared memory of one K14 block over the variant's rank type R at k
 template <class R>
 __host__ __device__ __forceinline__ int lf_smem_bytes(int k) {
-    using K = typename StagedRank<R>::type;
-    using S = LFShape<K>;
-    return tile_smem_bytes<typename K::pos_t>(lf_warps<K>(k), S::tile, lf_window(S::tile, k)) +
-           (StagesPatterns<K>::value ? kPatternTableBytes : 0);
+    using S = LFShape<R>;
+    return tile_smem_bytes<typename R::pos_t>(S::warps, S::tile, lf_window(S::tile, k));
 }
 
 // One warp per 32 consecutive reads. For each tile of positions the warp
@@ -272,16 +245,9 @@ template <class R>
 __global__ void __launch_bounds__(LFShape<R>::warps * 32, LFShape<R>::min_blocks)
     lf_stream_kernel(R rk, LFArgs a) {
     using P = typename R::pos_t;
-    constexpr int T = LFShape<R>::tile;
-    const int W = StagesPatterns<R>::value ? (int)(blockDim.x >> 5) : LFShape<R>::warps;
+    constexpr int T = LFShape<R>::tile, W = LFShape<R>::warps;
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    extern __shared__ __align__(16) unsigned char smem_base[];
-    unsigned char* smem = smem_base;
-    if constexpr (StagesPatterns<R>::value) {
-        stage_patterns();
-        __syncthreads();
-        smem += kPatternTableBytes;
-    }
+    extern __shared__ __align__(16) unsigned char smem[];
     const int64_t b0 = ((int64_t)blockIdx.x * W + warp) * 32;
     if (b0 >= a.B) return;  // the whole warp
     const int nrows = (int)min((int64_t)32, (int64_t)(a.B - b0));
@@ -382,10 +348,16 @@ __device__ __forceinline__ void fill_below(const R& rk, const CArray<P>& Cl, P l
 // full interval (0, n - 1); its last D chars are its high bits. Thread
 // t < 4^(p - D) runs the p - D steps of t's chars once, then writes
 // entries t + m * 4^(p - D), m < 4^D: at each m consecutive threads write
-// consecutive entries, so every store is coalesced across the warp.
+// consecutive entries, so every store is coalesced across the warp. Over
+// a rank type that reads staged patterns (StagedRank), the block stages
+// the table first.
 template <int D, class R>
 __global__ void precalc_fill_kernel(R rk, LFArgs a) {
     using P = typename R::pos_t;
+    if constexpr (StagesPatterns<R>::value) {
+        stage_patterns();
+        __syncthreads();
+    }
     const int above = a.p - D;
     const int64_t n_threads = (int64_t)1 << (2 * above);
     const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -417,7 +389,9 @@ constexpr int kSearchWarps = 4, kSearchTile = 16;
 // of 64 with unified steps won 15% on mef-concat's partial search and lost
 // 0.5-50% elsewhere: a refilled lane starts from the full interval while
 // the others step singletons, and without unified steps the two paths
-// diverge.
+// diverge. rrr-subsetwt: kmer_search staged won 3-12%, partial_search
+// staged lost 3%; its one-thread-a-lane partial_search reads the staged
+// pattern table (rank_ops.cuh), which won 28%.
 struct SearchStaged {
     static constexpr int pool = 1;
     static constexpr bool unified = false, kmer_staged = true, partial_staged = true;
@@ -433,7 +407,7 @@ struct SearchShape : SearchStaged {};
 template <>
 struct SearchShape<MatrixRank<RRR15>> : SearchLanes {};
 template <>
-struct SearchShape<SubsetWTRank<RRR15>> : SearchLanes {};
+struct SearchShape<SubsetWTRank<RRR15>> : SearchKmerStaged {};
 template <>
 struct SearchShape<SplitRank<RRR15>> : SearchKmerStaged {};
 template <>
@@ -635,10 +609,15 @@ __global__ void __launch_bounds__(kSearchWarps * 32) partial_search_kernel(R rk,
 }
 
 // The one-thread-a-lane partial_search, for a rank type whose SearchShape
-// keeps it.
+// keeps it; over a rank type that reads staged patterns (StagedRank), the
+// block stages the table first.
 template <class R>
 __global__ void partial_search_lane_kernel(R rk, LFArgs a) {
     using P = typename R::pos_t;
+    if constexpr (StagesPatterns<R>::value) {
+        stage_patterns();
+        __syncthreads();
+    }
     const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
     if (b >= a.B) return;
     const int8_t* text = a.codes + b * a.L;

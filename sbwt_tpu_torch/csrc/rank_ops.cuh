@@ -13,25 +13,42 @@
 
 namespace sbwt {
 
-// Launches K14 over StagedRank's type; the shared memory a block needs
-// grows with k and the tile (46,592 B at most for k <= 255 with LFShape's
-// tiles, without a staged pattern table), and past 48 KB the kernel's
-// limit is raised first.
+// Launches K14; the shared memory a block needs grows with k and the tile
+// (46,592 B at most for k <= 255 with LFShape's tiles), and past 48 KB the
+// kernel's limit is raised first.
 template <class R>
-int launch_lf_stream(const R& rank, const LFArgs& a, cudaStream_t s) {
-    using K = typename StagedRank<R>::type;
-    const K rk = as_rank<K>(rank);
+int launch_lf_stream(const R& rk, const LFArgs& a, cudaStream_t s) {
     static std::atomic<int> raised[64];
     const int smem = lf_smem_bytes<R>(a.k);
-    if (const int e = raise_smem_limit(lf_stream_kernel<K>, smem, raised)) return e;
-    const int W = lf_warps<K>(a.k);
+    if (const int e = raise_smem_limit(lf_stream_kernel<R>, smem, raised)) return e;
+    constexpr int W = LFShape<R>::warps;
     const unsigned grid = (unsigned)(((a.B + 31) / 32 + W - 1) / W);
-    lf_stream_kernel<K><<<grid, W * 32, smem, s>>>(rk, a);
+    lf_stream_kernel<R><<<grid, W * 32, smem, s>>>(rk, a);
+    return (int)cudaGetLastError();
+}
+
+// Launches kernel, an instance over StagedRank's twin of R, with n threads
+// in blocks of up to 1,024 (the most its registers allow): each block
+// stages the 64 KB pattern table once, so the blocks are large
+template <auto kernel, class R>
+int launch_staged(const R& rk, const LFArgs& a, int64_t n, cudaStream_t s) {
+    using K = typename StagedRank<R>::type;
+    static std::atomic<int> raised[64];
+    if (const int e = raise_smem_limit(kernel, kPatternTableBytes, raised)) return e;
+    cudaFuncAttributes fa;
+    if (const cudaError_t e = cudaFuncGetAttributes(&fa, kernel)) return (int)e;
+    const int block = min(1024, fa.maxThreadsPerBlock) & ~31;
+    kernel<<<(unsigned)((n + block - 1) / block), block, kPatternTableBytes, s>>>(as_rank<K>(rk), a);
     return (int)cudaGetLastError();
 }
 
 // Launches K1's fill at subtree depth D = min(kFillDepth, p - kFillMinLevel),
-// 0 at least
+// 0 at least. Over StagedRank's twin where R has one and the fill has at
+// least kFillStagedThreads threads: at p = 12 (2^18 threads) the staged
+// table ran rrr-subsetwt's fill 2.1x faster on an H100, at p = 8 (2^16)
+// 1.3x slower (tools/lf_ab.py; PERF.md).
+constexpr int64_t kFillStagedThreads = (int64_t)1 << 18;
+
 template <class R, int D = kFillDepth>
 int launch_precalc_fill(const R& rk, const LFArgs& a, cudaStream_t s) {
     if constexpr (D > 0) {
@@ -39,7 +56,12 @@ int launch_precalc_fill(const R& rk, const LFArgs& a, cudaStream_t s) {
     } else if (a.p < 0) {
         return (int)cudaErrorInvalidValue;
     }
-    precalc_fill_kernel<D, R><<<grid_for((int64_t)1 << (2 * (a.p - D))), kBlock, 0, s>>>(rk, a);
+    using K = typename StagedRank<R>::type;
+    const int64_t n = (int64_t)1 << (2 * (a.p - D));
+    if constexpr (StagesPatterns<K>::value) {
+        if (n >= kFillStagedThreads) return launch_staged<precalc_fill_kernel<D, K>>(rk, a, n, s);
+    }
+    precalc_fill_kernel<D, R><<<grid_for(n), kBlock, 0, s>>>(rk, a);
     return (int)cudaGetLastError();
 }
 
@@ -61,33 +83,31 @@ int launch_kmer_search(const R& rk, const LFArgs& a, cudaStream_t s) {
 }
 
 // Launches partial_search in R's SearchShape: staged, a warp per pool of
-// 32 * pool lanes, or one thread a lane
+// 32 * pool lanes, or one thread a lane (over StagedRank's twin where R
+// has one)
 template <class R>
 int launch_partial_search(const R& rk, const LFArgs& a, cudaStream_t s) {
     using S = SearchShape<R>;
+    using K = typename StagedRank<R>::type;
     if constexpr (S::partial_staged) {
         const int64_t pools = (a.B + 32 * S::pool - 1) / (32 * S::pool);
         const unsigned grid = (unsigned)((pools + kSearchWarps - 1) / kSearchWarps);
         partial_search_kernel<R><<<grid, kSearchWarps * 32, partial_search_smem_bytes<R>(), s>>>(
             rk, a);
+    } else if constexpr (StagesPatterns<K>::value) {
+        return launch_staged<partial_search_lane_kernel<K>>(rk, a, a.B, s);
     } else {
         partial_search_lane_kernel<R><<<grid_for(a.B), kBlock, 0, s>>>(rk, a);
     }
     return (int)cudaGetLastError();
 }
 
-// Launches succ1 over all columns by span, over StagedRank's type: with
-// the staged pattern table (64 KB) its limit is raised first
+// Launches succ1 over all columns by span
 template <class R>
-int launch_succ1_span(const R& rank, const LFArgs& a, cudaStream_t s) {
-    using K = typename StagedRank<R>::type;
-    const K rk = as_rank<K>(rank);
-    static std::atomic<int> raised[64];
-    const int smem = StagesPatterns<K>::value ? kPatternTableBytes : 0;
-    if (const int e = raise_smem_limit(succ1_span_kernel<K>, smem, raised)) return e;
+int launch_succ1_span(const R& rk, const LFArgs& a, cudaStream_t s) {
     const int64_t warps = (a.B + kSuccSpan - 1) / kSuccSpan;
-    succ1_span_kernel<K><<<(unsigned)((warps + kSuccWarps - 1) / kSuccWarps), kSuccWarps * 32,
-                           smem, s>>>(rk, a);
+    succ1_span_kernel<R><<<(unsigned)((warps + kSuccWarps - 1) / kSuccWarps), kSuccWarps * 32, 0,
+                           s>>>(rk, a);
     return (int)cudaGetLastError();
 }
 

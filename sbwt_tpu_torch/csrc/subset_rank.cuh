@@ -25,9 +25,12 @@
 // Bound on the H100: the dependent loads of the bit-vector ranks inside
 // (bv.cuh, wavelet.cuh): one for PlainMatrix, one for MatrixRank, X then
 // Y's two levels and Z for SplitRank, a sample and a window row then three
-// levels for ConcatRank, and up to six for SubsetWTRank. rank_pair shares
-// every load between the two positions; ConcatRank's two set starts, up to
-// 4 symbols apart, share one walk of the tree (WaveletTree::rank_span).
+// levels for ConcatRank, and two trees' rows for SubsetWTRank (plain: two
+// 16-byte rows; rrr: an RRR rank beside up to two MEF ranks, twice: four
+// memory rounds, against up to eight down the wavelet trees' levels).
+// rank_pair shares every load between the two positions; ConcatRank's two
+// set starts, up to 4 symbols apart, share one walk of the tree
+// (WaveletTree::rank_span).
 //
 // ConcatRank's select0 takes the window's high word as z1 >> o for every
 // o. The JAX package zeroes it when o == 0 (subsetrank.py:321, :363),
@@ -259,16 +262,113 @@ struct ConcatRank {
 
 // plain-subsetwt, rrr-subsetwt (SubsetWT.hh:41-113): acgt over
 // 2 * (A or C) + (G or T); ac over 2 * A + C of the AC-present columns;
-// gt over 2 * G + T of the GT-present columns.
+// gt over 2 * G + T of the GT-present columns. A symbol's hi bit marks
+// {2, 3}, its lo bit {1, 3}. A char's count is two dependent rounds: the
+// acgt tree's count at pos gives x (its hi count, the AC-present columns,
+// for A and C; its lo count, the GT-present ones, for G and T), then the
+// ac or gt tree's count at x (hi for A and G, lo for C and T). The char
+// picks the tree and the count by selects, so a warp's lanes run one path
+// whatever their chars. A tree's hi and lo counts at one position come
+// from one round because both are held in position order: the wavelet
+// tree's level 1 holds the lo bit permuted by the hi bit (SubsetWT's
+// node-local ranks), a second round at two unrelated places.
+template <class BV>
+struct SubsetWTRank;
+
+// plain-subsetwt: each tree as int4 rows, one per 32 positions: (hi word,
+// hi count before it, lo word, lo count before it), the words and counts
+// of the wavelet tree's two levels in position order, the same bytes. A
+// rank or rank_pair is two 16-byte loads.
+template <>
+struct SubsetWTRank<PlainBV> {
+    using pos_t = int;
+    const int4* acgt;
+    const int4* ac;
+    const int4* gt;
+
+    // The lo (else hi) count before pos from pos's row, and the bit at pos
+    __device__ __forceinline__ static int count_at(const int4& row, bool lo, int pos, int* bit) {
+        const unsigned w = (unsigned)(lo ? row.z : row.x);
+        const unsigned o = (unsigned)pos & 31u;
+        *bit = (int)((w >> o) & 1u);
+        return (lo ? row.w : row.y) + __popc(w & ((1u << o) - 1u));
+    }
+    // rank(p + 1) = rank(p) + the bit at p, at each tree from its row
+    __device__ __forceinline__ int2 rank_pair(int c, int pos) const {
+        int adv, bit;
+        const int x = count_at(acgt[pos >> 5], c >= 2, pos, &adv);
+        const int4* t = c < 2 ? ac : gt;
+        const int r = count_at(t[x >> 5], (c & 1) != 0, x, &bit);
+        return make_int2(r, r + (adv & bit));
+    }
+    __device__ __forceinline__ int rank(int c, int pos) const { return rank_pair(c, pos).x; }
+
+    // A tree's hi and lo bits of positions pos .. pos + len - 1 (len in
+    // [0, 32]) and its hi and lo counts before pos; the next row only where
+    // the run crosses into it
+    __device__ __forceinline__ static void planes(const int4* t, int pos, int len, unsigned* hi,
+                                                  unsigned* lo, int* rh, int* rl) {
+        const int4 row = t[pos >> 5];
+        const unsigned o = (unsigned)pos & 31u, below = (1u << o) - 1u;
+        *rh = row.y + __popc((unsigned)row.x & below);
+        *rl = row.w + __popc((unsigned)row.z & below);
+        unsigned h = (unsigned)row.x >> o, l = (unsigned)row.z >> o;
+        if ((int)o + len > 32) {
+            const int4 next = t[(pos >> 5) + 1];
+            h |= (unsigned)next.x << (32u - o);
+            l |= (unsigned)next.z << (32u - o);
+        }
+        *hi = h & low_mask(len);
+        *lo = l & low_mask(len);
+    }
+    // acgt's planes are the AC- and GT-present marks of the run; each marks
+    // a run of the ac or gt tree, from the count of its marks before pos,
+    // whose planes are A and C, or G and T
+    __device__ __forceinline__ void subsets(int pos, int len, unsigned (&w)[4]) const {
+        unsigned hi, lo, ah, al, gh, gl;
+        int rh, rl, ra, rg;
+        planes(acgt, pos, len, &hi, &lo, &rh, &rl);
+        planes(ac, rh, __popc(hi), &ah, &al, &ra, &rg);
+        planes(gt, rl, __popc(lo), &gh, &gl, &ra, &rg);
+        w[0] = deposit(ah, hi);
+        w[1] = deposit(al, hi);
+        w[2] = deposit(gh, lo);
+        w[3] = deposit(gl, lo);
+    }
+};
+
+// rrr-subsetwt: each tree's level 0 (RRR: r0, the count of symbols {2, 3})
+// and, in place of level 1, sparse vectors in position order (MEF: two
+// plain row loads a rank) from which the lo count follows at the same
+// position:
+//   acgt  GT-present(p) = (p - r0(p)) - e(p) + b(p), e the empty columns
+//         (symbol 0), b those with both an A/C and a G/T edge (symbol 3);
+//   ac    C-present(x) = (x - a0(x)) + b_ac(x), b_ac the columns with A
+//         and C; gt likewise T-present(x) = (x - g0(x)) + b_gt(x)
+//         (neither holds a symbol 0).
+// So a rank is two rounds, each an RRR rank with up to two MEF ranks beside
+// it: four memory rounds. A lane with no use for an MEF rank reads it at
+// position 0 (one cached row a warp), so that every lane runs one path.
+// Where the vectors would take more bytes than the three level-1 vectors
+// (many empty or two-sided columns; the host decides per index), sparse is
+// 0 and level 1 is kept: the lo count is then level 1's two node ranks
+// after r0, the wavelet tree's chain. The flag is uniform across a launch.
 template <class BV>
 struct SubsetWTRank {
     using pos_t = int;
-    WaveletTree<BV> acgt, ac, gt;
+    BV l0[3];              // level 0 of acgt, ac, gt
+    MEF e, b, b_ac, b_gt;  // sparse != 0
+    BV l1[3];              // sparse == 0: level 1 of acgt, ac, gt
+    int node[3][4];        // sparse == 0: (base, ones before) of each tree's left and right node
+    int sparse;
 
     using Tree4 = sbwt::Tree4<BV>;  // wavelet.cuh
 
+    __device__ __forceinline__ Tree4 tree(int t) const {
+        return Tree4{l0[t], l1[t], node[t][0], node[t][1], node[t][2], node[t][3]};
+    }
     // (count of symbol 1, count of symbol 3) before pos, given level 0's
-    // rank r at pos
+    // rank r at pos (level 1)
     __device__ __forceinline__ static int2 pair_rank(const Tree4& t, int pos, int r) {
         return make_int2(t.l1.rank(t.base_l + (pos - r)) - t.rank_l,
                          t.l1.rank(t.base_r + r) - t.rank_r);
@@ -285,58 +385,103 @@ struct SubsetWTRank {
     }
 
     __device__ __forceinline__ int rank(int c, int pos) const {
-        const Tree4 root = tree4(acgt);
-        const int r = root.l0.rank(pos);
-        int x = r;
-        if (c >= 2) {
-            const int2 q = pair_rank(root, pos, r);
+        const bool hi_side = c < 2, odd = (c & 1) != 0;
+        const int r0 = l0[0].rank(pos);
+        if (sparse) {
+            const int q = hi_side ? 0 : pos;
+            const int er = e.rank(q), br = b.rank(q);
+            const int x = hi_side ? r0 : pos - r0 - er + br;
+            const BV t0 = hi_side ? l0[1] : l0[2];
+            const MEF bt = hi_side ? b_ac : b_gt;
+            const int a0 = t0.rank(x), bx = bt.rank(odd ? x : 0);
+            return odd ? x - a0 + bx : a0;
+        }
+        int x = r0;
+        if (!hi_side) {
+            const int2 q = pair_rank(tree(0), pos, r0);
             x = q.x + q.y;
         }
-        const Tree4 t = c < 2 ? tree4(ac) : tree4(gt);
-        const int r0 = t.l0.rank(x);
-        if ((c & 1) == 0) return r0;  // A or G: level 0 of its tree
-        const int2 q = pair_rank(t, x, r0);
+        const Tree4 t = hi_side ? tree(1) : tree(2);
+        const int a0 = t.l0.rank(x);
+        if (!odd) return a0;
+        const int2 q = pair_rank(t, x, a0);
         return q.x + q.y;
     }
 
     __device__ __forceinline__ int2 rank_pair(int c, int pos) const {
-        const Tree4 root = tree4(acgt);
-        const int2 r = root.l0.rank_pair(pos);
+        const bool hi_side = c < 2, odd = (c & 1) != 0;
+        const int2 r = l0[0].rank_pair(pos);
+        if (sparse) {
+            const int q = hi_side ? 0 : pos;
+            const int2 er = e.rank_pair(q), br = b.rank_pair(q);
+            const int x = hi_side ? r.x : pos - r.x - er.x + br.x;
+            const int xq = hi_side ? r.y : pos + 1 - r.y - er.y + br.y;
+            const bool adv = xq != x;
+            const BV t0 = hi_side ? l0[1] : l0[2];
+            const MEF bt = hi_side ? b_ac : b_gt;
+            const int2 a = t0.rank_pair(x), bb = bt.rank_pair(odd ? x : 0);
+            const int aq = adv ? a.y : a.x;
+            return odd ? make_int2(x - a.x + bb.x, xq - aq + (adv ? bb.y : bb.x))
+                       : make_int2(a.x, aq);
+        }
         int x = r.x, xq = r.y;
-        if (c >= 2) {
-            const int4 q = pair_rank_pair(root, pos, 1, r.x, r.y - r.x);
+        if (!hi_side) {
+            const int4 q = pair_rank_pair(tree(0), pos, 1, r.x, r.y - r.x);
             x = q.x + q.y;
             xq = q.z + q.w;
         }
         const int xadv = xq - x;
-        const Tree4 t = c < 2 ? tree4(ac) : tree4(gt);
+        const Tree4 t = hi_side ? tree(1) : tree(2);
         const int2 t0 = t.l0.rank_pair(x);
         const int t_rq = xadv == 1 ? t0.y : t0.x;
-        if ((c & 1) == 0) return make_int2(t0.x, t_rq);
+        if (!odd) return make_int2(t0.x, t_rq);
         const int4 q = pair_rank_pair(t, x, xadv, t0.x, t_rq - t0.x);
         return make_int2(q.x + q.y, q.z + q.w);
     }
+
     // acgt's planes are the AC- and GT-present marks of the run; each marks
     // a run of the ac or gt tree, from the count of its marks before pos,
-    // whose planes are A and C, or G and T
+    // whose planes are A and C, or G and T. Sparse: a lo plane is rebuilt
+    // from the vectors' bits, (~hi & ~e) | (hi & b) over acgt, ~hi | b over
+    // ac and gt.
     __device__ __forceinline__ void subsets(int pos, int len, unsigned (&w)[4]) const {
-        const Planes4 root = planes4(tree4(acgt), pos, len);
-        const Planes4 a = planes4(tree4(ac), root.r0, __popc(root.hi));
-        const Planes4 g = planes4(tree4(gt), root.c1 + root.c3, __popc(root.lo));
-        w[0] = deposit(a.hi, root.hi);
-        w[1] = deposit(a.lo, root.hi);
-        w[2] = deposit(g.hi, root.lo);
-        w[3] = deposit(g.lo, root.lo);
+        unsigned hi, lo, ah, al, gh, gl;
+        if (sparse) {
+            int r0, er, br, ra, rg, rb;
+            hi = l0[0].bits(pos, len, &r0);
+            const unsigned ev = e.bits(pos, len, &er), bv = b.bits(pos, len, &br);
+            lo = (~hi & ~ev & low_mask(len)) | (hi & bv);
+            const int nh = __popc(hi), nl = __popc(lo), rl = pos - r0 - er + br;
+            ah = l0[1].bits(r0, nh, &ra);
+            gh = l0[2].bits(rl, nl, &rg);
+            al = (~ah | b_ac.bits(r0, nh, &rb)) & low_mask(nh);
+            gl = (~gh | b_gt.bits(rl, nl, &rb)) & low_mask(nl);
+        } else {
+            const Planes4 root = planes4(tree(0), pos, len);
+            const Planes4 a = planes4(tree(1), root.r0, __popc(root.hi));
+            const Planes4 g = planes4(tree(2), root.c1 + root.c3, __popc(root.lo));
+            hi = root.hi;
+            lo = root.lo;
+            ah = a.hi;
+            al = a.lo;
+            gh = g.hi;
+            gl = g.lo;
+        }
+        w[0] = deposit(ah, hi);
+        w[1] = deposit(al, hi);
+        w[2] = deposit(gh, lo);
+        w[3] = deposit(gl, lo);
     }
 };
 
-// The rank type that K14 (lf_stream.cuh) and succ1's span kernel
-// (succ_table.cuh) run over R: R itself, or for SubsetWTRank<RRR15> its twin
-// with RRR15Staged in place of RRR15 (bv.cuh), the same descriptor read by
-// a kernel that stages the pattern table in shared memory first. Its four
-// RRR ranks chained a step made the register decode's latency K14's: on an
-// H100 the table won 33% there and 7% in the span kernel, and ran 0-39%
-// slower on the other RRR types (one block an SM; PERF.md).
+// The rank type that K1's fill at p = 12 and partial_search's
+// one-thread-a-lane form (rank_ops.cuh) run over R: R itself, or for
+// SubsetWTRank<RRR15> its twin with RRR15Staged in place of RRR15 (bv.cuh),
+// the same descriptor read by a kernel that stages the pattern table in
+// shared memory first. On an H100 the table won 2.1x in that fill and 28%
+// in partial_search, whose lanes take many steps each; it lost 15% in
+// kmer_search, 24% in K14 and 23% in succ1's span kernel, and 0-39% on the
+// other RRR types (tools/lf_ab.py, search_ab.py, succ_ab.py; PERF.md).
 template <class R>
 struct StagedRank {
     using type = R;

@@ -103,10 +103,6 @@ __global__ void succ1_kernel(R rk, LFArgs a) {
 template <class R>
 __global__ void __launch_bounds__(kSuccWarps * 32) succ1_span_kernel(R rk, LFArgs a) {
     constexpr unsigned kAll = 0xFFFFFFFFu;
-    if constexpr (StagesPatterns<R>::value) {
-        stage_patterns();
-        __syncthreads();
-    }
     const int lane = threadIdx.x & 31;
     const int64_t span0 = ((int64_t)blockIdx.x * kSuccWarps + (threadIdx.x >> 5)) * kSuccSpan;
     if (span0 >= a.B) return;  // the whole warp

@@ -172,9 +172,15 @@ SPLIT_DESCS = {k: _struct(f"SplitRank_{k}", [("X", BV_DESCS[k]), ("Y", WT_DESCS[
 CONCAT_DESCS = {k: _struct(f"ConcatRank_{k}", [("wt", WT_DESCS[k]), ("l_words", _P),
                                                ("samples", _P)])
                 for k in ("plain", "rrr")}
-SUBSETWT_DESCS = {k: _struct(f"SubsetWTRank_{k}", [("acgt", WT_DESCS[k]), ("ac", WT_DESCS[k]),
-                                                   ("gt", WT_DESCS[k])])
-                  for k in ("plain", "rrr")}
+# plain: the int4 plane rows of acgt, ac, gt; rrr: level 0 of each tree, the
+# sparse vectors e, b, b_ac, b_gt, level 1 of each tree, its nodes' (base,
+# ones before) pairs, and whether the sparse vectors stand in for level 1
+SUBSETWT_DESCS = {
+    "plain": _struct("SubsetWTRank_plain", [("acgt", _P), ("ac", _P), ("gt", _P)]),
+    "rrr": _struct("SubsetWTRank_rrr", [("l0", RRRDesc * 3), ("e", MEFDesc), ("b", MEFDesc),
+                                        ("b_ac", MEFDesc), ("b_gt", MEFDesc), ("l1", RRRDesc * 3),
+                                        ("node", _I * 12), ("sparse", _I)]),
+}
 PlainMatrixDesc = _struct("PlainMatrix", [("rank_tbl", _P), ("n_words", _LL)])
 WideMatrixDesc = _struct("WideMatrix", [("rank_tbl", _P), ("n_words", _LL)])
 ShardedMatrixDesc = _struct("ShardedMatrix", [

@@ -11,7 +11,8 @@ The port of sbwt_tpu/models/subsetrank.py. Each structure answers
 * ``ConcatRank``   — all set members over {$, A, C, G, T} in a 5-symbol
   wavelet tree; set starts are the zeros of L, found by select0 from a
   sample of every 8th zero and a 64-bit window.
-* ``SubsetWTRank`` — three 4-symbol wavelet trees (ACGT, AC, GT).
+* ``SubsetWTRank`` — three 4-symbol wavelet trees (ACGT, AC, GT), held on
+  the device in position order (plane rows, or level 0 and sparse vectors).
 
 Host builders are numpy and ``payload()`` is byte-equal to the JAX one.
 ``rank`` and ``rank_pair`` are the plain PyTorch versions of the device
@@ -28,7 +29,8 @@ import torch
 from torch import nn
 
 from .. import kernels
-from ..ops.bv import BV_CLASSES, as_int32
+from ..ops import bitvector as bvt
+from ..ops.bv import BV_CLASSES, MEFBV, as_int32
 from ..ops.bitvector import popcount32
 from ..ops.wavelet import WaveletTree
 
@@ -376,91 +378,220 @@ class ConcatRank(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-def _wt4_children(wt: WaveletTree):
-    """(base, rank) of the left and right children (node ids 1, 2)."""
-    return wt.node_base[1], wt.node_rank[1], wt.node_base[2], wt.node_rank[2]
+_TREES = ("acgt", "ac", "gt")
 
 
-def _wt4_pair_rank(wt: WaveletTree, pos, root_r1):
-    """(count of symbol 1, count of symbol 3) before pos, given root rank1."""
-    base_l, rank_l, base_r, rank_r = _wt4_children(wt)
-    lvl1 = wt.levels[1]
-    return lvl1.rank(base_l + (pos - root_r1)) - rank_l, lvl1.rank(base_r + root_r1) - rank_r
+def _sswt_symbols(bits: np.ndarray):
+    """The three trees' symbols: acgt over 2 * (A or C) + (G or T); ac over
+    2 * A + C of the AC-present columns; gt over 2 * G + T of the
+    GT-present columns."""
+    A, C, G, T = (bits[i] for i in range(4))
+    acp, gtp = A | C, G | T
+    return (2 * acp.astype(np.int64) + gtp, 2 * A[acp].astype(np.int64) + C[acp],
+            2 * G[gtp].astype(np.int64) + T[gtp])
 
 
-def _wt4_pair_rank_pair(wt: WaveletTree, p, padv, r, radv):
-    """_wt4_pair_rank at p and at p + padv (padv in {0, 1}), given the root
-    ranks r and r + radv: (c1, c3, c1 at p + padv, c3 at p + padv)."""
-    base_l, rank_l, base_r, rank_r = _wt4_children(wt)
-    lvl1 = wt.levels[1]
-    ca, cb = lvl1.rank_pair(base_l + (p - r))
-    da, db = lvl1.rank_pair(base_r + r)
+def _plane_rows(sym: np.ndarray) -> np.ndarray:
+    """int32 [n // 32 + 1, 4]: per 32 positions (hi word, hi count before
+    it, lo word, lo count before it) of the symbols' hi bit (level 0) and lo
+    bit, both in position order."""
+    return np.concatenate([bvt.rank_table_host(sym >= 2), bvt.rank_table_host((sym & 1) == 1)],
+                          axis=1)
+
+
+def _plane_counts(rows, pos):
+    """(hi count, hi bit, lo count, lo bit) at pos from pos's row; int64."""
+    rh, bh = bvt.rank_get(rows[:, 0:2], pos)
+    rl, bl = bvt.rank_get(rows[:, 2:4], pos)
+    return rh, bh, rl, bl
+
+
+def _plane_bools(rows: torch.Tensor, n: int):
+    """A tree's hi and lo bits as bool arrays of its n positions."""
+    words = np.ascontiguousarray(rows[:, [0, 2]].cpu().numpy()).view(np.uint32)
+    bits = [np.unpackbits(np.ascontiguousarray(words[:, i]).view(np.uint8),
+                          bitorder="little")[:n].astype(bool) for i in range(2)]
+    return bits[0], bits[1]
+
+
+def _on(bv, device):
+    """A bit vector built on the host, on device."""
+    return type(bv).from_payload(bv.payload(), device)
+
+
+def _wt4_pair_rank(l1, nodes, pos, r0):
+    """(count of symbol 1, count of symbol 3) before pos of a sigma-4 tree
+    from its level 1, given level 0's rank r0; nodes = (base, ones before)
+    of the left node, then of the right."""
+    base_l, rank_l, base_r, rank_r = (int(v) for v in nodes)
+    return l1.rank(base_l + (pos - r0)) - rank_l, l1.rank(base_r + r0) - rank_r
+
+
+def _wt4_pair_rank_pair(l1, nodes, p, padv, r, radv):
+    """_wt4_pair_rank at p and at p + padv (padv in {0, 1}), given level
+    0's ranks r and r + radv: (c1, c3, c1 at p + padv, c3 at p + padv)."""
+    base_l, rank_l, base_r, rank_r = (int(v) for v in nodes)
+    ca, cb = l1.rank_pair(base_l + (p - r))
+    da, db = l1.rank_pair(base_r + r)
     return (ca - rank_l, da - rank_r,
             torch.where(padv - radv == 1, cb, ca) - rank_l, torch.where(radv == 1, db, da) - rank_r)
 
 
 class SubsetWTRank(nn.Module):
     """acgt over 2 * (A or C) + (G or T); ac over 2 * A + C on the AC-present
-    columns; gt over 2 * G + T on the GT-present columns."""
+    columns; gt over 2 * G + T on the GT-present columns (SubsetWT.hh:41-113).
+    A symbol's hi bit marks {2, 3}, its lo bit {1, 3}.
 
-    def __init__(self, acgt: WaveletTree, ac: WaveletTree, gt: WaveletTree, n: int, kind: str):
+    Held in the device form of csrc/subset_rank.cuh, where a char's count
+    is two dependent rounds: the acgt tree's count at pos (hi for A and C,
+    lo for G and T) gives x, then the ac or gt tree's count at x (hi for A
+    and G, lo for C and T). Each tree gives both counts at one position:
+    * plain: int32 [n_t // 32 + 1, 4] rows (hi word, hi count, lo word, lo
+      count), the two levels' words and counts in position order;
+    * rrr: level 0 (RRR) and, in place of level 1, sparse position-order
+      vectors (MEF): e (symbol 0) and b (symbol 3) of acgt, b of ac and gt,
+      with GT-present(p) = (p - r0) - e(p) + b(p) and C-present(x) = (x -
+      a0) + b_ac(x), T-present likewise (ac and gt hold no symbol 0). Where
+      the vectors take more bytes than the three level-1 vectors, or when
+      ``sparse`` is False, level 1 is kept instead and the lo count is its
+      two node ranks after r0.
+
+    The file form (``payload``, ``to_bits``, ``size_in_bytes``) is the three
+    wavelet trees as the JAX package holds them, rebuilt on the host from
+    the device form; ``device_bytes`` counts the device form."""
+
+    def __init__(self, symbols, kind: str, device="cpu", sparse: bool | None = None):
         super().__init__()
-        self.acgt, self.ac, self.gt = acgt, ac, gt
-        self.n, self.kind = int(n), kind
+        syms = [np.asarray(s, dtype=np.int64) for s in symbols]
+        self.n, self.kind, self.sizes = len(syms[0]), kind, [len(s) for s in syms]
+        self.sparse = False
+        if kind == "plain":
+            for name, s in zip(_TREES, syms):
+                self.register_buffer(name, as_int32(_plane_rows(s), device))
+            self._file_bytes = self.device_bytes()  # the levels' rows, re-ordered
+            return
+        trees = [WaveletTree.build(s, 4, kind, "cpu") for s in syms]
+        self._file_bytes = sum(t.size_in_bytes() for t in trees)
+        self.l0 = nn.ModuleList([_on(t.levels[0], device) for t in trees])
+        vecs = [MEFBV.build(v) for v in (syms[0] == 0, syms[0] == 3, syms[1] == 3, syms[2] == 3)]
+        if sparse is None:
+            sparse = (sum(v.size_in_bytes() for v in vecs)
+                      <= sum(t.levels[1].size_in_bytes() for t in trees))
+        self.sparse = bool(sparse)
+        if self.sparse:
+            self.e, self.b, self.b_ac, self.b_gt = (_on(v, device) for v in vecs)
+            self._b = [self.b, self.b_ac, self.b_gt]
+        else:
+            self.l1 = nn.ModuleList([_on(t.levels[1], device) for t in trees])
+            self._nodes = np.array([[t._host[0][1], t._host[1][1], t._host[0][2], t._host[1][2]]
+                                    for t in trees], dtype=np.int32)
 
     @classmethod
-    def from_bits(cls, bits: np.ndarray, kind: str, device="cpu") -> "SubsetWTRank":
-        A, C, G, T = (bits[i] for i in range(4))
-        acp, gtp = A | C, G | T
-        return cls(WaveletTree.build(2 * acp.astype(np.int64) + gtp, 4, kind, device),
-                   WaveletTree.build(2 * A[acp].astype(np.int64) + C[acp], 4, kind, device),
-                   WaveletTree.build(2 * G[gtp].astype(np.int64) + T[gtp], 4, kind, device),
-                   bits.shape[1], kind)
+    def from_bits(cls, bits: np.ndarray, kind: str, device="cpu",
+                  sparse: bool | None = None) -> "SubsetWTRank":
+        return cls(_sswt_symbols(bits), kind, device, sparse)
+
+    @property
+    def _device(self):
+        return self.acgt.device if self.kind == "plain" else self.l0[0].meta.device
+
+    def _lo(self, t, pos, r0):
+        """Tree t's count of odd symbols before pos, given level 0's rank r0."""
+        if not self.sparse:
+            return sum(_wt4_pair_rank(self.l1[t], self._nodes[t], pos, r0))
+        lo = pos - r0 + self._b[t].rank(pos)
+        return lo - self.e.rank(pos) if t == 0 else lo
+
+    def _lo_pair(self, t, p, padv, r, radv):
+        """_lo at p and at p + padv (padv in {0, 1}), given level 0's ranks r
+        and r + radv."""
+        if not self.sparse:
+            c1, c3, c1q, c3q = _wt4_pair_rank_pair(self.l1[t], self._nodes[t], p, padv, r, radv)
+            return c1 + c3, c1q + c3q
+        b1, b2 = self._b[t].rank_pair(p)
+        lo1, lo2 = p - r + b1, p + padv - r - radv + torch.where(padv == 1, b2, b1)
+        if t == 0:
+            e1, e2 = self.e.rank_pair(p)
+            lo1, lo2 = lo1 - e1, lo2 - torch.where(padv == 1, e2, e1)
+        return lo1, lo2
+
+    def _lanes(self, c, pos):
+        dev = self._device
+        return torch.broadcast_tensors(torch.as_tensor(c, device=dev).long(),
+                                       torch.as_tensor(pos, device=dev).long())
+
+    def _plane_rank_pair(self, c, pos):
+        """plain: the acgt row at pos, then the ac or gt row at x; the rank
+        at pos + 1 is the rank at pos plus the bit at each tree."""
+        hi, hb, lo, lb = _plane_counts(self.acgt, pos)
+        is_ac = c < 2
+        x, adv = torch.where(is_ac, hi, lo), torch.where(is_ac, hb, lb)
+        a = _plane_counts(self.ac, torch.where(is_ac, x, 0))
+        g = _plane_counts(self.gt, torch.where(is_ac, 0, x))
+        odd = (c & 1) == 1
+        r = torch.where(is_ac, torch.where(odd, a[2], a[0]), torch.where(odd, g[2], g[0]))
+        bit = torch.where(is_ac, torch.where(odd, a[3], a[1]), torch.where(odd, g[3], g[1]))
+        return r, r + adv * bit
 
     def rank(self, c, pos):
         """SubsetWT::rank (SubsetWT.hh:94-113) over mixed chars."""
-        c, pos = torch.broadcast_tensors(torch.as_tensor(c, device=self.acgt.node_base.device).long(),
-                                         torch.as_tensor(pos, device=self.acgt.node_base.device).long())
+        c, pos = self._lanes(c, pos)
+        if self.kind == "plain":
+            return self._plane_rank_pair(c, pos)[0]
         is_ac = c < 2
-        root_r1 = self.acgt.levels[0].rank(pos)
-        c1, c3 = _wt4_pair_rank(self.acgt, pos, root_r1)
-        x = torch.where(is_ac, root_r1, c1 + c3)
+        r0 = self.l0[0].rank(pos)
+        x = torch.where(is_ac, r0, self._lo(0, pos, r0))
         acx, gtx = torch.where(is_ac, x, 0), torch.where(is_ac, 0, x)
-        ac_root, gt_root = self.ac.levels[0].rank(acx), self.gt.levels[0].rank(gtx)
-        ac1, ac3 = _wt4_pair_rank(self.ac, acx, ac_root)
-        gt1, gt3 = _wt4_pair_rank(self.gt, gtx, gt_root)
-        return torch.where(c == 0, ac_root, torch.where(c == 1, ac1 + ac3,
-                           torch.where(c == 2, gt_root, gt1 + gt3)))
+        a0, g0 = self.l0[1].rank(acx), self.l0[2].rank(gtx)
+        return torch.where(c == 0, a0, torch.where(c == 1, self._lo(1, acx, a0),
+                           torch.where(c == 2, g0, self._lo(2, gtx, g0))))
 
     def rank_pair(self, c, pos):
         """Every tree argument at pos + 1 is the one at pos or its +1
-        neighbour, so each level answers both positions from one rank_pair."""
-        c, pos = torch.broadcast_tensors(torch.as_tensor(c, device=self.acgt.node_base.device).long(),
-                                         torch.as_tensor(pos, device=self.acgt.node_base.device).long())
+        neighbour, so each tree answers both positions from one rank_pair."""
+        c, pos = self._lanes(c, pos)
+        if self.kind == "plain":
+            return self._plane_rank_pair(c, pos)
         is_ac = c < 2
-        r0a, r0b = self.acgt.levels[0].rank_pair(pos)
-        c1, c3, c1q, c3q = _wt4_pair_rank_pair(self.acgt, pos, torch.ones_like(pos), r0a, r0b - r0a)
-        x = torch.where(is_ac, r0a, c1 + c3)
-        xadv = torch.where(is_ac, r0b, c1q + c3q) - x
+        r0a, r0b = self.l0[0].rank_pair(pos)
+        lo1, lo2 = self._lo_pair(0, pos, torch.ones_like(pos), r0a, r0b - r0a)
+        x = torch.where(is_ac, r0a, lo1)
+        xadv = torch.where(is_ac, r0b, lo2) - x
         zero = torch.zeros_like(pos)
         acx, acadv = torch.where(is_ac, x, 0), torch.where(is_ac, xadv, zero)
         gtx, gtadv = torch.where(is_ac, 0, x), torch.where(is_ac, zero, xadv)
-        ac0a, ac0b = self.ac.levels[0].rank_pair(acx)
+        ac0a, ac0b = self.l0[1].rank_pair(acx)
         ac_rq = torch.where(acadv == 1, ac0b, ac0a)
-        gt0a, gt0b = self.gt.levels[0].rank_pair(gtx)
+        gt0a, gt0b = self.l0[2].rank_pair(gtx)
         gt_rq = torch.where(gtadv == 1, gt0b, gt0a)
-        ac1, ac3, ac1q, ac3q = _wt4_pair_rank_pair(self.ac, acx, acadv, ac0a, ac_rq - ac0a)
-        gt1, gt3, gt1q, gt3q = _wt4_pair_rank_pair(self.gt, gtx, gtadv, gt0a, gt_rq - gt0a)
-        r1 = torch.where(c == 0, ac0a, torch.where(c == 1, ac1 + ac3,
-                         torch.where(c == 2, gt0a, gt1 + gt3)))
-        r2 = torch.where(c == 0, ac_rq, torch.where(c == 1, ac1q + ac3q,
-                         torch.where(c == 2, gt_rq, gt1q + gt3q)))
+        ac1, ac1q = self._lo_pair(1, acx, acadv, ac0a, ac_rq - ac0a)
+        gt1, gt1q = self._lo_pair(2, gtx, gtadv, gt0a, gt_rq - gt0a)
+        r1 = torch.where(c == 0, ac0a, torch.where(c == 1, ac1, torch.where(c == 2, gt0a, gt1)))
+        r2 = torch.where(c == 0, ac_rq, torch.where(c == 1, ac1q, torch.where(c == 2, gt_rq, gt1q)))
         return r1, r2
 
+    def symbols(self):
+        """The three trees' symbols, decoded on the host from the device form."""
+        if self.kind == "plain":
+            planes = [_plane_bools(getattr(self, name), n) for name, n in zip(_TREES, self.sizes)]
+        else:
+            his = [bv.to_bools() for bv in self.l0]
+            if self.sparse:
+                e, b, b_ac, b_gt = (v.to_bools() for v in (self.e, self.b, self.b_ac, self.b_gt))
+                los = [(~his[0] & ~e) | (his[0] & b), ~his[1] | b_ac, ~his[2] | b_gt]
+            else:
+                los = []
+                for hi, l1, (base_l, _, base_r, _) in zip(his, self.l1, self._nodes):
+                    bools, lo = l1.to_bools(), np.zeros(len(hi), dtype=bool)
+                    lo[~hi] = bools[base_l : base_l + int((~hi).sum())]
+                    lo[hi] = bools[base_r : base_r + int(hi.sum())]
+                    los.append(lo)
+            planes = list(zip(his, los))
+        return [2 * hi.astype(np.int64) + lo for hi, lo in planes]
+
     def to_bits(self) -> np.ndarray:
-        acgt = self.acgt.to_symbols()
+        acgt, ac, gt = self.symbols()
         acp, gtp = acgt >= 2, (acgt & 1) == 1
-        ac, gt = self.ac.to_symbols(), self.gt.to_symbols()
         bits = np.zeros((4, self.n), dtype=bool)
         bits[0, acp], bits[1, acp] = ac >= 2, (ac & 1) == 1
         bits[2, gtp], bits[3, gtp] = gt >= 2, (gt & 1) == 1
@@ -468,22 +599,41 @@ class SubsetWTRank(nn.Module):
 
     def payload(self) -> dict:
         out = {"n": np.int64(self.n)}
-        for name in ("acgt", "ac", "gt"):
-            out.update({f"{name}_{k}": v for k, v in getattr(self, name).payload().items()})
+        for name, s in zip(_TREES, self.symbols()):
+            wt = WaveletTree.build(s, 4, self.kind, "cpu")
+            out.update({f"{name}_{k}": v for k, v in wt.payload().items()})
         return out
 
     @classmethod
-    def from_payload(cls, p: dict, kind: str, device="cpu") -> "SubsetWTRank":
-        acgt, ac, gt = (WaveletTree.from_payload(_sub(p, f"{name}_"), kind, device)
-                        for name in ("acgt", "ac", "gt"))
-        return cls(acgt, ac, gt, int(p["n"]), kind)
+    def from_payload(cls, p: dict, kind: str, device="cpu",
+                     sparse: bool | None = None) -> "SubsetWTRank":
+        syms = [WaveletTree.from_payload(_sub(p, f"{name}_"), kind, "cpu").to_symbols()
+                for name in _TREES]
+        return cls(syms, kind, device, sparse)
 
     def size_in_bytes(self) -> int:
-        return self.acgt.size_in_bytes() + self.ac.size_in_bytes() + self.gt.size_in_bytes()
+        """The three wavelet trees' bytes, as the JAX package reports them."""
+        return self._file_bytes
+
+    def device_bytes(self) -> int:
+        """The bytes of the device form."""
+        if self.kind == "plain":
+            return sum(getattr(self, name).numel() * 4 for name in _TREES)
+        second = (self.e, self.b, self.b_ac, self.b_gt) if self.sparse else self.l1
+        return sum(bv.size_in_bytes() for bv in (*self.l0, *second))
 
     def desc(self, dev):
-        return kernels.SUBSETWT_DESCS[self.kind](self.acgt.desc(dev), self.ac.desc(dev),
-                                                 self.gt.desc(dev))
+        d = kernels.SUBSETWT_DESCS[self.kind]
+        if self.kind == "plain":
+            return d(*(kernels.ptr(getattr(self, name), f"subsetwt.{name}", dev, 16)
+                       for name in _TREES))
+        rrr3 = kernels.RRRDesc * 3
+        if self.sparse:
+            return d(rrr3(*(bv.desc(dev) for bv in self.l0)), self.e.desc(dev), self.b.desc(dev),
+                     self.b_ac.desc(dev), self.b_gt.desc(dev), rrr3(), kernels.c_ints([0] * 12), 1)
+        none = kernels.MEFDesc()
+        return d(rrr3(*(bv.desc(dev) for bv in self.l0)), none, none, none, none,
+                 rrr3(*(bv.desc(dev) for bv in self.l1)), kernels.c_ints(self._nodes.ravel()), 0)
 
 
 # ---------------------------------------------------------------------------

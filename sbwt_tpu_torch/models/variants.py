@@ -62,6 +62,11 @@ class GenericIndex(nn.Module):
     def size_in_bytes(self) -> int:
         return self.struct.size_in_bytes()
 
+    def device_bytes(self) -> int:
+        """The structure's bytes as the device holds it: its size, except
+        for the subset wavelet trees' device form (models/subsetrank.py)."""
+        return getattr(self.struct, "device_bytes", self.struct.size_in_bytes)()
+
 
 def build_generic_index(variant: str, bits: np.ndarray, suffix_group_starts, k: int,
                         n_kmers: int, device, precalc_k: int = 0, precalc_table=None,

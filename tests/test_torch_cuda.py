@@ -14,8 +14,9 @@ import torch
 from sbwt_tpu_torch import kernels
 from sbwt_tpu_torch.construct import device as td
 from sbwt_tpu_torch.models import matrix as tm
+from sbwt_tpu_torch.models import subsetrank as tsr
 from sbwt_tpu_torch.models.sbwt import SBWT, VARIANT_NAMES
-from sbwt_tpu_torch.models.variants import build_generic_index
+from sbwt_tpu_torch.models.variants import GenericIndex, build_generic_index
 from sbwt_tpu_torch.models.wide import WideMatrixIndex, from_packed_rows_wide
 from sbwt_tpu_torch.ops import bitvector as bv
 from sbwt_tpu_torch.ops import search as ts
@@ -23,6 +24,7 @@ from sbwt_tpu_torch.ops import turbo as tt
 from sbwt_tpu_torch.utils.dna import encode_query
 
 import search_cases as sc
+import subsetwt_cases as swc
 
 pytestmark = pytest.mark.cuda
 
@@ -316,8 +318,14 @@ def test_lf_kernels_low_complexity_equal_plain_versions(cuda, variant):
     g = (rand(1500) + "A" * 200 + "ACGT" * 60 + rand(500) + "AC" * 100 + "GT" * 100 + rand(800)
          + "AAAAAAC" * 30 + rand(300))
     sb = SBWT.build([g], 12, cuda, precalc_k=4).to_variant(variant)
-    di = sb.device_index
-    blocks = _rrr_blocks(di.struct)
+    indexes = [sb.device_index]
+    if variant == "rrr-subsetwt":
+        # a genome's index takes the sparse vectors, whose trees' RRR level
+        # 0 holds no block of class 0 or 15 here; level 1 holds them, so
+        # the kernels run that form too
+        assert sb.device_index.struct.sparse
+        indexes.append(_subsetwt_form(sb.device_index, "rrr-level1"))
+    blocks = [b for di in indexes for b in _rrr_blocks(di.struct)]
     assert all(n % 15 for n, _ in blocks)
     classes = np.concatenate([c for _, c in blocks]) if blocks else np.zeros(0)
     assert (variant == "plain-concat") == (len(blocks) == 0)
@@ -325,32 +333,140 @@ def test_lf_kernels_low_complexity_equal_plain_versions(cuda, variant):
     assert variant not in ("mef-concat", "rrr-subsetwt") or (classes == 15).any()
     codes, lengths = _reads(g, rng, 1024, 52, 12)
     c, n = torch.from_numpy(codes).to(cuda), torch.from_numpy(lengths).to(cuda)
-    counters = {op: kernels.LAUNCHES[kernels.lf_counter(op, variant)]
-                for op in ("lf_stream", "precalc_fill", "kmer_search", "partial_search")}
-    got = ts.streaming_search(di, c, n)
+    for di in indexes:
+        counters = {op: kernels.LAUNCHES[kernels.lf_counter(op, variant)]
+                    for op in ("lf_stream", "precalc_fill", "kmer_search", "partial_search")}
+        got = ts.streaming_search(di, c, n)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ts.streaming_search_plain(di, c, n))
+        km = c[:, :12].contiguous()
+        assert torch.equal(ts.search_batch(di, km), ts.search_batch_plain(di, km))
+        for g_, w in zip(ts.partial_search_batch(di, c, n), ts.partial_search_plain(di, c, n)):
+            assert torch.equal(g_, w)
+        ref = tm.precalc_fill_plain(di, 6)
+        tm.with_precalc(di, 6)
+        assert torch.equal(di.precalc, ref)
+        assert all(kernels.LAUNCHES[kernels.lf_counter(op, variant)] > before
+                   for op, before in counters.items())
+
+
+# SubsetWTRank's device forms (csrc/subset_rank.cuh): (variant, sparse) of
+# the plain rows, of rrr with the sparse vectors, of rrr with level 1 kept
+SUBSETWT_FORMS = {"plain": ("plain-subsetwt", None), "rrr-sparse": ("rrr-subsetwt", True),
+                  "rrr-level1": ("rrr-subsetwt", False)}
+
+
+def _subsetwt_form(di, form):
+    """The subset-WT index di with its structure rebuilt in a device form."""
+    variant, sparse = SUBSETWT_FORMS[form]
+    st = tsr.SubsetWTRank.from_bits(di.struct.to_bits(), variant.split("-")[0], di.device, sparse)
+    return GenericIndex(st, di.sgs_tbl, di.C, di.precalc.clone(), variant=variant,
+                        n_nodes=di.n_nodes, n_kmers=di.n_kmers, k=di.k, precalc_k=di.precalc_k,
+                        has_streaming=di.has_streaming)
+
+
+def _launched(op, variant, fn):
+    """fn's output, checking that it launched the kernel op[variant]."""
+    name = kernels.lf_counter(op, variant)
+    before = kernels.LAUNCHES[name]
+    out = fn()
     torch.cuda.synchronize()
-    assert torch.equal(got, ts.streaming_search_plain(di, c, n))
-    km = c[:, :12].contiguous()
-    assert torch.equal(ts.search_batch(di, km), ts.search_batch_plain(di, km))
-    for g_, w in zip(ts.partial_search_batch(di, c, n), ts.partial_search_plain(di, c, n)):
-        assert torch.equal(g_, w)
-    ref = tm.precalc_fill_plain(di, 6)
-    tm.with_precalc(di, 6)
+    assert kernels.LAUNCHES[name] > before, name
+    return out
+
+
+@pytest.mark.parametrize("form", list(SUBSETWT_FORMS))
+@pytest.mark.parametrize("case", list(swc.CASES))
+def test_subsetwt_forms_rank_kernels_equal_plain_versions(cuda, form, case):
+    """SubsetWTRank's device forms through the kernels that inline them, at
+    bit patterns with empty sets, sets of four and vectors that end off a
+    word, a block and a superblock (tests/subsetwt_cases.py, then empty
+    columns so that every LF interval stays inside the columns): forward
+    at every (column, char), succ1 by span, the p = 5 fill, kmer_search and
+    partial_search, against their plain versions."""
+    variant, sparse = SUBSETWT_FORMS[form]
+    bits = swc.case_bits(case)
+    m = int(bits.sum()) + 1
+    while m % 15 == 0 or m % 32 == 0 or m % 240 == 0 or m < bits.shape[1]:
+        m += 1
+    bits = np.concatenate([bits, np.zeros((4, m - bits.shape[1]), dtype=bool)], axis=1)
+    n = bits.shape[1]
+    st = tsr.SubsetWTRank.from_bits(bits, variant.split("-")[0], cuda, sparse)
+    di = build_generic_index(variant, bits, np.ones(n, dtype=bool), 8, 0, cuda, struct=st)
+    rng = np.random.default_rng(n)
+    cols = torch.arange(n, device=cuda).repeat(4)
+    chars = torch.arange(4, device=cuda).repeat_interleave(n)
+    fwd = _launched("forward", variant, lambda: ts.forward_batch(di, cols, chars))
+    assert torch.equal(fwd, ts.extend_from_column(di, cols, chars).to(di.pos_dtype))
+    assert torch.equal(_launched("succ1", variant, lambda: tt.succ1(di)), tt.succ1_plain(di))
+    pre = _launched("precalc_fill", variant, lambda: kernels.precalc_fill(
+        variant, di.kernel_desc(cuda), di.C, di.n_nodes, 5))
+    assert torch.equal(pre, tm.precalc_fill_plain(di, 5))
+    km = torch.from_numpy(rng.integers(0, 4, size=(4096, 8)).astype(np.int8)).to(cuda)
+    assert torch.equal(_launched("kmer_search", variant, lambda: ts.search_batch(di, km)),
+                       ts.search_batch_plain(di, km))
+    codes = torch.from_numpy(rng.integers(0, 4, size=(4096, 12)).astype(np.int8)).to(cuda)
+    lengths = torch.from_numpy(rng.integers(0, 13, size=4096).astype(np.int32)).to(cuda)
+    got = _launched("partial_search", variant, lambda: ts.partial_search_batch(di, codes, lengths))
+    for g, w in zip(got, ts.partial_search_plain(di, codes, lengths)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("form", list(SUBSETWT_FORMS))
+@pytest.mark.parametrize("k,p", [(12, 4), (31, 8)])
+def test_subsetwt_forms_stream_kernels_equal_plain_versions(cuda, form, k, p):
+    """K14, K1's fill and search, partial_search, succ1, forward and K4
+    over the variant's own tables, on a genome's index (homopolymers and
+    tandem repeats beside random sequence) in each device form, against
+    their plain versions and plain-matrix's answers."""
+    variant, _ = SUBSETWT_FORMS[form]
+    rng = np.random.default_rng(40 + k)
+
+    def rand(n):
+        return "".join(rng.choice(list("ACGT"), size=n))
+
+    g = rand(1200) + "A" * 150 + "ACGT" * 50 + rand(900) + "GT" * 80 + "AAAAAAC" * 20 + rand(700)
+    plain = SBWT.build([g], k, cuda, precalc_k=p)
+    sb = plain.to_variant(variant)
+    if form == "rrr-level1":
+        sb.device_index.struct = _subsetwt_form(sb.device_index, form).struct
+    di = sb.device_index
+    assert di.struct.sparse == (form == "rrr-sparse")
+    codes, lengths = _reads(g, rng, 1024, k + 40, k)
+    c, n = torch.from_numpy(codes).to(cuda), torch.from_numpy(lengths).to(cuda)
+    lf = _launched("lf_stream", variant, lambda: ts.streaming_search(di, c, n))
+    assert torch.equal(lf, ts.streaming_search_plain(di, c, n))
+    assert torch.equal(lf, ts.streaming_search(plain.device_index, c, n))
+    km = c[:, :k].contiguous()
+    assert torch.equal(_launched("kmer_search", variant, lambda: ts.search_batch(di, km)),
+                       ts.search_batch_plain(di, km))
+    ref = tm.precalc_fill_plain(di, p)
+    _launched("precalc_fill", variant, lambda: tm.with_precalc(di, p))
     assert torch.equal(di.precalc, ref)
+    counters = {op: kernels.LAUNCHES[kernels.lf_counter(op, variant)]
+                for op in ("partial_search", "succ1", "forward", "turbo_stream")}
+    _rank_op_checks(di, c, n, rng)
+    for arity in (1, 2, 3):
+        assert sb.enable_turbo(arity) == arity
+        assert torch.equal(sb._turbo.tbl, tt.build_turbo(plain.device_index, arity).tbl)
+        got = tt.turbo_streaming_search(sb._turbo, di, c, n)
+        torch.cuda.synchronize()
+        assert torch.equal(got, tt.turbo_streaming_search_plain(sb._turbo, di, c, n))
+        assert torch.equal(got, lf)
     assert all(kernels.LAUNCHES[kernels.lf_counter(op, variant)] > before
                for op, before in counters.items())
 
 
 @pytest.mark.parametrize("k,p", [(30, 6), (64, 6), (255, 8)])
 def test_lf_stream_staged_patterns_equal_plain_version(cuda, k, p):
-    """K14 on rrr-subsetwt, whose blocks stage the RRR pattern table in
-    shared memory: 32 warps a block at k = 30, fewer where a long k's tiles
-    and the table would not fit one block's shared memory."""
+    """rrr-subsetwt's kernels that stage the RRR pattern table in shared
+    memory (StagedRank): partial_search's lanes, 1,024 a block at most, and
+    K1's fill at p = 12 (2^18 threads); K14, which decodes the patterns in
+    registers, with no table beside its tiles, at short and long k."""
     rng = np.random.default_rng(900 + k)
     g = "".join(rng.choice(list("ACGT"), size=3000))
     di = SBWT.build([g], k, cuda, precalc_k=p).to_variant("rrr-subsetwt").device_index
-    smem = kernels.lf_smem_bytes("rrr-subsetwt", k)
-    assert 65_600 < smem <= 232_448
+    assert kernels.lf_smem_bytes("rrr-subsetwt", k) == kernels.lf_smem_bytes("plain-matrix", k)
     codes, lengths = _reads(g, rng, 1100, k + 50, k)
     c, n = torch.from_numpy(codes).to(cuda), torch.from_numpy(lengths).to(cuda)
     name = kernels.lf_counter("lf_stream", "rrr-subsetwt")
@@ -359,6 +475,13 @@ def test_lf_stream_staged_patterns_equal_plain_version(cuda, k, p):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES[name] == before + 1
     assert torch.equal(got, ts.streaming_search_plain(di, c, n))
+    part = _launched("partial_search", "rrr-subsetwt", lambda: ts.partial_search_batch(di, c, n))
+    for g_, w in zip(part, ts.partial_search_plain(di, c, n)):
+        assert torch.equal(g_, w)
+    if k == 30:
+        fill = _launched("precalc_fill", "rrr-subsetwt", lambda: kernels.precalc_fill(
+            "rrr-subsetwt", di.kernel_desc(cuda), di.C, di.n_nodes, 12))
+        assert torch.equal(fill, tm.precalc_fill_plain(di, 12))
 
 
 def _offset_counts(wide, offset):

@@ -38,7 +38,7 @@ K, P, READ_LEN, N_READS, SHARDS = 30, 13, 100, 1 << 20, 4
 VARIANTS = ("rrr-matrix", "mef-matrix", "plain-split", "rrr-split", "mef-split", "plain-concat",
             "mef-concat", "plain-subsetwt", "rrr-subsetwt")
 # mangled rank types of the instances timed here, as ptxas names them (regular
-# expressions: K14 runs rrr-subsetwt as SubsetWTRank<RRR15Staged>)
+# expressions: K1's fill runs rrr-subsetwt as SubsetWTRank<RRR15Staged> at p = 12)
 RANK_TYPES = {"plain": "11PlainMatrix", "rrr-matrix": "10MatrixRankINS_5RRR15",
               "mef-matrix": "10MatrixRankINS_3MEF", "plain-split": "9SplitRankINS_7PlainBV",
               "rrr-split": "9SplitRankINS_5RRR15", "mef-split": "9SplitRankINS_3MEF",

@@ -51,7 +51,7 @@ RANK_TYPES = {"plain": "11PlainMatrix", "rrr-matrix": "10MatrixRankINS_5RRR15",
               "rrr-split": "9SplitRankINS_5RRR15", "mef-split": "9SplitRankINS_3MEF",
               "plain-concat": "10ConcatRankINS_7PlainBV", "mef-concat": "10ConcatRankINS_5RRR15",
               "plain-subsetwt": "12SubsetWTRankINS_7PlainBV",
-              "rrr-subsetwt": "12SubsetWTRankINS_5RRR15", "wide": "10WideMatrix",
+              "rrr-subsetwt": "12SubsetWTRankINS_(5RRR15|11RRR15Staged)", "wide": "10WideMatrix",
               "sharded": "13ShardedMatrix"}
 
 
