@@ -315,12 +315,12 @@ MANGLED = {"plain-matrix": "11PlainMatrix", "rrr-matrix": "10MatrixRankINS_5RRR1
            "rrr-subsetwt": "12SubsetWTRankINS_(?:5RRR15|11RRR15Staged)", WIDE: "10WideMatrix",
            "sharded-matrix": "13ShardedMatrix"}
 SEARCH_OPS = ("kmer_search", "partial_search")  # the kernels whose records carry their registers
-# and every rank-templated kernel (kernels.LF_OPS) of these rank types: RRR15
-# and ConcatRank inside
+# and every rank-templated kernel (kernels.LF_OPS) of these rank types: RRR15,
+# ConcatRank, SplitRank and SubsetWTRank inside
 RANK_OPS = ("lf_stream", "precalc_fill", "kmer_search", "partial_search", "succ1", "turbo_stream",
             "forward")
-REGISTER_RANK_TYPES = ("rrr-matrix", "rrr-split", "plain-concat", "mef-concat", "plain-subsetwt",
-                       "rrr-subsetwt")
+REGISTER_RANK_TYPES = ("rrr-matrix", "plain-split", "rrr-split", "mef-split", "plain-concat",
+                       "mef-concat", "plain-subsetwt", "rrr-subsetwt")
 
 
 def carries_registers(name: str) -> bool:

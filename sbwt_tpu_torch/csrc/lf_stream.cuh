@@ -391,10 +391,16 @@ constexpr int kSearchWarps = 4, kSearchTile = 16;
 // the others step singletons, and without unified steps the two paths
 // diverge. rrr-subsetwt: kmer_search staged won 3-12%, partial_search
 // staged lost 3%; its one-thread-a-lane partial_search reads the staged
-// pattern table (rank_ops.cuh), which won 28%.
+// pattern table (rank_ops.cuh), which won 28%. kmer_blocks is the blocks
+// an SM that kmer_search's launch bounds ask for, 0 for none: left to
+// itself ptxas gave the split types' kmer_search 32 registers and spilled
+// 16 bytes on mef-split; at 12 blocks they take 40 registers, no spill,
+// and ran 0-2.5% faster. With Y in position-order rows, staged
+// partial_search lost again on rrr- and mef-split, 2-3%.
 struct SearchStaged {
     static constexpr int pool = 1;
     static constexpr bool unified = false, kmer_staged = true, partial_staged = true;
+    static constexpr int kmer_blocks = 0;
 };
 struct SearchKmerStaged : SearchStaged {
     static constexpr bool partial_staged = false;
@@ -408,10 +414,14 @@ template <>
 struct SearchShape<MatrixRank<RRR15>> : SearchLanes {};
 template <>
 struct SearchShape<SubsetWTRank<RRR15>> : SearchKmerStaged {};
+template <class XBV>
+struct SearchShape<SplitRank<XBV>> : SearchKmerStaged {
+    static constexpr int kmer_blocks = 12;
+};
 template <>
-struct SearchShape<SplitRank<RRR15>> : SearchKmerStaged {};
-template <>
-struct SearchShape<SplitRank<MEF>> : SearchKmerStaged {};
+struct SearchShape<SplitRank<PlainBV>> : SearchStaged {
+    static constexpr int kmer_blocks = 12;
+};
 template <>
 struct SearchShape<ConcatRank<PlainBV>> : SearchKmerStaged {};
 template <>
@@ -470,7 +480,8 @@ __device__ __forceinline__ bool staged_kmer_index(const unsigned* span, int off,
 // on chars read from shared memory and stores its answer, a coalesced
 // store across the warp.
 template <class R>
-__global__ void __launch_bounds__(kSearchWarps * 32) kmer_search_kernel(R rk, LFArgs a) {
+__global__ void __launch_bounds__(kSearchWarps * 32, SearchShape<R>::kmer_blocks)
+    kmer_search_kernel(R rk, LFArgs a) {
     using P = typename R::pos_t;
     constexpr int W = kSearchWarps;
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;

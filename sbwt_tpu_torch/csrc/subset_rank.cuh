@@ -24,7 +24,7 @@
 //
 // Bound on the H100: the dependent loads of the bit-vector ranks inside
 // (bv.cuh, wavelet.cuh): one for PlainMatrix, one for MatrixRank, X then
-// Y's two levels and Z for SplitRank, a sample and a window row then three
+// Y's row beside Z's for SplitRank, a sample and a window row then three
 // levels for ConcatRank, and two trees' rows for SubsetWTRank (plain: two
 // 16-byte rows; rrr: an RRR rank beside up to two MEF ranks, twice: four
 // memory rounds, against up to eight down the wavelet trees' levels).
@@ -126,28 +126,77 @@ struct MatrixRank {
 };
 
 // plain-split, rrr-split, mef-split: X marks columns with != 1 out-edge;
-// Y (plain, sigma 4) holds the unary columns' labels, Z (plain) the other
-// columns' rows, char-major over n_b columns
+// Y holds the unary columns' labels (sigma 4), Z (plain) the other
+// columns' rows, char-major over n_b columns. Y is held in position order,
+// one 32-byte row a 64 positions, two int4: (hi bits 0-31, hi bits 32-63,
+// lo bits 0-31, lo bits 32-63) and (H, L, B, 0), the counts before the
+// row of hi (symbol >= 2), of lo (symbol & 1) and of symbol 3
+// (models/subsetrank.py _y_rows). So a char's count in Y before p is one
+// row: m marks the row's positions that hold c (the hi and lo planes, each
+// flipped where c's bit is 0), and the count is c's count before the row
+// (B for 3, H - B for 2, L - B for 1, q - H - L + B for 0, q the row's
+// first position) plus m's bits below p. The char picks by selects, so
+// every lane of a warp runs one path. A rank or rank_pair is X's rank,
+// then Y's row beside Z's row: 2 rounds over plain X, 3 over RRR15 or MEF
+// (the wavelet tree's two levels after X made them 3 and 4). The row's
+// two 16-byte loads go out together to one sector: the rows' base is
+// 32-byte aligned, checked where the descriptor is made.
 template <class XBV>
 struct SplitRank {
     using pos_t = int;
     XBV X;
-    WaveletTree<PlainBV> Y;
+    const int4* Y;  // [n_Y / 64 + 1][2]: a row for every p in [0, n_Y]
     PlainBV Z;
     int n_b;
     int z_base[5];
 
+    __device__ __forceinline__ static unsigned long long word64(int lo, int hi) {
+        return ((unsigned long long)(unsigned)hi << 32) | (unsigned)lo;
+    }
+    // The count of c among Y's symbols before p, and whether the symbol at
+    // p is c, from p's row
+    __device__ __forceinline__ int y_rank_get(int c, int p, int* bit) const {
+        const int4* row = Y + 2 * (p >> 6);
+        const int4 w = row[0], cnt = row[1];
+        const unsigned long long m = (word64(w.x, w.y) ^ ((c & 2) ? 0ull : ~0ull)) &
+                                     (word64(w.z, w.w) ^ ((c & 1) ? 0ull : ~0ull));
+        const unsigned o = (unsigned)p & 63u;
+        *bit = (int)((m >> o) & 1ull);
+        const int before = c == 3 ? cnt.z
+                                  : (c == 2 ? cnt.x - cnt.z
+                                            : (c == 1 ? cnt.y - cnt.z
+                                                      : (p & ~63) - cnt.x - cnt.y + cnt.z));
+        return before + __popcll(m & ((1ull << o) - 1ull));
+    }
+
     __device__ __forceinline__ int rank(int c, int pos) const {
         const int xr = X.rank(pos);
-        return Y.rank(c, pos - xr) + Z.rank(c * n_b + xr) - pick4(z_base, c);
+        int bit;
+        return y_rank_get(c, pos - xr, &bit) + Z.rank(c * n_b + xr) - pick4(z_base, c);
     }
     // X's bit at pos routes the +1 into exactly one of Y or Z
     __device__ __forceinline__ int2 rank_pair(int c, int pos) const {
         const int2 x = X.rank_pair(pos);
-        const int2 y = Y.rank_pair(c, pos - x.x);
+        int ybit;
+        const int y = y_rank_get(c, pos - x.x, &ybit);
         const int2 z = Z.rank_pair(c * n_b + x.x);
         const int zb = pick4(z_base, c);
-        return make_int2(y.x + z.x - zb, (x.y > x.x ? y.x + z.y : y.y + z.x) - zb);
+        return make_int2(y + z.x - zb, (x.y > x.x ? y + z.y : y + ybit + z.x) - zb);
+    }
+    // Y's hi and lo planes of positions p .. p + len - 1 (len in [0, 32]):
+    // p's row, and the next row only where the run crosses into it
+    __device__ __forceinline__ void y_planes(int p, int len, unsigned* hi, unsigned* lo) const {
+        const int4* row = Y + 2 * (p >> 6);
+        const int4 w = row[0];
+        const unsigned o = (unsigned)p & 63u;
+        unsigned long long h = word64(w.x, w.y) >> o, l = word64(w.z, w.w) >> o;
+        if ((int)o + len > 64) {
+            const int4 next = row[2];
+            h |= word64(next.x, next.y) << (64u - o);
+            l |= word64(next.z, next.w) << (64u - o);
+        }
+        *hi = (unsigned)h & low_mask(len);
+        *lo = (unsigned)l & low_mask(len);
     }
     // X's bits split the run: its set bits take Z's run from rank xr, the
     // others Y's symbols from pos - xr
@@ -156,12 +205,13 @@ struct SplitRank {
         const unsigned xw = X.bits(pos, len, &xr);
         const int nx = __popc(xw), ny = len - nx;
         const unsigned yw = ~xw & low_mask(len);
-        const Planes4 y = planes4(tree4(Y), pos - xr, ny);
+        unsigned hi, lo;
+        y_planes(pos - xr, ny, &hi, &lo);
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
             int r;
             const unsigned z = Z.bits(c * n_b + xr, nx, &r);
-            const unsigned eq = ((c & 2) ? y.hi : ~y.hi) & ((c & 1) ? y.lo : ~y.lo) & low_mask(ny);
+            const unsigned eq = ((c & 2) ? hi : ~hi) & ((c & 1) ? lo : ~lo) & low_mask(ny);
             w[c] = deposit(z, xw) | deposit(eq, yw);
         }
     }

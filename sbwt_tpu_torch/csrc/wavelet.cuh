@@ -110,12 +110,6 @@ struct Tree4 {
     int base_l, rank_l, base_r, rank_r;
 };
 
-template <class BV>
-__device__ __forceinline__ Tree4<BV> tree4(const WaveletTree<BV>& t) {
-    return Tree4<BV>{t.level[0], t.level[1], t.step[0][1][0], t.step[0][1][1], t.step[2][1][0],
-                     t.step[2][1][1]};
-}
-
 // The symbols of positions pos .. pos + len - 1 (len in [0, 32]) of a
 // sigma-4 tree as two bit planes: hi (symbol >= 2) and lo (symbol & 1);
 // and the counts before pos of symbols {2, 3} (r0), 1 (c1) and 3 (c3).

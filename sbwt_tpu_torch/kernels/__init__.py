@@ -166,8 +166,9 @@ WT_DESCS = {k: _struct(f"WaveletTree_{k}", [("level", bv * 3), ("step", _I * 60)
             for k, bv in BV_DESCS.items()}
 MATRIX_DESCS = {k: _struct(f"MatrixRank_{k}", [("bv", BV_DESCS[k]), ("n", _I), ("base", _I * 5)])
                 for k in ("rrr", "mef")}
-SPLIT_DESCS = {k: _struct(f"SplitRank_{k}", [("X", BV_DESCS[k]), ("Y", WT_DESCS["plain"]),
-                                             ("Z", PlainBVDesc), ("n_b", _I), ("z_base", _I * 5)])
+# X, Y's position-order rows (int4 pairs, 32-byte aligned), Z, n_b, z_base
+SPLIT_DESCS = {k: _struct(f"SplitRank_{k}", [("X", BV_DESCS[k]), ("Y", _P), ("Z", PlainBVDesc),
+                                             ("n_b", _I), ("z_base", _I * 5)])
                for k in ("plain", "rrr", "mef")}
 CONCAT_DESCS = {k: _struct(f"ConcatRank_{k}", [("wt", WT_DESCS[k]), ("l_words", _P),
                                                ("samples", _P)])

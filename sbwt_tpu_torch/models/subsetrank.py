@@ -7,7 +7,8 @@ The port of sbwt_tpu/models/subsetrank.py. Each structure answers
 
 * ``MatrixRank``   — the four rows concatenated into one bit vector.
 * ``SplitRank``    — X marks columns with != 1 out-edge; unary labels go
-  to a plain 4-symbol wavelet tree Y, the other columns' rows to plain Z.
+  to Y (a plain 4-symbol wavelet tree in the files, position-order rows on
+  the device), the other columns' rows to plain Z.
 * ``ConcatRank``   — all set members over {$, A, C, G, T} in a 5-symbol
   wavelet tree; set starts are the zeros of L, found by select0 from a
   sample of every 8th zero and a 64-bit window.
@@ -129,19 +130,75 @@ class MatrixRank(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-class SplitRank(nn.Module):
-    """X over n (1 = column with != 1 out-edge); Y a plain sigma-4 tree over
-    the unary columns' labels; Z plain over the 4 * n_b rows of the others."""
+def _y_rows(sym: np.ndarray) -> np.ndarray:
+    """int32 [n // 64 + 1, 8]: per 64 positions of a sigma-4 string, one
+    32-byte row (hi bits 0-31, hi bits 32-63, lo bits 0-31, lo bits 32-63,
+    H, L, B, 0): the symbols' hi bit (symbol >= 2) and lo bit (symbol & 1)
+    in position order, and the counts before the row of hi, of lo and of
+    symbol 3. The last row holds position n (a zero row where 64 divides n)."""
+    n = len(sym)
+    R = n // 64 + 1
+    hi, lo = np.zeros(R * 64, dtype=bool), np.zeros(R * 64, dtype=bool)
+    hi[:n], lo[:n] = sym >= 2, (sym & 1) == 1
+    rows = np.zeros((R, 8), dtype=np.int32)
+    for j, plane in enumerate((hi, lo, hi & lo)):
+        per_row = plane.reshape(R, 64)
+        if j < 2:
+            rows[:, 2 * j : 2 * j + 2] = np.packbits(per_row, axis=1, bitorder="little").view(np.int32)
+        rows[1:, 4 + j] = np.cumsum(per_row.sum(axis=1, dtype=np.int64))[:-1]
+    return rows
 
-    def __init__(self, X, Y: WaveletTree, Z, z_base: np.ndarray, n: int, n_b: int,
+
+def _y_symbols(rows: torch.Tensor, n: int) -> np.ndarray:
+    """The n symbols that Y's rows hold."""
+    words = np.ascontiguousarray(rows[:, :4].cpu().numpy()).view(np.uint8).reshape(len(rows), 2, 8)
+    hi, lo = (np.unpackbits(words[:, i], axis=1, bitorder="little").ravel()[:n] for i in (0, 1))
+    return 2 * hi.astype(np.int64) + lo
+
+
+def _y_rank_get(rows: torch.Tensor, c, p):
+    """(count of c among Y's symbols before p, whether the symbol at p is c)
+    from p's row, as SplitRank<X>::y_rank_get reads it; int64."""
+    row = rows[p >> 6].long()
+    o = p & 63
+    h, l, b = row[..., 4], row[..., 5], row[..., 6]
+    base = torch.where(c == 3, b, torch.where(c == 2, h - b, torch.where(
+        c == 1, l - b, ((p >> 6) << 6) - h - l + b)))
+    flip_h = torch.where((c & 2) != 0, 0, _LOW32)
+    flip_l = torch.where((c & 1) != 0, 0, _LOW32)
+    count, bit = base, torch.zeros_like(base)
+    for half in (0, 1):  # bits 0-31, then 32-63
+        m = ((row[..., half] & _LOW32) ^ flip_h) & ((row[..., 2 + half] & _LOW32) ^ flip_l)
+        o_half = (o - 32 * half).clamp(0, 32)
+        count = count + popcount32(m & ((1 << o_half) - 1))
+        bit = torch.where(o // 32 == half, (m >> (o & 31)) & 1, bit)
+    return count, bit
+
+
+class SplitRank(nn.Module):
+    """X over n (1 = column with != 1 out-edge); Y the unary columns'
+    labels; Z plain over the 4 * n_b rows of the others.
+
+    Held in the device form of csrc/subset_rank.cuh: Y's symbols as
+    position-order rows (``_y_rows``, 32 bytes a 64 positions), so that a
+    char's count in Y is one row, read in the round after X's rank beside
+    Z's row. The file form (``payload``, ``to_bits``, ``size_in_bytes``)
+    holds Y as the plain sigma-4 wavelet tree of the JAX package, rebuilt
+    on the host from the rows; ``device_bytes`` counts the device form."""
+
+    def __init__(self, X, y_syms: np.ndarray, Z, z_base: np.ndarray, n: int, n_b: int,
                  x_kind: str, z_kind: str = "plain"):
         super().__init__()
-        if z_kind != "plain" or Y.bv_kind != "plain":
-            raise ValueError("split structures keep Y and Z plain")
-        self.X, self.Y, self.Z = X, Y, Z
+        if z_kind != "plain":
+            raise ValueError("split structures keep Z plain")
+        self.X, self.Z = X, Z
+        dev = _device_of(X)
+        self.n_y = len(y_syms)
+        # a fresh allocation: 32-byte aligned (a numpy buffer may not be)
+        self.register_buffer("Y", torch.tensor(_y_rows(np.asarray(y_syms, dtype=np.int64)),
+                                               device=dev))
         self._z_base = np.asarray(z_base, dtype=np.int32)
-        self.register_buffer("z_base", torch.as_tensor(self._z_base.astype(np.int64),
-                                                       device=_device_of(X)))
+        self.register_buffer("z_base", torch.as_tensor(self._z_base.astype(np.int64), device=dev))
         self.n, self.n_b, self.x_kind, self.z_kind = int(n), int(n_b), x_kind, z_kind
 
     @classmethod
@@ -152,37 +209,42 @@ class SplitRank(nn.Module):
         y_syms = (np.argmax(bits[:, unary], axis=0) if unary.any()
                   else np.empty(0, dtype=np.int64))
         Z, z_base = _concat_rows_build(bits[:, x_bools], z_kind, device)
-        return cls(BV_CLASSES[x_kind].build(x_bools, device),
-                   WaveletTree.build(y_syms, 4, "plain", device), Z, z_base,
+        return cls(BV_CLASSES[x_kind].build(x_bools, device), y_syms, Z, z_base,
                    bits.shape[1], int(x_bools.sum()), x_kind, z_kind)
 
     def rank(self, c, pos):
         c = torch.as_tensor(c, device=self.z_base.device).long()
         pos = torch.as_tensor(pos, device=c.device).long()
         xr = self.X.rank(pos)
-        return self.Y.rank(c, pos - xr) + self.Z.rank(c * self.n_b + xr) - self.z_base[c]
+        return (_y_rank_get(self.Y, c, pos - xr)[0] + self.Z.rank(c * self.n_b + xr)
+                - self.z_base[c])
 
     def rank_pair(self, c, pos):
         """X's bit at pos routes the +1 into exactly one of Y (unary) or Z
-        (branching), so each side's rank_pair serves both positions."""
+        (branching), so Y's row and Z's row serve both positions."""
         c = torch.as_tensor(c, device=self.z_base.device).long()
         pos = torch.as_tensor(pos, device=c.device).long()
         xr1, xr2 = self.X.rank_pair(pos)
-        y1, y2 = self.Y.rank_pair(c, pos - xr1)
+        y, ybit = _y_rank_get(self.Y, c, pos - xr1)
         z1, z2 = self.Z.rank_pair(c * self.n_b + xr1)
         zb = self.z_base[c]
-        return y1 + z1 - zb, torch.where(xr2 > xr1, y1 + z2, y2 + z1) - zb
+        return y + z1 - zb, torch.where(xr2 > xr1, y + z2, y + ybit + z1) - zb
+
+    def y_symbols(self) -> np.ndarray:
+        """Y's symbols, decoded on the host from the rows."""
+        return _y_symbols(self.Y, self.n_y)
 
     def to_bits(self) -> np.ndarray:
         x_bools = self.X.to_bools()
         bits = np.zeros((4, self.n), dtype=bool)
-        bits[self.Y.to_symbols(), np.flatnonzero(~x_bools)] = True
+        bits[self.y_symbols(), np.flatnonzero(~x_bools)] = True
         bits[:, np.flatnonzero(x_bools)] = self.Z.to_bools().reshape(4, self.n_b)
         return bits
 
     def payload(self) -> dict:
         out = {"n": np.int64(self.n), "n_b": np.int64(self.n_b), "z_base": self._z_base.copy()}
-        for name, part in (("X", self.X), ("Y", self.Y), ("Z", self.Z)):
+        Y = WaveletTree.build(self.y_symbols(), 4, "plain", "cpu")
+        for name, part in (("X", self.X), ("Y", Y), ("Z", self.Z)):
             out.update({f"{name}_{k}": v for k, v in part.payload().items()})
         return out
 
@@ -190,17 +252,25 @@ class SplitRank(nn.Module):
     def from_payload(cls, p: dict, x_kind: str, z_kind: str = "plain",
                      device="cpu") -> "SplitRank":
         X = BV_CLASSES[x_kind].from_payload(_sub(p, "X_"), device)
-        Y = WaveletTree.from_payload(_sub(p, "Y_"), "plain", device)
+        y_syms = WaveletTree.from_payload(_sub(p, "Y_"), "plain", "cpu").to_symbols()
         Z = BV_CLASSES[z_kind].from_payload(_sub(p, "Z_"), device)
         n_b = int(p["n_b"])
         z_base = p["z_base"] if "z_base" in p else _row_bases(Z.to_bools().reshape(4, n_b))
-        return cls(X, Y, Z, z_base, int(p["n"]), n_b, x_kind, z_kind)
+        return cls(X, y_syms, Z, z_base, int(p["n"]), n_b, x_kind, z_kind)
 
     def size_in_bytes(self) -> int:
-        return self.X.size_in_bytes() + self.Y.size_in_bytes() + self.Z.size_in_bytes()
+        """X, Z and Y's plain wavelet tree (two levels of n_y bits), as the
+        JAX package reports them."""
+        y_levels = 2 * bvt.n_words_padded(self.n_y) * 8
+        return self.X.size_in_bytes() + y_levels + self.Z.size_in_bytes()
+
+    def device_bytes(self) -> int:
+        """The bytes of the device form: Y's rows in place of its tree."""
+        return self.X.size_in_bytes() + self.Y.numel() * 4 + self.Z.size_in_bytes()
 
     def desc(self, dev):
-        return kernels.SPLIT_DESCS[self.x_kind](self.X.desc(dev), self.Y.desc(dev),
+        return kernels.SPLIT_DESCS[self.x_kind](self.X.desc(dev),
+                                                kernels.ptr(self.Y, "split.Y", dev, 32),
                                                 self.Z.desc(dev), self.n_b,
                                                 kernels.c_ints(self._z_base))
 

@@ -10,17 +10,23 @@ and a superblock.
 * random: each char at 0.45;
 * sparse: each char at 0.04 (most columns empty);
 * dense: every set of four.
+
+SPLIT_CASES adds, for SplitRank, all_unary: one char a column, so that Z
+is empty (n_b = 0) and Y holds every column, 19 rows of 64 exactly.
 """
 import numpy as np
 
 CASES = {"unary": 2003, "sets_1_4": 1999, "random": 4093, "sparse": 901, "dense": 257}
+SPLIT_CASES = {**CASES, "all_unary": 1216}
 
 
 def case_bits(case: str) -> np.ndarray:
-    n = CASES[case]
+    n = SPLIT_CASES[case]
     rng = np.random.default_rng(n)
     bits = np.zeros((4, n), dtype=bool)
-    if case == "unary":
+    if case == "all_unary":
+        bits[rng.integers(0, 4, size=n), np.arange(n)] = True
+    elif case == "unary":
         bits[rng.integers(0, 4, size=n), np.arange(n)] = True
         u = rng.random(n)
         bits[:, u < 0.005] = False

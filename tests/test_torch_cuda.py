@@ -457,6 +457,93 @@ def test_subsetwt_forms_stream_kernels_equal_plain_versions(cuda, form, k, p):
                for op, before in counters.items())
 
 
+SPLIT_VARIANTS = ("plain-split", "rrr-split", "mef-split")
+
+
+@pytest.mark.parametrize("variant", SPLIT_VARIANTS)
+@pytest.mark.parametrize("case", list(swc.SPLIT_CASES))
+def test_split_rank_kernels_equal_plain_versions(cuda, variant, case):
+    """SplitRank's position-order Y through the kernels that inline it, at
+    bit patterns with empty sets, sets of four, no unary column (dense),
+    no branching one (all_unary) and Y lengths that are multiples of 64
+    (tests/subsetwt_cases.py SPLIT_CASES, then empty columns so that every
+    LF interval stays inside the columns): forward at every (column, char),
+    succ1 by span, the p = 5 fill, kmer_search and partial_search, against
+    their plain versions. forward and succ1 rank only below n, so they also
+    run on the bits unpadded, where all_unary keeps Z empty (n_b = 0)."""
+    bits = swc.case_bits(case)
+    x_kind = variant.split("-")[0]
+    m = int(bits.sum()) + 1
+    while m % 15 == 0 or m % 32 == 0 or m % 240 == 0 or m < bits.shape[1]:
+        m += 1
+    padded = np.concatenate([bits, np.zeros((4, m - bits.shape[1]), dtype=bool)], axis=1)
+    rng = np.random.default_rng(m)
+    for b in (bits, padded):
+        n = b.shape[1]
+        st = tsr.SplitRank.from_bits(b, x_kind, "plain", cuda)
+        assert st.n_b == int((b.sum(axis=0) != 1).sum())
+        di = build_generic_index(variant, b, np.ones(n, dtype=bool), 8, 0, cuda, struct=st)
+        cols = torch.arange(n, device=cuda).repeat(4)
+        chars = torch.arange(4, device=cuda).repeat_interleave(n)
+        fwd = _launched("forward", variant, lambda: ts.forward_batch(di, cols, chars))
+        assert torch.equal(fwd, ts.extend_from_column(di, cols, chars).to(di.pos_dtype))
+        assert torch.equal(_launched("succ1", variant, lambda: tt.succ1(di)), tt.succ1_plain(di))
+    pre = _launched("precalc_fill", variant, lambda: kernels.precalc_fill(
+        variant, di.kernel_desc(cuda), di.C, di.n_nodes, 5))
+    assert torch.equal(pre, tm.precalc_fill_plain(di, 5))
+    km = torch.from_numpy(rng.integers(0, 4, size=(4096, 8)).astype(np.int8)).to(cuda)
+    assert torch.equal(_launched("kmer_search", variant, lambda: ts.search_batch(di, km)),
+                       ts.search_batch_plain(di, km))
+    codes = torch.from_numpy(rng.integers(0, 4, size=(4096, 12)).astype(np.int8)).to(cuda)
+    lengths = torch.from_numpy(rng.integers(0, 13, size=4096).astype(np.int32)).to(cuda)
+    got = _launched("partial_search", variant, lambda: ts.partial_search_batch(di, codes, lengths))
+    for g, w in zip(got, ts.partial_search_plain(di, codes, lengths)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("variant", SPLIT_VARIANTS)
+@pytest.mark.parametrize("k,p", [(12, 4), (31, 8)])
+def test_split_stream_kernels_equal_plain_versions(cuda, variant, k, p):
+    """K14, K1's fill and search, partial_search, succ1, forward and K4's
+    restarts over the variant's own tables, on a genome's index
+    (homopolymers and tandem repeats beside random sequence) with Y in
+    position order, against their plain versions and plain-matrix's
+    answers; each kernel launched."""
+    rng = np.random.default_rng(60 + k)
+
+    def rand(n):
+        return "".join(rng.choice(list("ACGT"), size=n))
+
+    g = rand(1200) + "A" * 150 + "ACGT" * 50 + rand(900) + "GT" * 80 + "AAAAAAC" * 20 + rand(700)
+    plain = SBWT.build([g], k, cuda, precalc_k=p)
+    sb = plain.to_variant(variant)
+    di = sb.device_index
+    assert di.struct.Y.data_ptr() % 32 == 0 and di.struct.n_y > 0
+    codes, lengths = _reads(g, rng, 1024, k + 40, k)
+    c, n = torch.from_numpy(codes).to(cuda), torch.from_numpy(lengths).to(cuda)
+    lf = _launched("lf_stream", variant, lambda: ts.streaming_search(di, c, n))
+    assert torch.equal(lf, ts.streaming_search_plain(di, c, n))
+    assert torch.equal(lf, ts.streaming_search(plain.device_index, c, n))
+    km = c[:, :k].contiguous()
+    assert torch.equal(_launched("kmer_search", variant, lambda: ts.search_batch(di, km)),
+                       ts.search_batch_plain(di, km))
+    ref = tm.precalc_fill_plain(di, p)
+    _launched("precalc_fill", variant, lambda: tm.with_precalc(di, p))
+    assert torch.equal(di.precalc, ref)
+    counters = {op: kernels.LAUNCHES[kernels.lf_counter(op, variant)]
+                for op in ("partial_search", "succ1", "forward", "turbo_stream")}
+    _rank_op_checks(di, c, n, rng)
+    for arity in (1, 2, 3):
+        assert sb.enable_turbo(arity) == arity
+        assert torch.equal(sb._turbo.tbl, tt.build_turbo(plain.device_index, arity).tbl)
+        got = tt.turbo_streaming_search(sb._turbo, di, c, n)
+        torch.cuda.synchronize()
+        assert torch.equal(got, tt.turbo_streaming_search_plain(sb._turbo, di, c, n))
+        assert torch.equal(got, lf)
+    assert all(kernels.LAUNCHES[kernels.lf_counter(op, variant)] > before
+               for op, before in counters.items())
+
+
 @pytest.mark.parametrize("k,p", [(30, 6), (64, 6), (255, 8)])
 def test_lf_stream_staged_patterns_equal_plain_version(cuda, k, p):
     """rrr-subsetwt's kernels that stage the RRR pattern table in shared

@@ -227,3 +227,25 @@ def subsetwt_rank_answers(case: str, kind: str):
     prog = jax.jit(lambda c, pos: (jst.rank(c, pos), *jst.rank_pair(c, jnp.minimum(pos, n - 1))))
     r, r1, r2 = (np.asarray(a) for a in prog(jnp.asarray(c), jnp.asarray(pos)))
     return r, r1[pos < n], r2[pos < n]
+
+
+@functools.lru_cache(maxsize=None)
+def split_rank_answers(case: str, x_kind: str):
+    """The JAX SplitRank's rank at every (char, position 0..n) and rank_pair
+    at every (char, column), char-major, of a case of
+    tests/subsetwt_cases.py SPLIT_CASES: (rank, rank_pair first, rank_pair
+    second) as numpy arrays, one JAX program a case and X kind."""
+    import jax
+    import jax.numpy as jnp
+
+    from sbwt_tpu.models.subsetrank import build_struct
+    from subsetwt_cases import case_bits
+
+    bits = case_bits(case)
+    n = bits.shape[1]
+    jst = build_struct(f"{x_kind}-split", bits)
+    c = np.repeat(np.arange(4, dtype=np.int32), n + 1)
+    pos = np.tile(np.arange(n + 1, dtype=np.int32), 4)
+    prog = jax.jit(lambda c, pos: (jst.rank(c, pos), *jst.rank_pair(c, jnp.minimum(pos, n - 1))))
+    r, r1, r2 = (np.asarray(a) for a in prog(jnp.asarray(c), jnp.asarray(pos)))
+    return r, r1[pos < n], r2[pos < n]
