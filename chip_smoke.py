@@ -98,7 +98,8 @@ Phases, one line each; any failure exits nonzero:
    and short lengths; each variant's K1 search on the 1M 30-mers and fill
    at p = 8, and its p = 12 table of phase 4 against the plain version's;
    K19's four kernels at the genome build's shapes (edge_src_probe beside
-   ``torch.searchsorted`` of its queries, its library time), the build's
+   ``torch.searchsorted`` of its queries, its library time; pack_windows
+   also at k = 63 and 255, 4 and 16 key words, with registers), the build's
    sorts, and the build's time split by stage; succ1 and K4 of each compressed
    variant and partial_search of all eleven rank types; the wide kernels
    at the 4M-column index (whole batches, beside the narrow times; succ1
@@ -109,7 +110,10 @@ Phases, one line each; any failure exits nonzero:
 13. the CLI (``python -m sbwt_tpu_torch build`` / ``build-variant`` /
    ``search``, ``ascii-export``) on the reference's golden inputs, byte-equal
    to the golden output, on plain-matrix (turbo) and rrr-split (LF, turbo3
-   and auto); the two exports byte-equal, and mef-split's refused.
+   and auto); the two exports byte-equal, and mef-split's refused;
+14. ``examples/scaling_example_torch.py`` on the card (DP over 8 slots and
+   TP over (4, 2), every slot the one card, held equal), whose lines must
+   equal its CPU run's.
 
 It prints one JSON line of per-kernel results (launches on its path, error
 against the plain version, time, the plain version's time, the least
@@ -167,6 +171,7 @@ VARIANTS = ("plain-matrix", "rrr-matrix", "mef-matrix", "plain-split", "rrr-spli
 GENERIC_P = 12  # the largest precalc a compressed variant fills itself
 PLAIN_READS = 1 << 16  # reads per mix that K14's plain version answers
 BUILD_READS = 200_000  # reads of the hit98 batch that the device build takes as sequences
+WIDE_PACK_K = (63, 255)  # pack_windows at 4 and 16 key words, beside the build's k
 COMPRESSED = VARIANTS[1:]
 WIDE = "wide-matrix"  # the rank type of the int64 tier (kernels.WIDE)
 GIANT_K = 16  # the complete order-16 de Bruijn graph: 4^16 + 1 columns
@@ -1306,7 +1311,16 @@ def searchsorted_probe(dv: torch.Tensor, k: int):
     return call, call()
 
 
-def compare_build_kernels(dev, genome, record):
+def build_registers(regs: list, kernel: str, W: int) -> dict:
+    """Registers and spill bytes of the instance of a K19 kernel that W key
+    words take (its word capacity: 2, 4 or 16)."""
+    wmax = 2 if W <= 2 else 4 if W <= 4 else 16
+    found = [(r, s) for entry, r, s in regs if re.search(rf"{kernel}_kernelILi{wmax}E", entry)]
+    check(len(found) == 1, f"{kernel}<{wmax}>: {len(found)} entry points in the ptxas log")
+    return {"registers": found[0][0], "spill_bytes": found[0][1]}
+
+
+def compare_build_kernels(dev, genome, record, card, regs):
     """K19's four kernels against their plain versions at the genome
     build's shapes, the build's sorts timed alone, and the whole build's
     wall time with the codes already on the card."""
@@ -1320,7 +1334,21 @@ def compare_build_kernels(dev, genome, record):
     record("pack_windows", max_abs_err(keys, plain[0]) + max_abs_err(valid, plain[1]),
            cuda_ms(lambda: kernels.pack_windows(codes, K), 5),
            cuda_ms(lambda: td.pack_windows_plain(codes, K), 1),
-           nbytes(codes, keys, valid), keys.shape[0] * K * 4, shape=tuple(keys.shape))
+           nbytes(codes, keys, valid), keys.shape[0] * K * 4, shape=tuple(keys.shape),
+           **build_registers(regs, "pack_windows", W))
+    # the same kernel over the genome at 4 and 16 key words
+    for k in WIDE_PACK_K:
+        codes_k = td.prepare_device_codes([genome], k, dev)
+        got, plain_k = kernels.pack_windows(codes_k, k), td.pack_windows_plain(codes_k, k)
+        err = max_abs_err(got[0], plain_k[0]) + max_abs_err(got[1], plain_k[1])
+        check(err == 0, f"pack_windows at k = {k}: kernel differs from its plain version")
+        moved = nbytes(codes_k, *got)
+        say("kernel", name="pack_windows", k=k, shape=tuple(got[0].shape), max_abs_err=err,
+            ms=cuda_ms(lambda: kernels.pack_windows(codes_k, k), 5),
+            plain_ms=cuda_ms(lambda: td.pack_windows_plain(codes_k, k), 1),
+            bound_ms=bound_ms(moved, 0), bound_by="bytes", bytes_moved=moved, card=repr(card),
+            **build_registers(regs, "pack_windows", kernels.key_words(k)))
+        del codes_k, got, plain_k
     valid_keys = keys[valid]
     sort_kmers_ms = cuda_ms(lambda: td.colex_order(valid_keys), 3)
     sort_kmers_bound_ms = radix_sort_bytes(valid_keys.shape[0], -(-W // 2)) / HBM_BYTES_PER_S * 1e3
@@ -1373,7 +1401,8 @@ def compare_build_kernels(dev, genome, record):
     record("finalize_tables", sum(max_abs_err(a, b) for a, b in zip(tables, plain)),
            cuda_ms(lambda: kernels.finalize_tables(*nodes, K, True), 5),
            cuda_ms(lambda: td.finalize_tables_plain(*nodes, K, True), 1),
-           nbytes(*nodes, *tables), nodes[0].shape[0] * 4 * W, shape=tuple(nodes[0].shape))
+           nbytes(*nodes, *tables), nodes[0].shape[0] * 4 * W, shape=tuple(nodes[0].shape),
+           **build_registers(regs, "finalize_tables", W))
     del nodes, tables, plain, dv, probe, src, dummies, valid_keys
 
     def build():
@@ -2241,6 +2270,25 @@ def run_cli(device: str) -> None:
         ascii_export_bytes=len(export))
 
 
+def run_scaling_example(device: str) -> None:
+    """examples/scaling_example_torch.py on the card, as a user runs it: it
+    must exit 0 (it asserts DP == TP) and print the lines of its CPU run."""
+    example = str(REPO / "examples" / "scaling_example_torch.py")
+    lines, seconds = {}, {}
+    for where in (device, "cpu"):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, example, "--device", where], cwd=REPO,
+                              capture_output=True, text=True, timeout=600)
+        seconds[where] = round(time.perf_counter() - t0, 3)
+        check(proc.returncode == 0,
+              f"scaling example on {where} failed:\n{proc.stderr[-2000:]}")
+        lines[where] = proc.stdout.splitlines()
+    check(lines[device] == lines["cpu"] and len(lines["cpu"]) == 2,
+          f"scaling example: {lines[device]} on the card, {lines['cpu']} on the CPU")
+    say("scaling_example", lines=repr(" | ".join(lines[device])), seconds=seconds[device],
+        cpu_seconds=seconds["cpu"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false: chip_smoke needs a CUDA device",
@@ -2355,9 +2403,10 @@ def main() -> int:
     del giant
     torch.cuda.empty_cache()
 
-    compare_build_kernels(dev, genome, record)
+    compare_build_kernels(dev, genome, record, card, regs)
     torch.cuda.empty_cache()
     run_cli(str(dev))
+    run_scaling_example(str(dev))
 
     check(set(results) == set(ALL_KERNELS), "a kernel was not compared")
     loaded = sorted(m for m in sys.modules

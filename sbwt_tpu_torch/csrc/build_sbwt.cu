@@ -42,6 +42,14 @@
 // kernel, one warp a partition edge), stages its window of the list in
 // shared memory by cp.async and settles each query there.
 //
+// pack_windows gives a warp a run of windows and each lane R consecutive
+// ones: the warp stages their codes with 16-byte loads and packs each
+// code once into 2-bit chars, a key word is one funnel shift of two char
+// words, and the warp writes its keys as one contiguous span.
+// finalize_tables gives a lane one column of each of a warp's output
+// words, takes the left neighbour's key by shuffles, and a block writes
+// each output row as one contiguous run.
+//
 // Bounds on the H100: all four kernels are bound by bytes. pack_windows,
 // emit_dummies and finalize_tables write or read W words a row once;
 // edge_src_probe reads each run's keys once and the list once a run (four
@@ -50,6 +58,7 @@
 // Keys live in registers: the kernels are templated on a word capacity WMAX
 // (2, 4 or 16) with the true W a runtime value.
 #include "sbwt_common.cuh"
+#include "stream_tile.cuh"
 
 namespace {
 
@@ -105,28 +114,148 @@ __device__ __forceinline__ Key<WMAX> shift_left2(const Key<WMAX>& a, int W) {
     return out;
 }
 
-// One thread per window start: k codes into W top-aligned words; a window
-// holding a code < 0 becomes all ones and is marked invalid.
-__global__ void pack_windows_kernel(const int8_t* __restrict__ codes, int64_t m, int k, int W,
-                                    unsigned* __restrict__ keys, uint8_t* __restrict__ valid) {
-    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= m) return;
-    bool ok = true;
-    for (int wj = 0; wj < W; ++wj) {
-        unsigned word = 0;
-        for (int t = 0; t < 16; ++t) {
-            const int d = wj * 16 + t;
-            if (d >= k) break;
-            const int c = codes[i + (k - 1 - d)];
-            ok &= c >= 0;
-            word |= (unsigned)(c & 3) << (30 - 2 * t);
+// ---- pack_windows: a warp's run of windows, its codes packed once ----
+
+constexpr int kPackWarps = 4;  // warps a block
+
+// Windows a lane takes. Fewer at W = 16, so that a block's staged keys fit
+// 48 KB of static shared memory.
+template <int WMAX>
+__host__ __device__ constexpr int pack_run() {
+    return WMAX == 16 ? 4 : 8;
+}
+
+// A staged key word's place: one pad word after every 32, so that the
+// lanes' rows (R W words apart) fall in different banks.
+__device__ __forceinline__ int key_slot(int i) { return i + (i >> 5); }
+
+// The 16 codes of one 16-byte chunk (four little-endian words) as 2-bit
+// chars, char i at bits 2i, and a mask of those < 0, bit i for char i.
+__device__ __forceinline__ void pack_chunk(const unsigned* v, unsigned* chars, unsigned* bad) {
+    unsigned pk = 0, neg = 0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+        unsigned t = v[q] & 0x03030303u;
+        t |= t >> 6;  // byte 0: c0 | c1 << 2, byte 2: c2 | c3 << 2
+        pk |= ((t & 0xFu) | ((t >> 12) & 0xF0u)) << (8 * q);
+        const unsigned sg = v[q] & 0x80808080u;
+        neg |= (((sg >> 7) | (sg >> 14) | (sg >> 21) | (sg >> 28)) & 0xFu) << (4 * q);
+    }
+    *chars = pk;
+    *bad = neg;
+}
+
+// A warp owns 32 R consecutive windows, lane l windows l R .. l R + R - 1
+// of them. The warp stages the codes they cover with 16-byte loads, from
+// the chunk 16 bytes before the first, and each lane turns the chunks it
+// loaded into 2-bit chars (one word a chunk) and a mask of codes < 0, so
+// each code is packed once, not once a window that holds it. A key word
+// is then one funnel shift of two neighbouring char words: word j of
+// window x holds chars x + k - 16 (j + 1) .. x + k - 16 j - 1, the lowest
+// at bits 0-1 (so the last char, at distance 0 from the end, sits at bits
+// 30-31 of word 0); the last word drops the chars before x. A lane finds
+// the last code < 0 of its first window in the masks and then tests one
+// char a window: a window is valid when that lies before it. Its R valid
+// bytes go out as one R-byte store, its keys into the warp's staged keys,
+// which the warp writes as one contiguous span with 16-byte stores. A
+// window holding a code < 0 gets kSentinel in every word.
+template <int WMAX>
+__global__ void __launch_bounds__(kPackWarps * 32)
+    pack_windows_kernel(const int8_t* __restrict__ codes, int64_t m, int k, int W,
+                        unsigned* __restrict__ keys, uint8_t* __restrict__ valid) {
+    constexpr int R = pack_run<WMAX>();
+    constexpr int kSpan = 32 * R;  // windows a warp
+    constexpr int kChunks = (kSpan + 16 * WMAX + 31 + 15) / 16 + 1;
+    constexpr int kKeyWords = kSpan * WMAX;
+    __shared__ __align__(16) unsigned s_codes[kPackWarps][4 * kChunks];
+    __shared__ unsigned s_chars[kPackWarps][kChunks];
+    __shared__ unsigned s_bad[kPackWarps][kChunks];
+    __shared__ unsigned s_keys[kPackWarps][kKeyWords + kKeyWords / 32];
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int64_t w0 = ((int64_t)blockIdx.x * kPackWarps + warp) * kSpan;
+    if (w0 >= m) return;  // whole warps
+    const int nwin = (int)min((int64_t)kSpan, m - w0);
+    const uintptr_t lo = (uintptr_t)codes, hi = lo + (uintptr_t)(m + k - 1);
+    const uintptr_t g = lo + (uintptr_t)w0;  // window 0's first char
+    const uintptr_t at0 = (g - 16) & ~(uintptr_t)15;
+    const int base = (int)(g - at0);  // its staged byte offset, 16..31
+    const int chunks = (int)((g + nwin + k - 1 - at0 + 15) / 16);
+    unsigned* chars = s_chars[warp];
+    unsigned* bads = s_bad[warp];
+    for (int i = lane; i < chunks; i += 32) {
+        unsigned* st = s_codes[warp] + 4 * i;
+        sbwt::stage_chunk(at0 + 16 * i, lo, hi, st);  // bytes outside the codes: no window's
+        pack_chunk(st, chars + i, bads + i);
+    }
+    __syncwarp();
+    unsigned* sk = s_keys[warp];
+    const int r0 = lane * R;
+    if (r0 < nwin) {
+        const int last = k - 16 * (W - 1);  // chars in the last word
+        const unsigned top = last == 16 ? ~0u : ~(~0u >> (2 * last));
+        // the last code < 0 up to window r0's last char, as a window-relative
+        // position (one before r0 is as good as none)
+        int bad = -1;
+        for (int o = r0 + k - 1 + base; o >= r0 + base;) {
+            const int ci = o >> 4;
+            const unsigned hit = bads[ci] & (0xFFFFu >> (15 - (o & 15)));
+            if (hit) {
+                bad = 16 * ci + 31 - __clz(hit) - base;
+                break;
+            }
+            o = 16 * ci - 1;
         }
-        keys[i * W + wj] = word;
+        unsigned ok[R / 4] = {};  // the valid bytes, four a word
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+            const int x = r0 + r;
+            if (x < nwin) {
+                if (r > 0) {
+                    const int o = x + k - 1 + base;
+                    if ((bads[o >> 4] >> (o & 15)) & 1u) bad = x + k - 1;
+                }
+                const bool good = bad < x;
+                ok[r / 4] |= (unsigned)good << (8 * (r % 4));
+                // word j = chars of chunks c0 + W - 1 - j and the next, shifted by sh
+                const int p0 = x + k - 16 * W + base, c0 = p0 >> 4, sh = 2 * (p0 & 15);
+                unsigned h[WMAX + 1];  // h[i]: char word c0 + W - i
+#pragma unroll
+                for (int i = 0; i <= WMAX; ++i) h[i] = i <= W ? chars[c0 + W - i] : 0u;
+#pragma unroll
+                for (int j = 0; j < WMAX; ++j) {
+                    if (j < W) {
+                        unsigned word = __funnelshift_r(h[j + 1], h[j], sh);
+                        if (j == W - 1) word &= top;
+                        sk[key_slot(x * W + j)] = good ? word : kSentinel;
+                    }
+                }
+            }
+        }
+        uint8_t* v_out = valid + w0 + r0;
+        if (r0 + R <= nwin && ((uintptr_t)v_out & (R - 1)) == 0) {
+            if constexpr (R == 8) {
+                *reinterpret_cast<uint2*>(v_out) = make_uint2(ok[0], ok[1]);
+            } else {
+                *reinterpret_cast<unsigned*>(v_out) = ok[0];
+            }
+        } else {
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+                if (r0 + r < nwin) v_out[r] = (uint8_t)(ok[r / 4] >> (8 * (r % 4)));
+            }
+        }
     }
-    if (!ok) {
-        for (int wj = 0; wj < W; ++wj) keys[i * W + wj] = kSentinel;
+    __syncwarp();
+    // the warp's keys, words [w0 W, (w0 + nwin) W): a 16-byte chunk never
+    // straddles a pad word
+    const int words = nwin * W;
+    unsigned* out = keys + w0 * W;
+    const int vec_words = ((uintptr_t)out & 15) == 0 ? words & ~3 : 0;
+    for (int i = 4 * lane; i < vec_words; i += 4 * 32) {
+        const unsigned* s = sk + key_slot(i);
+        *reinterpret_cast<uint4*>(out + i) = make_uint4(s[0], s[1], s[2], s[3]);
     }
-    valid[i] = ok;
+    for (int i = vec_words + lane; i < words; i += 32) out[i] = sk[key_slot(i)];
 }
 
 // ---- edge_src_probe: the four query runs merged against the masked list ----
@@ -357,60 +486,173 @@ __global__ void emit_dummies_kernel(const unsigned* __restrict__ src, int64_t n_
     out_edge[t] = (int)((row[word_of(d)] >> shift_of(d)) & 3u);
 }
 
-// One thread per column of the merged, sorted nodes, one warp per output
-// word: the streaming mark (the node's suffix key and length differ from
-// the left neighbour's), then a ballot packs the four edge rows and the
-// marks 32 columns per word, with each edge word's popcount.
+// ---- finalize_tables: the edge rows, their popcounts and the marks ----
+
+constexpr int kFinalWarps = 4;  // warps a block
+constexpr int kFinalRounds = 4;  // output words a warp: each lane's columns
+constexpr int kFinalWords = kFinalWarps * kFinalRounds;  // output words a block
+
+// Key i of the rows [n, W], with 16-byte loads (8-byte at W = 2) where vec
+// holds: W == WMAX and a row's start aligned to them. Evict-first: each
+// key is read once.
 template <int WMAX>
-__global__ void finalize_tables_kernel(const unsigned* __restrict__ keys,
-                                       const int* __restrict__ len,
-                                       const uint8_t* __restrict__ edges, int64_t T, int W, int k,
-                                       int64_t n_words, unsigned* __restrict__ rank_words,
-                                       int* __restrict__ pops, unsigned* __restrict__ sgs_words) {
-    const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    const int64_t w = t >> 5;
-    if (w >= n_words) return;  // whole warps leave together
-    const bool active = t < T;
-    const unsigned e = active ? edges[t] : 0u;
-    bool mark = false;
-    if (sgs_words != nullptr && active) {
-        mark = true;
-        if (t > 0) {
-            Key<WMAX> a = load_key<WMAX>(keys, t, W), b = load_key<WMAX>(keys, t - 1, W);
-            int la = len[t], lb = len[t - 1];
-            if (la == k) {
-                drop_first(a, k);
-                la = k - 1;
-            }
-            if (lb == k) {
-                drop_first(b, k);
-                lb = k - 1;
-            }
-            mark = la != lb || compare(a, b) != 0;
+__device__ __forceinline__ Key<WMAX> load_key_vec(const unsigned* __restrict__ keys, int64_t i,
+                                                  int W, bool vec) {
+    if (!vec) return load_key<WMAX>(keys, i, W);
+    Key<WMAX> a;
+    if constexpr (WMAX == 2) {
+        const uint2 v = __ldcs(reinterpret_cast<const uint2*>(keys + 2 * i));
+        a.w[0] = v.x;
+        a.w[1] = v.y;
+    } else {
+#pragma unroll
+        for (int j = 0; j < WMAX; j += 4) {
+            const uint4 v = __ldcs(reinterpret_cast<const uint4*>(keys + i * WMAX + j));
+            a.w[j] = v.x;
+            a.w[j + 1] = v.y;
+            a.w[j + 2] = v.z;
+            a.w[j + 3] = v.w;
         }
     }
-    const bool lane0 = (threadIdx.x & 31) == 0;
-    for (int c = 0; c < 4; ++c) {
-        const unsigned word = __ballot_sync(0xFFFFFFFFu, (e >> c) & 1u);
-        if (lane0) {
-            rank_words[c * n_words + w] = word;
-            pops[c * n_words + w] = __popc(word);
+    return a;
+}
+
+template <int WMAX>
+__device__ __forceinline__ Key<WMAX> shfl_key(const Key<WMAX>& a, int src, bool up) {
+    Key<WMAX> b;
+#pragma unroll
+    for (int j = 0; j < WMAX; ++j) {
+        b.w[j] = up ? __shfl_up_sync(0xFFFFFFFFu, a.w[j], 1)
+                    : __shfl_sync(0xFFFFFFFFu, a.w[j], src);
+    }
+    return b;
+}
+
+// A warp owns kFinalRounds output words, 32 columns each: in round q lane
+// l takes column 32 q + l of them, so each ballot is one output word.
+// Every lane loads all its columns first (its key with vector loads, its
+// length and edge nibble, all evict-first); with streaming it drops a full k-mer's first char and
+// takes its left neighbour's key and length from lane l - 1 by shuffles,
+// lane 0 from lane 31 of the round before, and only the warp's first
+// column loads its neighbour. The mark: the column is the first or differs
+// from its neighbour. The four edge ballots and the mark ballot of each
+// round go to shared memory, and the block writes each of the nine output
+// runs (four rank rows, four popcount rows, the marks) as kFinalWords
+// contiguous words.
+template <int WMAX>
+__global__ void __launch_bounds__(kFinalWarps * 32)
+    finalize_tables_kernel(const unsigned* __restrict__ keys, const int* __restrict__ len,
+                           const uint8_t* __restrict__ edges, int64_t T, int W, int k,
+                           int64_t n_words, unsigned* __restrict__ rank_words,
+                           int* __restrict__ pops, unsigned* __restrict__ sgs_words) {
+    constexpr int Q = kFinalRounds;
+    __shared__ unsigned s_out[5][kFinalWords];
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int64_t col0 = ((int64_t)blockIdx.x * kFinalWords + warp * Q) * 32;
+    const bool streaming = sgs_words != nullptr;
+    const bool vec = W == WMAX && ((uintptr_t)keys & (WMAX == 2 ? 7 : 15)) == 0;
+    unsigned e[Q];
+    Key<WMAX> a[Q];
+    int la[Q];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+        const int64_t t = col0 + 32 * q + lane;
+        const bool act = t < T;
+        e[q] = act ? __ldcs(edges + t) : 0u;
+        la[q] = -1;
+        a[q] = Key<WMAX>{};
+        if (streaming && act) {
+            a[q] = load_key_vec<WMAX>(keys, t, W, vec);
+            la[q] = __ldcs(len + t);
         }
     }
-    if (sgs_words != nullptr) {
-        const unsigned word = __ballot_sync(0xFFFFFFFFu, mark);
-        if (lane0) sgs_words[w] = word;
+    Key<WMAX> prev{};  // lane 0: the left neighbour of this round's column
+    int lprev = -1;
+    if (streaming && lane == 0 && col0 > 0 && col0 <= T) {
+        prev = load_key_vec<WMAX>(keys, col0 - 1, W, vec);
+        lprev = len[col0 - 1];
+        if (lprev == k) {
+            drop_first(prev, k);
+            lprev = k - 1;
+        }
     }
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+        const int64_t t = col0 + 32 * q + lane;
+        bool mark = false;
+        if (streaming) {
+            if (la[q] == k) {
+                drop_first(a[q], k);
+                la[q] = k - 1;
+            }
+            Key<WMAX> left = shfl_key(a[q], 0, true);
+            int ll = __shfl_up_sync(0xFFFFFFFFu, la[q], 1);
+            if (lane == 0) {
+                left = prev;
+                ll = lprev;
+            }
+            mark = t < T && (t == 0 || ll != la[q] || compare(a[q], left) != 0);
+            prev = shfl_key(a[q], 31, false);
+            lprev = __shfl_sync(0xFFFFFFFFu, la[q], 31);
+        }
+        const unsigned b0 = __ballot_sync(0xFFFFFFFFu, e[q] & 1u);
+        const unsigned b1 = __ballot_sync(0xFFFFFFFFu, e[q] & 2u);
+        const unsigned b2 = __ballot_sync(0xFFFFFFFFu, e[q] & 4u);
+        const unsigned b3 = __ballot_sync(0xFFFFFFFFu, e[q] & 8u);
+        const unsigned bm = __ballot_sync(0xFFFFFFFFu, mark);
+        if (lane < 5) {
+            s_out[lane][warp * Q + q] =
+                lane == 0 ? b0 : lane == 1 ? b1 : lane == 2 ? b2 : lane == 3 ? b3 : bm;
+        }
+    }
+    __syncthreads();
+    const int64_t word0 = (int64_t)blockIdx.x * kFinalWords;
+    for (int i = threadIdx.x; i < 9 * kFinalWords; i += kFinalWarps * 32) {
+        const int row = i / kFinalWords, j = i % kFinalWords;
+        const int64_t w = word0 + j;
+        if (w >= n_words) continue;
+        if (row < 4) {
+            rank_words[row * n_words + w] = s_out[row][j];
+        } else if (row < 8) {
+            pops[(row - 4) * n_words + w] = __popc(s_out[row - 4][j]);
+        } else if (streaming) {
+            sgs_words[w] = s_out[4][j];
+        }
+    }
+}
+
+template <int WMAX>
+int launch_pack_windows(const void* codes, int64_t m, int k, void* keys, void* valid,
+                        cudaStream_t s) {
+    const int64_t per_block = (int64_t)kPackWarps * 32 * pack_run<WMAX>();
+    const unsigned grid = (unsigned)((m + per_block - 1) / per_block);
+    pack_windows_kernel<WMAX><<<grid, kPackWarps * 32, 0, s>>>(
+        (const int8_t*)codes, m, k, (k + 15) / 16, (unsigned*)keys, (uint8_t*)valid);
+    return (int)cudaGetLastError();
+}
+
+template <int WMAX>
+int launch_finalize_tables(const void* keys, const void* len, const void* edges, int64_t T, int k,
+                           int64_t n_words, void* rank_words, void* pops, void* sgs_words,
+                           cudaStream_t s) {
+    finalize_tables_kernel<WMAX><<<(unsigned)((n_words + kFinalWords - 1) / kFinalWords),
+                                   kFinalWarps * 32, 0, s>>>(
+        (const unsigned*)keys, (const int*)len, (const uint8_t*)edges, T, (k + 15) / 16, k, n_words,
+        (unsigned*)rank_words, (int*)pops, (unsigned*)sgs_words);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// m >= 1 windows of the codes [m + k - 1], any alignment; keys and valid
+// fresh (16-byte aligned keeps the wide stores, any other the narrow ones).
 extern "C" int sbwt_pack_windows(int device, const void* codes, long long m, int k, void* keys,
                                  void* valid, void* stream) {
     cudaSetDevice(device);
-    pack_windows_kernel<<<sbwt::grid_for(m), sbwt::kBlock, 0, (cudaStream_t)stream>>>(
-        (const int8_t*)codes, m, k, (k + 15) / 16, (unsigned*)keys, (uint8_t*)valid);
-    return (int)cudaGetLastError();
+    const int W = (k + 15) / 16;
+    auto launch = W <= 2 ? launch_pack_windows<2> : W <= 4 ? launch_pack_windows<4>
+                                                           : launch_pack_windows<16>;
+    return launch(codes, m, k, keys, valid, (cudaStream_t)stream);
 }
 
 // n >= 1. edges: 4-byte aligned, room for (n + 3) / 4 words, zeroed here:
@@ -450,20 +692,8 @@ extern "C" int sbwt_finalize_tables(int device, const void* keys, const void* le
                                     void* rank_words, void* pops, void* sgs_words, void* stream) {
     cudaSetDevice(device);
     const int W = (k + 15) / 16;
-    const unsigned grid = sbwt::grid_for(n_words * 32);
     cudaStream_t s = (cudaStream_t)stream;
-    if (W <= 2) {
-        finalize_tables_kernel<2><<<grid, sbwt::kBlock, 0, s>>>(
-            (const unsigned*)keys, (const int*)len, (const uint8_t*)edges, T, W, k, n_words,
-            (unsigned*)rank_words, (int*)pops, (unsigned*)sgs_words);
-    } else if (W <= 4) {
-        finalize_tables_kernel<4><<<grid, sbwt::kBlock, 0, s>>>(
-            (const unsigned*)keys, (const int*)len, (const uint8_t*)edges, T, W, k, n_words,
-            (unsigned*)rank_words, (int*)pops, (unsigned*)sgs_words);
-    } else {
-        finalize_tables_kernel<16><<<grid, sbwt::kBlock, 0, s>>>(
-            (const unsigned*)keys, (const int*)len, (const uint8_t*)edges, T, W, k, n_words,
-            (unsigned*)rank_words, (int*)pops, (unsigned*)sgs_words);
-    }
-    return (int)cudaGetLastError();
+    auto launch = W <= 2 ? launch_finalize_tables<2>
+                  : W <= 4 ? launch_finalize_tables<4> : launch_finalize_tables<16>;
+    return launch(keys, len, edges, T, k, n_words, rank_words, pops, sgs_words, s);
 }

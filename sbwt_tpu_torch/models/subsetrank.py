@@ -3,7 +3,9 @@
 The port of sbwt_tpu/models/subsetrank.py. Each structure answers
 ``rank(c, pos)``, the count of character c in subsets 0..pos-1
 (SubsetMatrixRank.hh:30-37), and ``rank_pair(c, pos)`` =
-(rank(c, pos), rank(c, pos + 1)) at about the cost of one rank:
+(rank(c, pos), rank(c, pos + 1)) at about the cost of one rank, and
+``contains(c, pos)``, whether subset pos holds c (host API only: no device
+path asks it, in either package):
 
 * ``MatrixRank``   — the four rows concatenated into one bit vector.
 * ``SplitRank``    — X marks columns with != 1 out-edge; unary labels go
@@ -77,6 +79,13 @@ def _device_of(module: nn.Module) -> torch.device:
 # ---------------------------------------------------------------------------
 
 
+def _contains(struct, c, pos):
+    """int64 0/1: whether subset pos holds char c, as rank(c, pos + 1) -
+    rank(c, pos) from one rank_pair."""
+    r1, r2 = struct.rank_pair(c, pos)
+    return (r2 - r1).long()
+
+
 class MatrixRank(nn.Module):
     """bv over [A | C | G | T] rows (length 4n); base int32 [5]."""
 
@@ -101,6 +110,11 @@ class MatrixRank(nn.Module):
         c = torch.as_tensor(c, device=self.base.device).long()
         r1, r2 = self.bv.rank_pair(c * self.n + torch.as_tensor(pos, device=c.device).long())
         return r1 - self.base[c], r2 - self.base[c]
+
+    def contains(self, c, pos):
+        """int64 0/1: whether subset pos holds char c (the bit itself)."""
+        c = torch.as_tensor(c, device=self.base.device).long()
+        return self.bv.get(c * self.n + torch.as_tensor(pos, device=c.device).long()).long()
 
     def to_bits(self) -> np.ndarray:
         return self.bv.to_bools().reshape(4, self.n)
@@ -229,6 +243,8 @@ class SplitRank(nn.Module):
         z1, z2 = self.Z.rank_pair(c * self.n_b + xr1)
         zb = self.z_base[c]
         return y + z1 - zb, torch.where(xr2 > xr1, y + z2, y + ybit + z1) - zb
+
+    contains = _contains
 
     def y_symbols(self) -> np.ndarray:
         """Y's symbols, decoded on the host from the rows."""
@@ -364,6 +380,8 @@ class ConcatRank(nn.Module):
         c = torch.as_tensor(c, device=self.samples.device).long()
         s1, s2 = self.select0_pair(pos)
         return self.wt.rank(c + 1, s1), self.wt.rank(c + 1, s2)
+
+    contains = _contains
 
     def to_bits(self) -> np.ndarray:
         syms = self.wt.to_symbols()
@@ -639,6 +657,8 @@ class SubsetWTRank(nn.Module):
         r1 = torch.where(c == 0, ac0a, torch.where(c == 1, ac1, torch.where(c == 2, gt0a, gt1)))
         r2 = torch.where(c == 0, ac_rq, torch.where(c == 1, ac1q, torch.where(c == 2, gt_rq, gt1q)))
         return r1, r2
+
+    contains = _contains
 
     def symbols(self):
         """The three trees' symbols, decoded on the host from the device form."""

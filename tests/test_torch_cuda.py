@@ -684,7 +684,8 @@ def _same(got, want):
 @pytest.mark.parametrize("k", [4, 16, 30, 32, 33, 51, 64, 255])
 def test_build_kernels_equal_plain_versions(cuda, k):
     """K19's four kernels against their plain versions, on reads with N,
-    an all-T stretch (a valid key of all ones at k = 16 j) and repeats."""
+    an all-T stretch (a valid key of all ones at k = 16 j) and repeats;
+    then pack_windows and finalize_tables at and beside their tiles."""
     rng = np.random.default_rng(300 + k)
     seqs = ["".join(rng.choice(list("ACGTN"), p=[0.245, 0.245, 0.245, 0.245, 0.02], size=700))
             for _ in range(6)] + ["T" * (k + 40), "ACGT" * (k // 2 + 5)]
@@ -711,7 +712,60 @@ def test_build_kernels_equal_plain_versions(cuda, k):
     for streaming in (True, False):
         _same(kernels.finalize_tables(a_keys, a_len, a_edges, k, streaming),
               td.finalize_tables_plain(a_keys, a_len, a_edges, k, streaming))
+    # pack_windows' tiles: a warp takes 128 or 256 windows, a block 512 or
+    # 1024; N at the first and the last char of the windows that straddle
+    # each, the codes a view 0-15 bytes past a 16-byte boundary
+    for m in (1, 127, 128, 129, 255, 256, 257, 511, 512, 513, 1023, 1024, 1025, 4099):
+        n = m + k - 1
+        buf = torch.from_numpy(rng.integers(-1, 4, size=n + 32).astype(np.int8)).to(cuda)
+        for off in (0, 1, 7, 15):
+            at = (off - buf.data_ptr()) % 16
+            view = buf[at : at + n]
+            assert view.data_ptr() % 16 == off
+            if off:
+                view.clamp_(min=0)
+                for edge in (128, 256, 512, 1024):
+                    if edge < m:
+                        view[edge - 1] = -1
+                        view[min(edge + k - 2, n - 1)] = -1
+            _same(kernels.pack_windows(view, k), td.pack_windows_plain(view, k))
+    # finalize_tables' warps (128 columns) and blocks (512): T at and beside
+    # them; each column equal to its left neighbour, different only in its
+    # first char (both full k-mers: no mark), only in length, or anything
+    for T in (1, 31, 32, 33, 127, 128, 129, 257, 511, 512, 513, 1025, 2049):
+        case = [t.to(cuda) for t in _finalize_cases(rng, T, k)]
+        for streaming in (True, False):
+            _same(kernels.finalize_tables(*case, k, streaming),
+                  td.finalize_tables_plain(*case, k, streaming))
     torch.cuda.synchronize()
+
+
+def _finalize_cases(rng, T, k):
+    """finalize_tables' inputs of T columns (int32 keys [T, W], lengths,
+    edges, on the CPU): column t repeats its left neighbour, differs from it
+    only in its first char with both at length k, only in length, or at
+    random; the first column of every 32 takes the kind (t // 32) % 3, so
+    that output words, warps (128 columns) and blocks (512) start on each."""
+    W = kernels.key_words(k)
+    keys = rng.integers(0, 2**32, size=(T, W), dtype=np.uint64).astype(np.int64)
+    lens = rng.integers(0, k + 1, size=T).astype(np.int32)
+    lens[rng.random(T) < 0.5] = k
+    kind = rng.integers(0, 4, size=T)
+    kind[::32] = (np.arange(0, T, 32) // 32) % 3
+    wi, sh = (k - 1) >> 4, 30 - 2 * ((k - 1) & 15)
+    for t in range(1, T):
+        if kind[t] < 3:
+            keys[t] = keys[t - 1]
+        if kind[t] == 0:
+            lens[t] = lens[t - 1]
+        elif kind[t] == 1:
+            lens[t - 1] = lens[t] = k
+            keys[t, wi] ^= 1 << sh
+        elif kind[t] == 2:
+            lens[t] = (lens[t - 1] + 1) % (k + 1)
+    keys = torch.from_numpy(((keys ^ 0x80000000) - 0x80000000).astype(np.int32))
+    edges = torch.from_numpy(rng.integers(0, 16, size=T).astype(np.uint8))
+    return keys, torch.from_numpy(lens), edges
 
 
 def _random_kmer_keys(rng, n, k, dev, last=None):

@@ -137,10 +137,13 @@ def test_cpu_slice_imports_no_jax_and_launches_nothing(tmp_path):
 
 
 def test_package_source_never_names_jax():
-    """No import of jax, and none of the JAX package, in the port or in
-    chip_smoke.py (comments may cite sbwt_tpu/...:line as the counterpart)."""
+    """No import of jax, and none of the JAX package, in the port, in
+    chip_smoke.py or in the port's examples (comments may cite
+    sbwt_tpu/...:line as the counterpart)."""
     jax_package = re.compile(r"^\s*(from|import)\s+sbwt_tpu(\.|\s|$)")
-    for path in [*PKG.rglob("*.py"), REPO / "chip_smoke.py"]:
+    examples = sorted((REPO / "examples").glob("*_torch.py"))
+    assert len(examples) >= 2
+    for path in [*PKG.rglob("*.py"), REPO / "chip_smoke.py", *examples]:
         if kernels.BUILD_DIR in path.parents:
             continue  # build outputs, not package source
         for line in path.read_text().splitlines():

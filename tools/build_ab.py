@@ -5,21 +5,22 @@ one run:
     python3 tools/build_ab.py <checkout root>
 
 The input is the same for every checkout: chip_smoke.py's genome (4 Mbp,
-uniform random, numpy seed 20260817) at k = 30, its codes on the card.
-At the genome build's shapes it times each of K19's four kernels
+uniform random, numpy seed 20260817), its codes on the card. At k = 30,
+the genome build's shapes, it times each of K19's four kernels
 (``pack_windows`` over the codes, ``edge_src_probe`` over the 3,999,971
 sorted distinct k-mers, ``emit_dummies`` over the sources,
 ``finalize_tables`` over the merged nodes), beside them
 ``torch.searchsorted`` of the k-mers' predecessor keys in the masked list
 with the equality gather (chip_smoke.py's yardstick of edge_src_probe,
 the same code in every checkout), and the whole device build
-(``construct.device.build_sbwt_device`` from the codes, no precalc). Each
-is six means of five launches by CUDA events, each group queued behind a
+(``construct.device.build_sbwt_device`` from the codes, no precalc); at
+k = 63 and k = 255 (4 and 16 key words) ``pack_windows`` and
+``finalize_tables`` again, over that k's codes and merged nodes. Each is
+six means of five launches by CUDA events, each group queued behind a
 2 ms spin of the card. It prints checksums of the outputs, which must be
-equal across checkouts, the registers and spill bytes of each
-edge_src_probe instance from nvcc's -Xptxas -v log, and the build's
-seconds. Run the parent and the change in turns (parent, change, change,
-parent).
+equal across checkouts, the registers and spill bytes of each instance of
+the four kernels from nvcc's -Xptxas -v log, and the build's seconds. Run
+the parent and the change in turns (parent, change, change, parent).
 """
 import importlib.util
 import re
@@ -34,6 +35,7 @@ from sbwt_tpu_torch import kernels  # noqa: E402
 from sbwt_tpu_torch.construct import device as td  # noqa: E402
 
 K = 30
+WIDE_K = (63, 255)  # 4 and 16 key words
 SPIN_CYCLES = 4_000_000  # about 2 ms at the H100's 1,980 MHz
 # the yardstick comes from this tree's chip_smoke.py, whichever checkout is timed
 _spec = importlib.util.spec_from_file_location(
@@ -43,7 +45,8 @@ _spec.loader.exec_module(smoke)
 
 
 def ptxas(log: str) -> dict:
-    """'edge_src_probe_<word capacity>' -> 'registers/spill bytes'."""
+    """'<kernel>_<word capacity>' ('<kernel>_all' for an untemplated one)
+    -> 'registers/spill bytes', for K19's kernels."""
     out, entry, spill = {}, "", 0
     for line in log.splitlines():
         if m := re.search(r"Compiling entry function '([^']+)'", line):
@@ -51,8 +54,9 @@ def ptxas(log: str) -> dict:
         elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
             spill = int(m.group(1)) + int(m.group(2))
         elif m := re.search(r"Used (\d+) registers", line):
-            if w := re.search(r"edge_src_probe_kernelILi(\d+)E", entry):
-                out[f"edge_src_probe_{w.group(1)}"] = f"{m.group(1)}/{spill}"
+            if w := re.search(r"(pack_windows|edge_src_probe|finalize_tables)_kernel(?:ILi(\d+)E)?",
+                              entry):
+                out[f"{w.group(1)}_{w.group(2) or 'all'}"] = f"{m.group(1)}/{spill}"
     return out
 
 
@@ -90,6 +94,7 @@ probe = kernels.edge_src_probe(dv, K)
 src = dv[probe[2]]
 nodes = td.merged_nodes(td.dummy_nodes(src, K), dv, probe[0], K)
 library, _ = smoke.searchsorted_probe(dv, K)
+n_kmers, n_src = len(dv), len(src)
 fields = []
 for name, fn in (("pack_windows", lambda: kernels.pack_windows(codes, K)),
                  ("edge_src_probe", lambda: kernels.edge_src_probe(dv, K)),
@@ -102,6 +107,20 @@ for name, fn in (("pack_windows", lambda: kernels.pack_windows(codes, K)),
         out = (out.rank_tbl, out.sgs_tbl, out.C)
     fields.append(f"{name}_ms={res} {name}_checksum={checksum(out)}")
     del out
-print(f"AB {sys.argv[1]} nvcc_seconds={nvcc_seconds:.1f} n_kmers={len(dv)} sources={len(src)} "
+del dv, probe, src, nodes
+for k in WIDE_K:
+    codes_k = td.prepare_device_codes([genome], k, dev)
+    dv = td.sorted_distinct_kmers(codes_k, k)
+    probe = td.edge_src_probe(dv, k)
+    nodes = td.merged_nodes(td.dummy_nodes(dv[probe[2]], k), dv, probe[0], k)
+    del dv, probe
+    for name, fn in (("pack_windows", lambda: kernels.pack_windows(codes_k, k)),
+                     ("finalize_tables", lambda: kernels.finalize_tables(*nodes, k, True))):
+        res, out = mean_ms(fn)
+        fields.append(f"{name}_k{k}_ms={res} {name}_k{k}_checksum={checksum(out)}")
+        del out
+    fields.append(f"n_nodes_k{k}={len(nodes[0])}")
+    del nodes, codes_k
+print(f"AB {sys.argv[1]} nvcc_seconds={nvcc_seconds:.1f} n_kmers={n_kmers} sources={n_src} "
       + " ".join(f"regs_spill_{k}={v}" for k, v in sorted(regs.items())) + " "
       + " ".join(fields), flush=True)
