@@ -81,7 +81,9 @@ Phases, one line each; any failure exits nonzero:
 11. probe (launches counted): ``ops.gather_chain`` (K21) at
    scratch/gather_bench.py's shapes (B = 65,536 lanes, 64 steps, [2M, 2] and
    [2M, 8] tables) and over 2^26-row tables past L2 (and a table on a second
-   card, if there is one), each against its plain version, with gathers/s;
+   card, if there is one), each against its plain version, with gathers/s,
+   the byte bound (the distinct rows read) and beside it the card's
+   dependent-gather ceiling, measured in the run from fresh start rows;
 12. kernels against their plain versions on the card, at the main path's
    shapes, with times: K1 on plain-matrix (the p = 13 fill, the 1M
    30-mers), K2, K3 (also at p = 1 and 5 from fresh fills, narrow and
@@ -183,6 +185,11 @@ TP_MESH = (2, 4)  # and of its row-sharded steps; slots go round-robin over the 
 # 16 MB, inside the 50 MB L2), and at a table of 2^26 rows, past it
 PROBE_N, PROBE_B, PROBE_STEPS = 500_000, 65_536, 64
 PROBE_BIG_ROWS = 1 << 26
+# the card's dependent-gather ceiling at each probe table is measured in the
+# run from fresh start rows: the unloaded step latency from 32 lanes at
+# PROBE_STEPS and at PROBE_LONG_STEPS, the saturated rate at PROBE_WIDE_LANES
+PROBE_LONG_STEPS = 320
+PROBE_WIDE_LANES = (1 << 18, 1 << 20)
 
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s, and the float32 rate outside the
 # tensor cores, which stands in for the integer ALU rate of these kernels
@@ -2184,13 +2191,55 @@ def run_probe_path(dev):
     return tables, idx0
 
 
+def chain_rows_read(tbl, idx0, steps: int) -> int:
+    """The distinct rows of tbl that the chains from idx0 read, one step of
+    the plain version at a time: the rows this run's data asks for."""
+    from sbwt_tpu_torch.ops import gather_chain as gc
+
+    seen, idx = [], idx0
+    for _ in range(steps):
+        seen.append(idx)
+        idx = gc.gather_chain_plain(tbl, idx, 1)
+    return int(torch.unique(torch.cat(seen)).numel()) if seen else 0
+
+
+def gather_ceiling(dev, tbl, g) -> dict:
+    """The card's dependent-gather ceiling on tbl at the probe's shape,
+    measured here, every launch from fresh start rows (g): the probe's shape
+    itself (``fresh_ms``), the unloaded step latency (32 lanes at
+    PROBE_LONG_STEPS less at PROBE_STEPS, over the steps between), the
+    saturated dependent gathers/s (the most at PROBE_WIDE_LANES), and the
+    ceiling max(steps x latency, lanes x steps / rate), which fresh_ms is
+    held against."""
+    from sbwt_tpu_torch.ops import gather_chain as gc
+
+    def fresh_ms(lanes, steps, reps):
+        starts = iter([torch.randint(0, tbl.shape[0], (lanes,), dtype=torch.int32, device=dev,
+                                     generator=g) for _ in range(reps + 1)])
+        return cuda_ms(lambda: gc.gather_chain(tbl, next(starts), steps), reps)
+
+    probe_ms = fresh_ms(PROBE_B, PROBE_STEPS, 5)
+    latency_ns = (fresh_ms(32, PROBE_LONG_STEPS, 10) - fresh_ms(32, PROBE_STEPS, 10)) \
+        / (PROBE_LONG_STEPS - PROBE_STEPS) * 1e6
+    rate = max(lanes * PROBE_STEPS / (fresh_ms(lanes, PROBE_STEPS, 5) / 1e3)
+               for lanes in PROBE_WIDE_LANES)
+    return dict(fresh_ms=probe_ms, step_latency_ns=latency_ns, saturated_gathers_per_s=rate,
+                ceiling_ms=max(PROBE_STEPS * latency_ns / 1e6, PROBE_B * PROBE_STEPS / rate * 1e3))
+
+
 def compare_probe(dev, tables, idx0, record, card):
     """K21 against its plain version at each table, with its time,
-    dependent gathers/s and both bounds: bytes (B * steps * row bytes over
-    the HBM rate) and, what really bounds it, latency."""
+    dependent gathers/s, its bound (bytes: the distinct rows the chains
+    read, idx0 and the answers, over the HBM rate) and beside it the card's
+    ceiling on the table, measured here from fresh start rows
+    (``gather_ceiling``), which is what really bounds it. The probe's
+    launches repeat one set of start rows, so rows of a table past L2 may
+    hit from the launch before; its fresh-row time is the one held against
+    the ceiling."""
     from sbwt_tpu_torch.ops import gather_chain as gc
 
     gathers = PROBE_B * PROBE_STEPS
+    g = torch.Generator(device=dev).manual_seed(1)
     cases = [(key, tbl, "local") for key, tbl in tables.items()]
     if torch.cuda.device_count() > 1:  # a table on a second card, read over NVLink
         peer = torch.device("cuda", 1)
@@ -2201,10 +2250,11 @@ def compare_probe(dev, tables, idx0, record, card):
         plain, plain_ms = timed_ms(lambda: gc.gather_chain_plain(tbl, idx0, PROBE_STEPS))
         err = max_abs_err(k(), plain)
         ms = cuda_ms(k, 5)
-        moved = gathers * width * 4 + nbytes(idx0) * 2
+        rows_read = chain_rows_read(tbl, idx0, PROBE_STEPS)
+        moved = rows_read * width * 4 + nbytes(idx0) * 2
         extra = dict(table=f"[{rows}, {width}]", table_bytes=nbytes(tbl), where=where, lanes=PROBE_B,
-                     steps=PROBE_STEPS, gathers_per_s=gathers / (ms / 1e3),
-                     byte_bound_ms=moved / HBM_BYTES_PER_S * 1e3)
+                     steps=PROBE_STEPS, gathers_per_s=gathers / (ms / 1e3), rows_read=rows_read,
+                     byte_bound_ms=moved / HBM_BYTES_PER_S * 1e3, **gather_ceiling(dev, tbl, g))
         if (rows, width, where) == (4 * PROBE_N, 2, "local"):  # pallas_chain's table
             record("gather_chain", err, ms, plain_ms, moved, gathers * 4, **extra)
         else:

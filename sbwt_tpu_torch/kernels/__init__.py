@@ -132,8 +132,8 @@ _SIGNATURES = {
     # (device, PlainMatrix*, ShardedTable*, LFArgs*, stream)
     "sbwt_turbo_sharded_table": [_I, _P, _P, _P, _P],
     "sbwt_enable_peer": [_I, _I],
-    # (device, tbl, R, width, idx0, B, steps, out, stream)
-    "sbwt_gather_chain": [_I, _P, _I, _I, _P, _LL, _I, _P, _P],
+    # (device, tbl, R, width, R's multiplier m, its shift l, idx0, B, steps, out, stream)
+    "sbwt_gather_chain": [_I, _P, _I, _I, ctypes.c_uint, _I, _P, _LL, _I, _P, _P],
     # (device, wide, tbl, arity, precalc, p, codes, B, k, ans, needs_slow, stream)
     "sbwt_fast_search": [_I, _I, _P, _I, _P, _I, _P, _LL, _I, _P, _P, _P],
 }
@@ -683,22 +683,42 @@ def turbo_stream_sharded(rank_desc, shards, cols: int, arity: int, C, precalc, p
 # ---------------------------------------------------------------------------
 
 
+def divisor_magic(R: int) -> tuple[int, int]:
+    """(m, l) for the divisor 1 <= R < 2^31: l = ceil(log2 R) and
+    m = floor(2^(31 + l) / R) + 1, which is below 2^32 (Granlund and
+    Montgomery's round-up multiplier, exact for every dividend below 2^31)."""
+    if not 1 <= R < 2**31:
+        raise ValueError(f"gather_chain: {R} rows, expected 1 to 2^31 - 1")
+    l = (R - 1).bit_length()
+    return (1 << (31 + l)) // R + 1, l
+
+
+def mod_by_magic(x: int, R: int, m: int, l: int) -> int:
+    """(x & 0x7FFFFFFF) % R as K21 computes it from (m, l) = divisor_magic(R),
+    for any 32-bit word x: the quotient is the high word of m * (x << 1)
+    (2 n, whatever x's top bit) shifted right by l."""
+    q = (m * ((x << 1) & 0xFFFFFFFF)) >> 32 >> l
+    return (x & 0x7FFFFFFF) - q * R
+
+
 def gather_chain(tbl, idx0, steps: int) -> torch.Tensor:
     """K21: each lane of idx0 int32 [B] runs ``steps`` dependent loads from
     the int32 table [R, 2] or [R, 8]: idx <- (xor of row idx & 0x7FFFFFFF)
-    % R. The kernel runs on idx0's card; the table may lie on a peer card."""
+    % R, the remainder by R's multiplier (``divisor_magic``). The kernel
+    runs on idx0's card; the table may lie on a peer card."""
     dev = _cuda_device(idx0)
     enable_peer_access(dev, _cuda_device(tbl))
     R, width = tbl.shape
     if width not in (2, 8):
         raise ValueError(f"gather_chain: rows of {width} words, expected 2 or 8")
+    m, l = divisor_magic(R)
     B = idx0.shape[0]
     out = torch.empty(B, dtype=torch.int32, device=dev)
     if B == 0:
         return out
     _launch("sbwt_gather_chain", "gather_chain", dev,
             _check(tbl, "tbl", torch.int32, tbl.device, align=4 * width if width == 2 else 16),
-            R, width, _check(idx0, "idx0", torch.int32, dev, (B,)), B, steps,
+            R, width, m, l, _check(idx0, "idx0", torch.int32, dev, (B,)), B, steps,
             _check(out, "out", torch.int32, dev))
     return out
 

@@ -10,6 +10,11 @@ the table on the same card or on a peer card); on a CPU idx0 it runs the
 plain version. Nothing on a search path calls it: it measures the cost of
 one dependent row gather from L2, from HBM or across NVLink, which every
 LF and table step pays.
+
+The kernel takes ``% R`` as a multiply by a constant that
+``kernels.divisor_magic`` computes once a launch; ``kernels.mod_by_magic``
+is the kernel's arithmetic in Python integers, so that the CPU tests hold
+it to ``%``. The plain version keeps its plain ``%``.
 """
 from __future__ import annotations
 

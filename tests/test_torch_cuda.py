@@ -966,6 +966,61 @@ def test_gather_chain_equals_plain_version(cuda, width):
     assert torch.equal(gc.gather_chain(tbl, idx0, 0), idx0)
 
 
+@pytest.mark.parametrize("R", [1, 1 << 16, 2_000_000])
+@pytest.mark.parametrize("width", [2, 8])
+@pytest.mark.parametrize("steps", [0, 1, 64])
+def test_gather_chain_divisor_cases(cuda, R, width, steps):
+    """K21's remainder by R's multiplier at R = 1 (every step lands on row
+    0), a power of two and the probe's 2,000,000, with words of every sign
+    (the mask drops bit 31 before the remainder)."""
+    from sbwt_tpu_torch.ops import gather_chain as gc
+
+    rng = np.random.default_rng(R + width + steps)
+    tbl = torch.from_numpy(rng.integers(-2**31, 2**31, size=(R, width), dtype=np.int32)).to(cuda)
+    idx0 = torch.from_numpy(rng.integers(0, R, size=3000, dtype=np.int32)).to(cuda)
+    got = gc.gather_chain(tbl, idx0, steps)
+    torch.cuda.synchronize()
+    assert torch.equal(got, gc.gather_chain_plain(tbl, idx0, steps))
+    if steps == 0:
+        assert torch.equal(got, idx0)
+
+
+def test_gather_chain_entry_point_refuses_bad_values(cuda):
+    """sbwt_gather_chain called directly: B = 0 returns at once (no launch
+    geometry to divide by), B < 0, a width other than 2 or 8 and a shift
+    past 31 return an error, and a good call still succeeds."""
+    tbl = torch.zeros((4, 2), dtype=torch.int32, device=cuda)
+    idx0 = torch.zeros(1, dtype=torch.int32, device=cuda)
+    out = torch.empty(1, dtype=torch.int32, device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    m, l = kernels.divisor_magic(4)
+
+    def call(B, width=2, shift=l):
+        return kernels._library().sbwt_gather_chain(0, tbl.data_ptr(), 4, width, m, shift,
+                                                    idx0.data_ptr(), B, 1, out.data_ptr(), stream)
+
+    assert call(0) == 0
+    assert call(-1) != 0 and call(1, width=4) != 0 and call(1, shift=32) != 0
+    assert call(1) == 0
+    torch.cuda.synchronize()
+    assert out.item() == 0
+
+
+@pytest.mark.parametrize("B", [1, 131, 133, 4224, 132 * 1024, 132 * 1024 + 1, 300_000])
+def test_gather_chain_lane_counts(cuda, B):
+    """K21 spreads B lanes evenly over the SMs: one block an SM while a
+    share fits 1024 threads, then several; every lane's chain is right at
+    and beside those edges (on a 132-SM card)."""
+    from sbwt_tpu_torch.ops import gather_chain as gc
+
+    rng = np.random.default_rng(B)
+    tbl = torch.from_numpy(rng.integers(0, 2**31 - 1, size=(10_007, 2), dtype=np.int32)).to(cuda)
+    idx0 = torch.from_numpy(rng.integers(0, 10_007, size=B, dtype=np.int32)).to(cuda)
+    got = gc.gather_chain(tbl, idx0, 5)
+    torch.cuda.synchronize()
+    assert torch.equal(got, gc.gather_chain_plain(tbl, idx0, 5))
+
+
 # ---------------------------------------------------------------------------
 # K4's tiles (a warp of 32 reads, staged position tiles) and the compose's
 # row mapping, at their edges: against the plain versions.
