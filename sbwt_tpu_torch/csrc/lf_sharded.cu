@@ -32,8 +32,10 @@ extern "C" int sbwt_turbo_sharded_table(int device, const void* rank, const void
     const PlainMatrix rk = *static_cast<const PlainMatrix*>(rank);
     const ShardedTable t = *static_cast<const ShardedTable*>(table);
     const LFArgs a = *static_cast<const LFArgs*>(args);
-    if (a.arity < 1 || a.arity > 3 || t.cols < 1) return (int)cudaErrorInvalidValue;
-    return launch_turbo_stream(rk, a, t, (cudaStream_t)stream);
+    if (a.arity < 1 || a.arity > 3 || t.cols < 1 || a.out_r != nullptr) {
+        return (int)cudaErrorInvalidValue;
+    }
+    return launch_turbo_stream<false>(rk, a, t, (cudaStream_t)stream);
 }
 
 // Let kernels on `device` load from memory on `peer`; 0 if they may

@@ -86,7 +86,9 @@ struct LFArgs {
     void* out;                  // lf_stream, turbo_stream pos [B, L - k + 1]; kmer_search pos [B];
                                 // precalc_fill pair [4^p]; partial_search l pos [B];
                                 // succ1 pos [4, B], or [B, 4] when row_major; forward pos [B]
-    void* out_r;                // partial_search: r pos [B]
+    void* out_r;                // partial_search: r pos [B]; lf_stream, turbo_stream: the
+                                // WorkCounter totals [kWorkCounters] (unsigned long long) that the
+                                // counting instance adds to, null for the one that counts nothing
     int* out_len;               // partial_search: matched length [B]
     long long B;                // reads, k-mers, precalc entries or columns
     long long n_nodes;
@@ -99,6 +101,42 @@ struct LFArgs {
 
 enum LFOp { kLFStream = 0, kPrecalcFill = 1, kKmerSearch = 2, kPartialSearch = 3, kSucc1 = 4,
             kTurboStream = 5, kForward = 6 };
+
+// The work counters of K14 and K4 (kernels.WORK_COUNTERS): the real
+// positions, the full searches begun (a restart: no previous answer and a
+// window of k ACGT chars), those that found their k-mer, the exact LF steps
+// (lf_step_r calls) the searches took, and the successor-table rows read
+// (K4 only: the chain's and walk_singleton's).
+enum WorkCounter { kWorkPositions, kWorkRestarts, kWorkRestartHits, kWorkLFSteps, kWorkTableRows,
+                   kWorkCounters };
+
+// A lane's work counts. WorkTally<false>, the instance launched without
+// counting, does nothing and compiles to nothing. WorkTally<true> keeps the
+// counts in registers (a read's below 2^32 each) and at the kernel's end
+// adds them up across the warp, which every lane must reach, into one
+// 64-bit atomicAdd a counter a warp at LFArgs::out_r. The totals ride in
+// out_r, which K14 and K4 do not otherwise read: a field more in LFArgs
+// moved nvcc's registers in kernels that never read it (PERF.md).
+template <bool kOn>
+struct WorkTally {
+    __device__ __forceinline__ void add(WorkCounter, unsigned = 1) {}
+    __device__ __forceinline__ void flush(void*) {}
+};
+template <>
+struct WorkTally<true> {
+    unsigned n[kWorkCounters] = {};
+    __device__ __forceinline__ void add(WorkCounter i, unsigned v = 1) { n[i] += v; }
+    __device__ __forceinline__ void flush(void* totals) {
+        unsigned long long* work = static_cast<unsigned long long*>(totals);
+#pragma unroll
+        for (int i = 0; i < kWorkCounters; ++i) {
+            unsigned long long v = n[i];
+#pragma unroll
+            for (int d = 16; d > 0; d >>= 1) v += __shfl_down_sync(0xFFFFFFFFu, v, d);
+            if ((threadIdx.x & 31) == 0 && v != 0) atomicAdd(work + i, v);
+        }
+    }
+};
 
 // C[0..3] in registers, picked by selects
 template <class P>
@@ -182,10 +220,13 @@ __device__ __forceinline__ P successor(const R& rk, const int2* __restrict__ sgs
 }
 
 // Colex rank of the k chars at kmer (all 0..3), seeded from the precalc
-// row of its first p chars (packed colex-reversed in pidx), or -1.
-template <bool kInterval = false, class R, class P = typename R::pos_t>
+// row of its first p chars (packed colex-reversed in pidx), or -1. K14
+// passes its tally; K1's search leaves the default, which counts nothing.
+template <bool kInterval = false, class R, class P = typename R::pos_t,
+          class Tally = WorkTally<false>>
 __device__ __forceinline__ P search_from_seed(const R& rk, const LFArgs& a, const CArray<P>& Cl,
-                                              const int8_t* kmer, unsigned pidx) {
+                                              const int8_t* kmer, unsigned pidx,
+                                              Tally&& work = Tally{}) {
     P l = 0, r = (P)a.n_nodes - 1;
     if (a.p > 0) {
         const pair_t<P> seed = static_cast<const pair_t<P>*>(a.precalc)[pidx];
@@ -194,6 +235,7 @@ __device__ __forceinline__ P search_from_seed(const R& rk, const LFArgs& a, cons
         r = seed.y;
     }
     for (int j = a.p; j < a.k; ++j) {
+        work.add(kWorkLFSteps);
         if constexpr (kInterval) {
             if (!lf_step_iv<false>(rk, Cl, kmer[j], l, r)) return -1;
         } else {
@@ -241,7 +283,8 @@ __host__ __device__ __forceinline__ int lf_smem_bytes(int k) {
 // keeping its rolling state in registers across tiles, and writes its
 // answers into a shared tile, which the warp then stores read by read as
 // contiguous runs. K14 reads neither the turbo table nor the seed bits.
-template <class R>
+// With kCount it also counts its work (WorkTally) into a.out_r.
+template <class R, bool kCount>
 __global__ void __launch_bounds__(LFShape<R>::warps * 32, LFShape<R>::min_blocks)
     lf_stream_kernel(R rk, LFArgs a) {
     using P = typename R::pos_t;
@@ -261,6 +304,8 @@ __global__ void __launch_bounds__(LFShape<R>::warps * 32, LFShape<R>::min_blocks
     P* sa = reinterpret_cast<P*>(smem + W * 32 * row_bytes) + warp * 32 * (T + 1);
     P* out = static_cast<P*>(a.out);
     const CArray<P> Cl(a.C);
+    WorkTally<kCount> work;
+    work.add(kWorkPositions, n_pos);
 
     // Rolling state of position pos: pidx packs chars pos..pos+p-1
     // colex-reversed (char j at bits 2j), run counts the valid chars
@@ -294,7 +339,9 @@ __global__ void __launch_bounds__(LFShape<R>::warps * 32, LFShape<R>::min_blocks
                 if (prev >= 0) {
                     if (c >= 0 && (lenient || c < 4)) v = successor(rk, a.sgs_tbl, Cl, prev, c & 3);
                 } else if (run >= k) {
-                    v = search_from_seed(rk, a, Cl, s + pos, pidx);
+                    v = search_from_seed(rk, a, Cl, s + pos, pidx, work);
+                    work.add(kWorkRestarts);
+                    work.add(kWorkRestartHits, v >= 0);
                 }
                 if (v < 0) lenient = false;
                 prev = v;
@@ -305,6 +352,7 @@ __global__ void __launch_bounds__(LFShape<R>::warps * 32, LFShape<R>::min_blocks
         store_answer_tile<T>(out, sa, b0, nrows, P_out, t0, tend - t0, lane);
         __syncwarp();  // the staged rows and the answer tile are reused
     }
+    work.flush(a.out_r);
 }
 
 // K1's fill: a thread owns the 4^D entries below one node of depth p - D

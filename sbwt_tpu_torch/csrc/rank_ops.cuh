@@ -4,8 +4,11 @@
 // K1's fill and search and of partial_search. An instance file
 // (lf_stream.cu, lf_split.cu, lf_concat.cu, lf_subsetwt.cu, lf_wide.cu,
 // lf_sharded.cu) calls launch_rank_op<R> for each rank type of its family,
-// which instantiates all seven kernels for R, K4 over the flat table.
+// which instantiates all seven kernels for R, K4 over the flat table, and
+// K14's and K4's counting instances.
 #pragma once
+
+#include <type_traits>
 
 #include "lf_stream.cuh"
 #include "succ_table.cuh"
@@ -13,17 +16,24 @@
 
 namespace sbwt {
 
-// Launches K14; the shared memory a block needs grows with k and the tile
-// (46,592 B at most for k <= 255 with LFShape's tiles), and past 48 KB the
-// kernel's limit is raised first.
+// Whether K14 and K4 over R have an instance that counts its work: every
+// rank type but the row-sharded one, whose launches refuse a.out_r.
 template <class R>
+struct CountsWork : std::true_type {};
+template <>
+struct CountsWork<ShardedMatrix> : std::false_type {};
+
+// Launches K14, the counting instance when kCount; the shared memory a
+// block needs grows with k and the tile (46,592 B at most for k <= 255
+// with LFShape's tiles), and past 48 KB the kernel's limit is raised first.
+template <bool kCount, class R>
 int launch_lf_stream(const R& rk, const LFArgs& a, cudaStream_t s) {
     static std::atomic<int> raised[64];
     const int smem = lf_smem_bytes<R>(a.k);
-    if (const int e = raise_smem_limit(lf_stream_kernel<R>, smem, raised)) return e;
+    if (const int e = raise_smem_limit(lf_stream_kernel<R, kCount>, smem, raised)) return e;
     constexpr int W = LFShape<R>::warps;
     const unsigned grid = (unsigned)(((a.B + 31) / 32 + W - 1) / W);
-    lf_stream_kernel<R><<<grid, W * 32, smem, s>>>(rk, a);
+    lf_stream_kernel<R, kCount><<<grid, W * 32, smem, s>>>(rk, a);
     return (int)cudaGetLastError();
 }
 
@@ -119,7 +129,9 @@ int launch_rank_op(int op, const void* rank_desc, const LFArgs* args, void* stre
     const unsigned grid = grid_for(a.B);
     switch (op) {
         case kLFStream:
-            return launch_lf_stream(rk, a, s);
+            if (a.out_r == nullptr) return launch_lf_stream<false>(rk, a, s);
+            if constexpr (CountsWork<R>::value) return launch_lf_stream<true>(rk, a, s);
+            return (int)cudaErrorInvalidValue;
         case kPrecalcFill:
             return launch_precalc_fill(rk, a, s);
         case kKmerSearch:
@@ -145,7 +157,11 @@ int launch_rank_op(int op, const void* rank_desc, const LFArgs* args, void* stre
             if (a.arity < 1 || a.arity > (sizeof(typename R::pos_t) == 8 ? 1 : 3)) {
                 return (int)cudaErrorInvalidValue;
             }
-            return launch_turbo_stream(rk, a, FlatTable{}, s);
+            if (a.out_r == nullptr) return launch_turbo_stream<false>(rk, a, FlatTable{}, s);
+            if constexpr (CountsWork<R>::value) {
+                return launch_turbo_stream<true>(rk, a, FlatTable{}, s);
+            }
+            return (int)cudaErrorInvalidValue;
         default:
             return (int)cudaErrorInvalidValue;
     }

@@ -83,12 +83,13 @@ struct ShardedTable {
 
 // The column reached from column col by the rem chars at chars (all
 // 0..3), min(arity, chars left) of them a table row, or -1
-// (sbwt_tpu/ops/turbo.py _walk_rem, :474). K4's restarts from a singleton
-// seed and fast_search (fast_search.cu) share it.
-template <class P, class T>
+// (sbwt_tpu/ops/turbo.py _walk_rem, :474): K4's restarts from a singleton
+// seed.
+template <class P, class T, class Tally>
 __device__ __forceinline__ P walk_singleton(const T& t, const void* tbl, int arity, P col,
-                                            const int8_t* chars, int rem) {
+                                            const int8_t* chars, int rem, Tally& work) {
     for (int j = 0; j < rem && col >= 0; j += arity) {
+        work.add(kWorkTableRows);
         const int take = min(arity, rem - j);
         P local = col;
         const void* base = t.locate(tbl, local);
@@ -100,18 +101,22 @@ __device__ __forceinline__ P walk_singleton(const T& t, const void* tbl, int ari
 // Full search of the window at win (its k chars are all 0..3): seed from
 // the precalc row of its first p chars (pidx), then walk the rest with
 // table rows from a singleton seed, or take exact LF steps from a wider one.
-template <class R, class T, class P = typename R::pos_t>
+template <class R, class T, class P, class Tally>
 __device__ __forceinline__ P turbo_restart(const R& rk, const T& t, const LFArgs& a,
-                                           const CArray<P>& Cl, const int8_t* win, unsigned pidx) {
+                                           const CArray<P>& Cl, const int8_t* win, unsigned pidx,
+                                           Tally& work) {
     if (a.seed_bits != nullptr &&
         !((a.seed_bits[pidx >> 4] >> (2 * (pidx & 15))) & 1u)) {
         return -1;
     }
     const pair_t<P> seed = static_cast<const pair_t<P>*>(a.precalc)[pidx];
     if (seed.x < 0) return -1;
-    if (seed.x == seed.y) return walk_singleton<P>(t, a.tbl, a.arity, seed.x, win + a.p, a.k - a.p);
+    if (seed.x == seed.y) {
+        return walk_singleton<P>(t, a.tbl, a.arity, seed.x, win + a.p, a.k - a.p, work);
+    }
     P l = seed.x, r = seed.y;
     for (int j = a.p; j < a.k; ++j) {
+        work.add(kWorkLFSteps);
         if (!lf_step_r(rk, Cl, win[j], l, r)) return -1;
     }
     return l;
@@ -144,8 +149,9 @@ __host__ __device__ __forceinline__ int turbo_smem_bytes(int k, int arity) {
 // positions of the tile from there, keeping its rolling state and any
 // unconsumed table row in registers across tiles, and writes its answers
 // into a shared tile, which the warp then stores read by read as
-// contiguous runs.
-template <class R, class T>
+// contiguous runs. With kCount it also counts its work (WorkTally) into
+// a.out_r.
+template <class R, class T, bool kCount>
 __global__ void __launch_bounds__(kTurboWarps * 32, kTurboMinBlocks)
     turbo_stream_kernel(R rk, LFArgs a, T t) {
     using P = typename R::pos_t;
@@ -165,6 +171,8 @@ __global__ void __launch_bounds__(kTurboWarps * 32, kTurboMinBlocks)
             warp * 32 * (kTurboTile + 1);
     P* out = static_cast<P*>(a.out);
     const CArray<P> Cl(a.C);
+    WorkTally<kCount> work;
+    work.add(kWorkPositions, n_pos);
 
     // Rolling state of position pos: pidx packs chars pos..pos+p-1
     // colex-reversed (char j at bits 2j), run counts the valid chars
@@ -197,13 +205,18 @@ __global__ void __launch_bounds__(kTurboWarps * 32, kTurboMinBlocks)
                 pidx = (pidx >> 2) | ((unsigned)(s[pos + p - 1] & 3) << top);
                 if (prev < 0) {
                     left = 0;
-                    if (run >= k) v = turbo_restart(rk, t, a, Cl, s + pos, pidx);
+                    if (run >= k) {
+                        v = turbo_restart(rk, t, a, Cl, s + pos, pidx, work);
+                        work.add(kWorkRestarts);
+                        work.add(kWorkRestartHits, v >= 0);
+                    }
                 } else {
                     if (left == 0) {
                         const int take = min(a.arity, n_pos - pos);
                         P local = prev;
                         const void* base = t.locate(a.tbl, local);
                         row = table_row<P>(base, a.arity, local, s + pos + k - 1, take);
+                        work.add(kWorkTableRows);
                         j = 0;
                         left = take;
                     }
@@ -224,19 +237,21 @@ __global__ void __launch_bounds__(kTurboWarps * 32, kTurboMinBlocks)
         store_answer_tile<kTurboTile>(out, sa, b0, nrows, P_out, t0, tend - t0, lane);
         __syncwarp();  // the staged rows and the answer tile are reused
     }
+    work.flush(a.out_r);
 }
 
-// Launches K4 over the table t; the shared memory a block needs grows with
-// k, and past 48 KB the kernel's limit is raised first.
-template <class R, class T>
+// Launches K4 over the table t, the counting instance when kCount; the
+// shared memory a block needs grows with k, and past 48 KB the kernel's
+// limit is raised first.
+template <bool kCount, class R, class T>
 int launch_turbo_stream(const R& rk, const LFArgs& a, const T& t, cudaStream_t s) {
     using P = typename R::pos_t;
     static std::atomic<int> raised[64];
     const int smem = turbo_smem_bytes<P>(a.k, a.arity);
-    if (const int e = raise_smem_limit(turbo_stream_kernel<R, T>, smem, raised)) return e;
+    if (const int e = raise_smem_limit(turbo_stream_kernel<R, T, kCount>, smem, raised)) return e;
     const int64_t warps = (a.B + 31) / 32;
     const unsigned grid = (unsigned)((warps + kTurboWarps - 1) / kTurboWarps);
-    turbo_stream_kernel<R, T><<<grid, kTurboWarps * 32, smem, s>>>(rk, a, t);
+    turbo_stream_kernel<R, T, kCount><<<grid, kTurboWarps * 32, smem, s>>>(rk, a, t);
     return (int)cudaGetLastError();
 }
 

@@ -12,10 +12,15 @@ synchronising, raises if the launch was refused, and adds one to its
 count in ``LAUNCHES``. The modules of the port call these only for CUDA
 tensors; CPU tensors go to each kernel's plain PyTorch version.
 
+K14 (``lf_stream``) and K4 (``turbo_stream``) also have instances that
+count their work: inside ``count_work(device)`` those launch, and
+``work_counts()`` reads the totals.
+
 Importing this module builds nothing and needs neither nvcc nor a GPU.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -27,6 +32,8 @@ import time
 from pathlib import Path
 
 import torch
+
+from ..utils.profiling import annotate
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -83,6 +90,11 @@ def lf_counter(op: str, variant: str) -> str:
     """The LAUNCHES key of one instance."""
     return f"{op}[{variant}]"
 
+
+# K14's and K4's work counters (csrc/lf_stream.cuh WorkCounter), in order:
+# real positions, full searches begun (restarts), restarts that found their
+# k-mer, exact LF steps the restarts took, successor-table rows read (K4)
+WORK_COUNTERS = ("positions", "restarts", "restart_hits", "lf_steps", "table_rows")
 
 # K19, the on-device build (csrc/build_sbwt.cu)
 BUILD_OPS = ("pack_windows", "edge_src_probe", "emit_dummies", "finalize_tables")
@@ -397,15 +409,58 @@ def _lf_launch(op: str, variant: str, rank_desc, device: torch.device, **fields)
     if not isinstance(rank_desc, RANK_DESCS[variant]):
         raise TypeError(f"{variant}: descriptor {type(rank_desc).__name__}, "
                         f"expected {RANK_DESCS[variant].__name__}")
-    args = LFArgs(**fields)
-    entry = f"sbwt_lf_{FAMILY[variant]}"
-    fn = getattr(_library(), entry)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = fn(device.index, LF_OPS.index(op), RANK_TYPES.index(variant), ctypes.byref(rank_desc),
-             ctypes.byref(args), stream)
+    with annotate("sbwt.engine.launch"):
+        args = LFArgs(**fields)
+        entry = f"sbwt_lf_{FAMILY[variant]}"
+        fn = getattr(_library(), entry)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(device.index, LF_OPS.index(op), RANK_TYPES.index(variant),
+                 ctypes.byref(rank_desc), ctypes.byref(args), stream)
     if err != 0:
         raise RuntimeError(f"{entry} ({op}, {variant}): CUDA launch failed with cudaError {err}")
     LAUNCHES[lf_counter(op, variant)] += 1
+
+
+# The int64 [len(WORK_COUNTERS)] tensor that K14 and K4 add their work to
+# inside count_work (else None), and the last such tensor.
+_work: torch.Tensor | None = None
+_work_last: torch.Tensor | None = None
+
+
+@contextlib.contextmanager
+def count_work(device):
+    """Inside the block, ``lf_stream`` and ``turbo_stream`` launch their
+    counting instances, which add their work (``WORK_COUNTERS``) to an
+    int64 tensor on CUDA ``device``, zeroed on entry; ``work_counts()``
+    reads it. The plain versions count nothing, and the row-sharded
+    instances (K20a, K20b) refuse to count."""
+    global _work, _work_last
+    _work = _work_last = torch.zeros(len(WORK_COUNTERS), dtype=torch.int64,
+                                     device=_cuda_device_of(device))
+    try:
+        yield
+    finally:
+        _work = None
+
+
+def work_counts() -> dict:
+    """The counts of the last ``count_work`` block (inside one: so far) as
+    {counter: int}, with one synchronize and one copy."""
+    if _work_last is None:
+        raise RuntimeError("work_counts: no count_work block has run")
+    return dict(zip(WORK_COUNTERS, _work_last.tolist()))
+
+
+def _work_ptr(variant: str, device: torch.device) -> int:
+    """LFArgs.out_r of a K14 or K4 launch (csrc/lf_stream.cuh WorkTally):
+    the counters' pointer inside count_work, else 0."""
+    if _work is None:
+        return 0
+    if variant == SHARDED:
+        raise ValueError(f"{variant}: no instance that counts its work")
+    if _work.device != device:
+        raise ValueError(f"count_work on {_work.device}, launch on {device}")
+    return _work.data_ptr()
 
 
 def _check_C(C, variant: str, dev) -> int:
@@ -426,7 +481,8 @@ def _check_reads(codes, lengths, dev):
 def lf_stream(variant: str, rank_desc, sgs_tbl, C, precalc, p: int, k: int, n_nodes: int,
               codes, lengths) -> torch.Tensor:
     """K14 (lf_stream.cuh): [B, L - k + 1] LF streaming answers of the
-    int8 codes [B, L] with valid lengths int32 [B]."""
+    int8 codes [B, L] with valid lengths int32 [B]; inside ``count_work``
+    the counting instance."""
     dev = _cuda_device(codes)
     B, L = codes.shape
     out = torch.empty((B, L - k + 1), dtype=pos_dtype(variant), device=dev)
@@ -439,6 +495,7 @@ def lf_stream(variant: str, rank_desc, sgs_tbl, C, precalc, p: int, k: int, n_no
         C=_check_C(C, variant, dev), precalc=_check_precalc(precalc, variant, p, dev),
         codes=codes_p, lengths=lengths_p,
         out=_check(out, "out", out.dtype, dev), B=B, L=L, k=k, p=p, n_nodes=n_nodes,
+        out_r=_work_ptr(variant, dev),
     )
     return out
 
@@ -535,7 +592,8 @@ def turbo_stream(variant: str, rank_desc, tbl, arity: int, C, precalc, p: int, s
     """K4 (turbo_stream.cuh): [B, L - k + 1] streaming answers of the int8
     codes [B, L] with valid lengths int32 [B], over the arity-A successor
     table and, for restarts from a wide seed, the rank type's ranks. The
-    wide type's table is int64 [n, 4] (arity 1)."""
+    wide type's table is int64 [n, 4] (arity 1). Inside ``count_work``
+    the counting instance."""
     dev = _cuda_device(codes)
     B, L = codes.shape
     dt = pos_dtype(variant)
@@ -555,7 +613,7 @@ def turbo_stream(variant: str, rank_desc, tbl, arity: int, C, precalc, p: int, s
         tbl=_check(tbl, "tbl", dt, dev, shape, 16), arity=arity, C=_check_C(C, variant, dev),
         precalc=_check_precalc(precalc, variant, p, dev), seed_bits=sb,
         codes=codes_p, lengths=lengths_p, out=_check(out, "out", dt, dev),
-        B=B, L=L, k=k, p=p, n_nodes=n_nodes,
+        B=B, L=L, k=k, p=p, n_nodes=n_nodes, out_r=_work_ptr(variant, dev),
     )
     return out
 
@@ -658,6 +716,8 @@ def turbo_stream_sharded(rank_desc, shards, cols: int, arity: int, C, precalc, p
     if not isinstance(rank_desc, PlainMatrixDesc):
         raise TypeError(f"turbo_stream_sharded: descriptor {type(rank_desc).__name__}, "
                         "expected PlainMatrix")
+    if _work is not None:
+        raise ValueError(f"{TURBO_SHARDED}: no instance that counts its work")
     rows, width = {1: (1, 4), 2: (16, 2), 3: (64, 4)}[arity]
     if cols * len(shards) < n_nodes:
         raise ValueError(f"{len(shards)} shards of {cols} columns hold fewer than {n_nodes}")

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
+from ..utils.profiling import annotate
 
 
 def lf_step(index, l, r, c, alive):
@@ -137,19 +138,23 @@ def streaming_search(index, codes, lengths=None):
     [B, L - k + 1] in the index's position type, equal at every position to the JAX engine's
     streaming_search (SBWT.hh:545-581); positions past a read's length
     are -1. The index needs streaming support. CUDA codes must be int8,
-    are read in place, and launch K14."""
-    B, L = codes.shape
-    if L < index.k:
-        raise ValueError(f"read length {L} < k = {index.k}")
-    if not index.has_streaming:
-        raise ValueError("streaming search needs streaming support (suffix group marks)")
-    if lengths is None:
-        lengths = torch.full((B,), L, dtype=torch.int32, device=codes.device)
-    if codes.device.type != "cuda":
-        return streaming_search_plain(index, codes, lengths)
-    return kernels.lf_stream(index.variant, index.kernel_desc(codes.device), index.sgs_tbl,
-                             index.C, index.precalc, index.precalc_k, index.k, index.n_nodes,
-                             codes, lengths.to(device=codes.device, dtype=torch.int32))
+    are read in place, and launch K14. Spans ``sbwt.engine`` and, on a
+    card, ``sbwt.engine.desc`` (utils/profiling.py annotate)."""
+    with annotate("sbwt.engine"):
+        B, L = codes.shape
+        if L < index.k:
+            raise ValueError(f"read length {L} < k = {index.k}")
+        if not index.has_streaming:
+            raise ValueError("streaming search needs streaming support (suffix group marks)")
+        if lengths is None:
+            lengths = torch.full((B,), L, dtype=torch.int32, device=codes.device)
+        if codes.device.type != "cuda":
+            return streaming_search_plain(index, codes, lengths)
+        with annotate("sbwt.engine.desc"):
+            desc = index.kernel_desc(codes.device)
+        return kernels.lf_stream(index.variant, desc, index.sgs_tbl, index.C, index.precalc,
+                                 index.precalc_k, index.k, index.n_nodes, codes,
+                                 lengths.to(device=codes.device, dtype=torch.int32))
 
 
 def partial_search_plain(index, codes, lengths, start=None):

@@ -32,6 +32,7 @@ import torch
 from torch import nn
 
 from .. import kernels
+from ..utils.profiling import annotate
 from .search import extend_from_column, search_batch_plain
 
 
@@ -332,19 +333,23 @@ def turbo_streaming_search(turbo: TurboIndex, index, codes, lengths=None):
     non-singleton seeds.
 
     CUDA codes must be int8, are read in place, and launch K4 of the
-    index's rank type."""
-    B, L = codes.shape
-    if L < turbo.k:
-        raise ValueError(f"read length {L} < k = {turbo.k}")
-    if lengths is None:
-        lengths = torch.full((B,), L, dtype=torch.int32, device=codes.device)
-    if codes.device.type == "cuda":
+    index's rank type. Spans ``sbwt.engine`` and, on a card,
+    ``sbwt.engine.desc`` (utils/profiling.py annotate)."""
+    with annotate("sbwt.engine"):
+        B, L = codes.shape
+        if L < turbo.k:
+            raise ValueError(f"read length {L} < k = {turbo.k}")
+        if lengths is None:
+            lengths = torch.full((B,), L, dtype=torch.int32, device=codes.device)
+        if codes.device.type != "cuda":
+            return turbo_streaming_search_plain(turbo, index, codes, lengths)
+        with annotate("sbwt.engine.desc"):
+            desc = index.kernel_desc(codes.device)
         return kernels.turbo_stream(
-            index.variant, index.kernel_desc(codes.device), turbo.tbl, turbo.arity, turbo.C,
-            turbo.precalc, turbo.precalc_k, turbo.seed_bits, codes,
+            index.variant, desc, turbo.tbl, turbo.arity, turbo.C, turbo.precalc,
+            turbo.precalc_k, turbo.seed_bits, codes,
             lengths.to(device=codes.device, dtype=torch.int32), turbo.k, turbo.n_nodes,
         )
-    return turbo_streaming_search_plain(turbo, index, codes, lengths)
 
 
 # ---------------------------------------------------------------------------

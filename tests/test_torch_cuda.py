@@ -25,6 +25,7 @@ from sbwt_tpu_torch.utils.dna import encode_query
 
 import search_cases as sc
 import subsetwt_cases as swc
+from work_oracle import work_oracle, work_reads
 
 pytestmark = pytest.mark.cuda
 
@@ -1414,3 +1415,98 @@ def test_search_kernels_take_codes_off_16_bytes(case_index, rank_type):
         c.copy_(torch.from_numpy(codes))
         n = torch.from_numpy(lengths).to(di.device)
         assert _partial_equal(di, c, n), off
+
+
+# ---------------------------------------------------------------------------
+# The counting instances of K14 and K4 (kernels.count_work): their answers
+# equal the instances that count nothing, bit for bit, and their counts the
+# work oracle's (tests/work_oracle.py).
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def work_case(cuda):
+    """k = 14, p = 6: a plain-matrix SBWT and 1000 reads of 100 codes
+    (forward, reverse-complement, mutated and random, with N and lowercase
+    spikes and short lengths) on the card."""
+    rng = np.random.default_rng(2020)
+    k, p = 14, 6
+    g = "".join(rng.choice(list("ACGT"), size=6000)) + "ACGT" * 60
+    sb = SBWT.build([g], k, cuda, precalc_k=p)
+    codes, lengths = work_reads(g, rng, 1000, 100, k)
+    return sb, codes.to(cuda), lengths.to(cuda)
+
+
+def _counted(engine, device):
+    """(answers counting nothing, answers counting, counts) of engine()."""
+    off = engine()
+    with kernels.count_work(device):
+        on = engine()
+    torch.cuda.synchronize()
+    return off, on, kernels.work_counts()
+
+
+@pytest.mark.parametrize("variant", VARIANT_NAMES)
+def test_lf_stream_counts_equal_oracle(work_case, variant):
+    sb, c, n = work_case
+    di = sb.to_variant(variant).device_index
+    before = kernels.LAUNCHES[kernels.lf_counter("lf_stream", variant)]
+    off, on, counts = _counted(lambda: ts.streaming_search(di, c, n), c.device)
+    assert kernels.LAUNCHES[kernels.lf_counter("lf_stream", variant)] == before + 2
+    assert torch.equal(on, off)
+    want, oracle = work_oracle(di, c, n)
+    assert torch.equal(off.long(), want)
+    assert counts == oracle
+    assert counts["restarts"] > counts["restart_hits"] > 0 and counts["lf_steps"] > 0
+
+
+@pytest.mark.parametrize("arity", [1, 3])
+@pytest.mark.parametrize("variant", ["plain-matrix", "rrr-split"])
+def test_turbo_stream_counts_equal_oracle(work_case, variant, arity):
+    sb, c, n = work_case
+    di = sb.to_variant(variant).device_index
+    turbo = tt.build_turbo(di, arity)
+    off, on, counts = _counted(lambda: tt.turbo_streaming_search(turbo, di, c, n), c.device)
+    assert torch.equal(on, off)
+    want, oracle = work_oracle(di, c, n, turbo)
+    assert torch.equal(off.long(), want)
+    assert counts == oracle
+    assert counts["table_rows"] > 0 and counts["lf_steps"] > 0
+
+
+def test_count_work_off_leaves_the_counts(work_case):
+    """Launches outside count_work add nothing to the last block's counts;
+    a new block starts from zero."""
+    sb, c, n = work_case
+    di = sb.device_index
+    turbo = tt.build_turbo(di, 2)
+    with kernels.count_work(c.device):
+        ts.streaming_search(di, c, n)
+    first = kernels.work_counts()
+    ts.streaming_search(di, c, n)
+    tt.turbo_streaming_search(turbo, di, c, n)
+    torch.cuda.synchronize()
+    assert kernels.work_counts() == first
+    with kernels.count_work(c.device):
+        assert kernels.work_counts() == dict.fromkeys(kernels.WORK_COUNTERS, 0)
+        tt.turbo_streaming_search(turbo, di, c, n)
+    assert kernels.work_counts()["positions"] == first["positions"] > 0
+
+
+def test_sharded_instances_refuse_to_count(tile_indexes, lf_indexes):
+    """K20a and K20b have no counting instance: inside count_work they
+    raise before launching, and outside it they run."""
+    from sbwt_tpu_torch.parallel import sharded
+
+    g, k, di, *_, view = tile_indexes
+    codes, lengths = work_reads(g, np.random.default_rng(9), 64, 40, k)
+    c, n = codes.to(di.device), lengths.to(di.device)
+    before = dict(kernels.LAUNCHES)
+    with kernels.count_work(di.device):
+        with pytest.raises(ValueError, match="counts its work"):
+            ts.streaming_search(lf_indexes[kernels.SHARDED], c, n)
+        with pytest.raises(ValueError, match="counts its work"):
+            sharded.tp_turbo_block(view, di, c, n)
+    assert kernels.LAUNCHES == before
+    assert torch.equal(ts.streaming_search(lf_indexes[kernels.SHARDED], c, n),
+                       ts.streaming_search_plain(di, c, n))

@@ -80,7 +80,7 @@ with tempfile.TemporaryDirectory() as d:
                           == host.search_batch(codes[:, :14])).all())
 from sbwt_tpu_torch.ops.gather_chain import gather_chain
 from sbwt_tpu_torch.parallel import multihost, sharded
-from sbwt_tpu_torch.utils.profiling import ThroughputMeter, annotate, trace
+from sbwt_tpu_torch.utils.profiling import annotate, trace
 mesh = sharded.make_mesh(2, 2, ["cpu"])
 tp = sharded.build_turbo_sharded(sb.device_index, mesh, 3)
 with tempfile.TemporaryDirectory() as d, trace(d), annotate("parallel"):
@@ -538,7 +538,7 @@ def test_sharded_rank_type_refuses_the_ops_it_has_no_instance_of():
             kernels._lf_launch(op, kernels.SHARDED, kernels.ShardedMatrixDesc(), None)
 
 
-@pytest.mark.parametrize("name", ["ThroughputMeter", "ProgressPrinter"])
+@pytest.mark.parametrize("name", ["ProgressPrinter"])
 def test_profiling_classes_are_the_jax_packages(name):
     """utils/profiling.py's counters are copies: the same source text."""
     import inspect

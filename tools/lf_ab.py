@@ -60,7 +60,8 @@ def ptxas(log: str) -> dict:
             for kern in ("lf_stream_kernel", "precalc_fill_kernel"):
                 for name, mangled in RANK_TYPES.items():
                     timed = kern == "lf_stream_kernel" or name in ("plain", "wide")
-                    if timed and kern in entry and re.search(mangled, entry):
+                    counting = "Lb1E" in entry  # K14's instance that counts its work
+                    if timed and kern in entry and re.search(mangled, entry) and not counting:
                         # the fill may have one instance a subtree depth D
                         d = re.search(r"kernelILi(\d+)E", entry)
                         key = f"{kern.split('_kernel')[0]}{'_d' + d.group(1) if d else ''}_{name}"

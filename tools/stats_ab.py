@@ -48,7 +48,7 @@ def ptxas(log: str) -> dict:
             spill = int(m.group(1)) + int(m.group(2))
         elif m := re.search(r"Used (\d+) registers", line):
             for name, mangled in ENTRIES.items():
-                if mangled in entry:
+                if mangled in entry and "Lb1E" not in entry:  # not a counting instance
                     width = next((w for t, w in WIDTHS.items() if t in entry), "")
                     out[f"{name}{'_' + width if width else ''}"] = f"{m.group(1)}/{spill}"
     return out

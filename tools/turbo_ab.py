@@ -36,7 +36,8 @@ for line in lib.with_suffix(".log").read_text().splitlines():
     if "Compiling entry function" in line:
         entry = line
     elif "Used" in line and "registers" in line and entry and \
-            "turbo_stream_kernelINS_11PlainMatrixENS_9FlatTable" in entry:
+            "turbo_stream_kernelINS_11PlainMatrixENS_9FlatTable" in entry and \
+            "Lb1E" not in entry:  # not the instance that counts its work
         registers = line.split("Used")[1].split("registers")[0].strip()
         if m := re.search(r"(\d+) bytes smem", line):
             static_smem = int(m.group(1))
