@@ -34,6 +34,23 @@
 // invalid (SBWT.hh:426-427), so past that point only 0..3 extend.
 // Positions past lengths[b] - k are -1.
 //
+// A restart first probes ahead (probe_from_seed). If the search of the
+// window at q empties at char e, read[q..e] is a suffix of no column's
+// label, so no indexed k-mer contains it (a k-mer that did would reach a
+// column labelled with it by predecessors, or a dummy prefix of it), and
+// every window from e - k + 1 to q is -1 without a search; a non-ACGT char
+// at e rules out the same windows, save a lowercase one while extensions
+// still pass it. The lane probes q = pos + k - 1 - die, where die is the
+// offset at which its last probe died (at first ceil(log4 n) + 1: a
+// random window dies about there), so that the dead range reaches back to
+// pos, and at most the tile's last position, whose window is staged; at
+// q <= pos it restarts at pos as before. A probe that dies too far on
+// leaves [pos, e - k] open, which is probed again by the same rule; one
+// that hits keeps its column for q, and the positions before q restart
+// one by one. Lanes in restart mode at a tile's start probe together, so
+// a warp pays about one probe a tile where it paid its slowest lane's
+// search at every position (PERF.md).
+//
 // Bound on the H100: an extension is a suffix-group row and a rank row
 // (on plain-matrix both from tables that stay in L2), a restart one
 // precalc row from the 4^p table in HBM and the LF rank rows of a live
@@ -43,8 +60,8 @@
 // (stream_tile.cuh): a warp owns 32 consecutive reads and walks them in
 // tiles of T positions (LFShape), its codes window (T + k - 1 chars a
 // read) staged in shared memory, its answers stored through a shared
-// tile. The rolling state (p-mer index, run of valid chars, previous
-// answer, lenience) stays in registers across tiles.
+// tile. The rolling state (run of valid chars, previous answer, lenience,
+// the probes' state) stays in registers across tiles.
 //
 // Bound of K1's search and of partial_search on the H100: the codes read
 // (k chars a k-mer; a lane's chars up to where it stops) and the answers
@@ -104,11 +121,14 @@ enum LFOp { kLFStream = 0, kPrecalcFill = 1, kKmerSearch = 2, kPartialSearch = 3
 
 // The work counters of K14 and K4 (kernels.WORK_COUNTERS): the real
 // positions, the full searches begun (a restart: no previous answer and a
-// window of k ACGT chars), those that found their k-mer, the exact LF steps
-// (lf_step_r calls) the searches took, and the successor-table rows read
-// (K4 only: the chain's and walk_singleton's).
+// window of k ACGT chars; K14's probes too), those that found their k-mer,
+// the exact LF steps (lf_step_r calls) the searches took, the
+// successor-table rows read (K4 only: the chain's and walk_singleton's),
+// and the positions with a window of k ACGT chars that a probe's dead
+// substring answered -1 with no search or extension of their own (K14
+// only).
 enum WorkCounter { kWorkPositions, kWorkRestarts, kWorkRestartHits, kWorkLFSteps, kWorkTableRows,
-                   kWorkCounters };
+                   kWorkSkipped, kWorkCounters };
 
 // A lane's work counts. WorkTally<false>, the instance launched without
 // counting, does nothing and compiles to nothing. WorkTally<true> keeps the
@@ -220,13 +240,11 @@ __device__ __forceinline__ P successor(const R& rk, const int2* __restrict__ sgs
 }
 
 // Colex rank of the k chars at kmer (all 0..3), seeded from the precalc
-// row of its first p chars (packed colex-reversed in pidx), or -1. K14
-// passes its tally; K1's search leaves the default, which counts nothing.
-template <bool kInterval = false, class R, class P = typename R::pos_t,
-          class Tally = WorkTally<false>>
+// row of its first p chars (packed colex-reversed in pidx), or -1: K1's
+// search.
+template <bool kInterval = false, class R, class P = typename R::pos_t>
 __device__ __forceinline__ P search_from_seed(const R& rk, const LFArgs& a, const CArray<P>& Cl,
-                                              const int8_t* kmer, unsigned pidx,
-                                              Tally&& work = Tally{}) {
+                                              const int8_t* kmer, unsigned pidx) {
     P l = 0, r = (P)a.n_nodes - 1;
     if (a.p > 0) {
         const pair_t<P> seed = static_cast<const pair_t<P>*>(a.precalc)[pidx];
@@ -235,7 +253,6 @@ __device__ __forceinline__ P search_from_seed(const R& rk, const LFArgs& a, cons
         r = seed.y;
     }
     for (int j = a.p; j < a.k; ++j) {
-        work.add(kWorkLFSteps);
         if constexpr (kInterval) {
             if (!lf_step_iv<false>(rk, Cl, kmer[j], l, r)) return -1;
         } else {
@@ -243,6 +260,44 @@ __device__ __forceinline__ P search_from_seed(const R& rk, const LFArgs& a, cons
         }
     }
     return l;  // a found k-mer's interval is a singleton (SBWT.hh:410-414)
+}
+
+// K14's search of the window at w, whose chars it checks as it goes: the
+// colex rank of its k chars, or -1 with *die the offset of the char where
+// it died: the first non-ACGT char, the seed's last char where the precalc
+// row is (-1, -1), or the char whose LF step emptied the interval.
+template <class R, class P = typename R::pos_t, class Tally>
+__device__ __forceinline__ P probe_from_seed(const R& rk, const LFArgs& a, const CArray<P>& Cl,
+                                             const int8_t* w, int* die, Tally& work) {
+    unsigned pidx = 0;
+    for (int j = 0; j < a.p; ++j) {
+        const int c = w[j];
+        if (!is_base(c)) {
+            *die = j;
+            return -1;
+        }
+        pidx |= (unsigned)c << (2 * j);
+    }
+    P l = 0, r = (P)a.n_nodes - 1;
+    if (a.p > 0) {
+        const pair_t<P> seed = static_cast<const pair_t<P>*>(a.precalc)[pidx];
+        if (seed.x < 0) {
+            *die = a.p - 1;
+            return -1;
+        }
+        l = seed.x;
+        r = seed.y;
+    }
+    for (int j = a.p; j < a.k; ++j) {
+        const int c = w[j];
+        if (is_base(c)) {
+            work.add(kWorkLFSteps);
+            if (lf_step_r(rk, Cl, c, l, r)) continue;
+        }
+        *die = j;
+        return -1;
+    }
+    return l;
 }
 
 // Launch shape of K14 over rank type R: `warps` warps a block, each owning
@@ -279,11 +334,11 @@ __host__ __device__ __forceinline__ int lf_smem_bytes(int k) {
 
 // One warp per 32 consecutive reads. For each tile of positions the warp
 // stages the windows the tile reads into shared memory, each lane answers
-// its read's positions of the tile from there (a restart's k chars too),
-// keeping its rolling state in registers across tiles, and writes its
-// answers into a shared tile, which the warp then stores read by read as
-// contiguous runs. K14 reads neither the turbo table nor the seed bits.
-// With kCount it also counts its work (WorkTally) into a.out_r.
+// its read's positions of the tile from there (a restart's and a probe's
+// k chars too), keeping its rolling state in registers across tiles, and
+// writes its answers into a shared tile, which the warp then stores read
+// by read as contiguous runs. K14 reads neither the turbo table nor the
+// seed bits. With kCount it also counts its work (WorkTally) into a.out_r.
 template <class R, bool kCount>
 __global__ void __launch_bounds__(LFShape<R>::warps * 32, LFShape<R>::min_blocks)
     lf_stream_kernel(R rk, LFArgs a) {
@@ -295,7 +350,7 @@ __global__ void __launch_bounds__(LFShape<R>::warps * 32, LFShape<R>::min_blocks
     if (b0 >= a.B) return;  // the whole warp
     const int nrows = (int)min((int64_t)32, (int64_t)(a.B - b0));
     const int64_t b = b0 + lane;
-    const int k = a.k, p = a.p, L = a.L;
+    const int k = a.k, L = a.L;
     const int P_out = L - k + 1;
     const int n_pos = lane < nrows ? max(0, min(P_out, a.lengths[b] - k + 1)) : 0;
     const int win = lf_window(T, k);
@@ -307,17 +362,19 @@ __global__ void __launch_bounds__(LFShape<R>::warps * 32, LFShape<R>::min_blocks
     WorkTally<kCount> work;
     work.add(kWorkPositions, n_pos);
 
-    // Rolling state of position pos: pidx packs chars pos..pos+p-1
-    // colex-reversed (char j at bits 2j), run counts the valid chars
-    // ending at pos+k-1. Position pos takes in chars pos+p-1 and pos+k-1.
-    const unsigned top = p > 0 ? 2u * (unsigned)(p - 1) : 0u;
-    unsigned pidx = 0;
+    // Rolling state of position pos: run counts the valid chars ending at
+    // pos+k-1. The probes' state: die, the offset at which the last probe
+    // died (first ceil(log4 n) + 1); the windows cov_lo..cov_hi are known
+    // -1; a probe's hit at hit_q, ahead of pos, answers it with hit_v.
     int run = 0;
     bool lenient = true;  // lowercase extends until the read's first -1
     P prev = -1;
+    int die = min(k - 1, (65 - __clzll(a.n_nodes - 1)) / 2 + 1);
+    int cov_lo = 0, cov_hi = -1, hit_q = -1;
+    P hit_v = -1;
 
     for (int t0 = 0; t0 < P_out; t0 += T) {
-        const int tend = min(t0 + T, P_out);
+        const int tend = min(t0 + T, P_out), end = min(tend, n_pos);
         if (__any_sync(0xFFFFFFFFu, t0 < n_pos)) {
             stage_codes(a.codes, a.B * (int64_t)L, b0, nrows, L, t0, win, chunks, row_bytes, st,
                         lane);
@@ -326,22 +383,52 @@ __global__ void __launch_bounds__(LFShape<R>::warps * 32, LFShape<R>::min_blocks
         const int8_t* s = staged_row(st, row_bytes, lane, a.codes + b * L, t0);
         if (t0 == 0 && n_pos > 0) {
             for (int x = 0; x < k - 1; ++x) run = is_base(s[x]) ? run + 1 : 0;
-            if (p > 0) {
-                for (int x = 0; x < p - 1; ++x) pidx = (pidx >> 2) | ((unsigned)(s[x] & 3) << top);
-            }
         }
         for (int pos = t0; pos < tend; ++pos) {
             P v = -1;
             if (pos < n_pos) {
                 const int c = s[pos + k - 1];
                 run = is_base(c) ? run + 1 : 0;
-                if (p > 0) pidx = (pidx >> 2) | ((unsigned)(s[pos + p - 1] & 3) << top);
-                if (prev >= 0) {
+                if (pos == hit_q) {
+                    v = hit_v;
+                } else if (pos >= cov_lo && pos <= cov_hi) {
+                    work.add(kWorkSkipped, run >= k);
+                } else if (prev >= 0) {
                     if (c >= 0 && (lenient || c < 4)) v = successor(rk, a.sgs_tbl, Cl, prev, c & 3);
                 } else if (run >= k) {
-                    v = search_from_seed(rk, a, Cl, s + pos, pidx, work);
-                    work.add(kWorkRestarts);
-                    work.add(kWorkRestartHits, v >= 0);
+                    // Probe at q (pos itself: the restart as it was) until
+                    // pos is answered. The dead range held ahead bounds q,
+                    // and a new one that joins it extends it.
+                    int q = pos;
+                    if (hit_q < pos) q = max(pos, min(cov_lo > pos ? cov_lo - 1 : end - 1,
+                                                      pos + k - 1 - die));
+                    for (;;) {
+                        int e;
+                        const P col = probe_from_seed(rk, a, Cl, s + q, &e, work);
+                        work.add(kWorkRestarts);
+                        work.add(kWorkRestartHits, col >= 0);
+                        if (q == pos) {
+                            v = col;
+                            break;
+                        }
+                        if (col >= 0) {
+                            hit_q = q;
+                            hit_v = col;
+                            q = pos;
+                        } else if (lenient && s[q + e] > 3) {
+                            q = pos;  // a lowercase char that an extension may yet pass
+                        } else {
+                            die = e;
+                            const int lo = q + e - k + 1;
+                            if (cov_lo != q + 1) cov_hi = q;
+                            cov_lo = lo;
+                            if (lo <= pos) {
+                                work.add(kWorkSkipped);
+                                break;
+                            }
+                            q = max(pos, min(lo - 1, pos + k - 1 - die));
+                        }
+                    }
                 }
                 if (v < 0) lenient = false;
                 prev = v;

@@ -92,9 +92,11 @@ def lf_counter(op: str, variant: str) -> str:
 
 
 # K14's and K4's work counters (csrc/lf_stream.cuh WorkCounter), in order:
-# real positions, full searches begun (restarts), restarts that found their
-# k-mer, exact LF steps the restarts took, successor-table rows read (K4)
-WORK_COUNTERS = ("positions", "restarts", "restart_hits", "lf_steps", "table_rows")
+# real positions, full searches begun (restarts; K14's probes too), restarts
+# that found their k-mer, exact LF steps the restarts took, successor-table
+# rows read (K4), positions of k ACGT chars answered -1 by a probe's dead
+# substring with no search of their own (K14)
+WORK_COUNTERS = ("positions", "restarts", "restart_hits", "lf_steps", "table_rows", "skipped")
 
 # K19, the on-device build (csrc/build_sbwt.cu)
 BUILD_OPS = ("pack_windows", "edge_src_probe", "emit_dummies", "finalize_tables")

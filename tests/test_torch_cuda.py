@@ -25,7 +25,7 @@ from sbwt_tpu_torch.utils.dna import encode_query
 
 import search_cases as sc
 import subsetwt_cases as swc
-from work_oracle import work_oracle, work_reads
+from work_oracle import string_answers, work_oracle, work_reads
 
 pytestmark = pytest.mark.cuda
 
@@ -1458,6 +1458,7 @@ def test_lf_stream_counts_equal_oracle(work_case, variant):
     assert torch.equal(off.long(), want)
     assert counts == oracle
     assert counts["restarts"] > counts["restart_hits"] > 0 and counts["lf_steps"] > 0
+    assert counts["skipped"] > 0
 
 
 @pytest.mark.parametrize("arity", [1, 3])
@@ -1471,7 +1472,7 @@ def test_turbo_stream_counts_equal_oracle(work_case, variant, arity):
     want, oracle = work_oracle(di, c, n, turbo)
     assert torch.equal(off.long(), want)
     assert counts == oracle
-    assert counts["table_rows"] > 0 and counts["lf_steps"] > 0
+    assert counts["table_rows"] > 0 and counts["lf_steps"] > 0 and counts["skipped"] == 0
 
 
 def test_count_work_off_leaves_the_counts(work_case):
@@ -1510,3 +1511,69 @@ def test_sharded_instances_refuse_to_count(tile_indexes, lf_indexes):
     assert kernels.LAUNCHES == before
     assert torch.equal(ts.streaming_search(lf_indexes[kernels.SHARDED], c, n),
                        ts.streaming_search_plain(di, c, n))
+
+
+@pytest.fixture(scope="module")
+def probe_indexes(cuda):
+    """k = 31, p = 8 (the benchmark's k and p, within one): K14's every
+    instance over one genome (the ten narrow variants, the wide copy and
+    K20a over three row shards) and tests/oracle.py's index of it."""
+    from oracle import OracleIndex
+    from sbwt_tpu_torch.parallel import sharded
+
+    rng = np.random.default_rng(2121)
+    k, p = 31, 8
+    g = "".join(rng.choice(list("ACGT"), size=6000)) + "ACGT" * 60
+    sb = SBWT.build([g], k, cuda, precalc_k=p)
+    di = sb.device_index
+    out = {v: sb.to_variant(v).device_index for v in VARIANT_NAMES}
+    words = np.stack([bv.pack_bits_host(row) for row in sb.bits])
+    out[kernels.WIDE] = from_packed_rows_wide(words, di.n_nodes,
+                                              bv.pack_bits_host(sb.suffix_group_starts), k,
+                                              di.n_kmers, cuda, precalc_k=p)
+    out[kernels.SHARDED] = sharded.shard_index_rows(di, sharded.make_mesh(1, 3, [cuda])).views[0]
+    return g, k, out, OracleIndex([g], k)
+
+
+def _probe_batch(g, kind, B, L, k, rng):
+    """B reads of L codes. reverse: reverse complements of genomic windows,
+    absent from the one-strand index, so every window restarts; errors:
+    genomic windows with 4% substitutions, 2% lowercase and an N in every
+    fifth read, so that restarts walk toward an error and die there."""
+    enc = encode_query(g)
+    codes = np.empty((B, L), np.int8)
+    for i in range(B):
+        s = int(rng.integers(0, len(enc) - L))
+        codes[i] = 3 - enc[s : s + L][::-1] if kind == "reverse" else enc[s : s + L]
+    if kind == "errors":
+        hit = rng.random((B, L)) < 0.04
+        codes[hit] = (codes[hit] + 1) % 4
+        codes[rng.random((B, L)) < 0.02] |= 4
+        codes[::5, rng.integers(0, L, size=len(codes[::5]))] = -1
+    lengths = np.full(B, L, np.int32)
+    lengths[::7] = rng.integers(k - 1, L + 1, size=len(lengths[::7]))
+    return codes, lengths
+
+
+@pytest.mark.parametrize("kind", ["reverse", "errors"])
+def test_lf_stream_probes_equal_plain_version(probe_indexes, kind):
+    """K14 with its look-ahead probes on every instance (the ten narrow
+    rank types, the wide tier and K20a) equals its plain version and
+    tests/oracle.py on a batch where every window restarts and on one dense
+    with errors, 1000 reads of 100 codes; the counting instance of each
+    narrow type skips windows and answers the same."""
+    g, k, indexes, oracle = probe_indexes
+    codes, lengths = _probe_batch(g, kind, 1000, 100, k, np.random.default_rng(len(kind)))
+    c = torch.from_numpy(codes).to(indexes["plain-matrix"].device)
+    n = torch.from_numpy(lengths).to(c.device)
+    want = string_answers(oracle, c, n)
+    for name, index in indexes.items():
+        got = ts.streaming_search(index, c, n)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ts.streaming_search_plain(index, c, n)), name
+        assert torch.equal(got.long().cpu(), want), name
+        if name in VARIANT_NAMES:
+            with kernels.count_work(c.device):
+                on = ts.streaming_search(index, c, n)
+            assert torch.equal(on, got), name
+            assert kernels.work_counts()["skipped"] > 0, name

@@ -14,8 +14,13 @@ from the checkout) and prints one JSON line:
   ``positions`` against the pool's real answers.
 * ``split``: the same for a batch of forward-strand reads and one of
   reverse-strand reads (the mix's other parameters kept): each batch's
-  counts and ms, and the per-extension and per-restart costs that the two
-  give, ms = ext x t_ext + restarts x t_restart, applied to the pool batch.
+  counts and ms, its ``shares`` of the positions (restarts, K14's probes
+  included; skipped; LF steps a position), and the per-position and
+  per-restart costs that the two give, ms = other x t_ext + restarts x
+  t_restart, applied to the pool batch, where other is the positions less
+  the restarts and the skipped positions (before K14's probes: the
+  extensions and the windows with a non-ACGT char). A checkout whose
+  counters lack ``skipped`` skips none.
 * ``spans`` (a profiled closed loop of ``--trace-batches`` calls, the
   harness's dispatch and sync ranges around each, reduced by
   ``portbench.spans``): host milliseconds a call by span with the spans
@@ -126,15 +131,23 @@ def strand_split(cell, strains, dep, seed: int, device, pool_batch: dict) -> dic
         dep.engine(*args)
         out[name] = {"ms": statistics.median(ab_common.mean_ms(lambda: dep.engine(*args))[0]),
                      "work": counted(dep.engine, args, device)}
+        if (w := out[name]["work"]) is not None:
+            out[name]["shares"] = {"restarts": w["restarts"] / w["positions"],
+                                   "skipped": w.get("skipped", 0) / w["positions"],
+                                   "lf_steps_per_position": w["lf_steps"] / w["positions"]}
     if out["forward"]["work"] is None:
         return out
-    rows = [(w["positions"] - w["restarts"], w["restarts"], o["ms"])
+
+    def other(w):
+        return w["positions"] - w["restarts"] - w.get("skipped", 0)
+
+    rows = [(other(w), w["restarts"], o["ms"])
             for o in (out["forward"], out["reverse"]) for w in [o["work"]]]
     (e1, r1, t1), (e2, r2, t2) = rows
     det = e1 * r2 - e2 * r1
     t_ext, t_restart = (t1 * r2 - t2 * r1) / det, (e1 * t2 - e2 * t1) / det
     w = pool_batch["work"]
-    ext, rst = w["positions"] - w["restarts"], w["restarts"]
+    ext, rst = other(w), w["restarts"]
     out["model"] = {"t_ext_ns": t_ext * 1e6, "t_restart_ns": t_restart * 1e6,
                     "pool_batch_ext_ms": ext * t_ext, "pool_batch_restart_ms": rst * t_restart,
                     "pool_batch_ms_modelled": ext * t_ext + rst * t_restart,
