@@ -4,13 +4,15 @@ sequences and the reads.
 
 Every answer is exact (a column of the SBWT, or -1), so the limit of the
 count of mismatched answers is 0. Each pool batch's last answers are
-judged, and those of the calls drawn from the seed.
+judged, and those of the calls drawn from the seed. The reference works in
+buckets of keys (``portbench/reference/buckets.py``), so that it judges an
+index of billions of columns in bounded device memory.
 """
 from __future__ import annotations
 
 import torch
 
-from portbench.reference.sbwt_ref import ReferenceIndex
+from portbench.reference import buckets
 
 LIMITS = {"mismatched_answers": 0}
 
@@ -29,13 +31,14 @@ def compare(run, pool, seqs, k: int) -> dict:
     """{name: (value, limit)} of the numbers compared, the calls and
     answers judged, the calls whose answers were wrong, and the reference's
     share of the judged real answers that are indexed (hits); the reference
-    is built here, after the program is freed."""
-    ref = ReferenceIndex(seqs, k)
+    runs here, after the program is freed."""
     bad = wrong_calls = n_answers = n_real = n_hits = 0
     kept = judged(run)
-    for slot, answers in sorted(kept.items()):
-        batch = pool[slot]
-        want = ref.streaming_answers(batch.codes, batch.lengths)
+    slots = sorted(kept)
+    wants = buckets.streaming_answers(seqs, k, [(pool[s].codes, pool[s].lengths)
+                                                for s in slots]).answers
+    for slot in slots:
+        answers, batch, want = kept[slot], pool[slot], wants.pop(0)
         n_real += batch.answers * len(answers)
         n_hits += int((want >= 0).sum()) * len(answers)
         for ans in answers:

@@ -21,20 +21,35 @@ if __name__ == "__main__":
     sys.path[0] = str(ROOT)
 
 from portbench import deploy  # noqa: E402
-from portbench.reference.sbwt_ref import ReferenceIndex  # noqa: E402
+from portbench.reference import buckets  # noqa: E402
 
 KEY_BITS = 32
 
 
 def setup(config: dict, seqs: list, device) -> deploy.Deployment:
-    """The control in the program's place: the reference at KEY_BITS."""
+    """The control in the program's place: the bucketed reference at
+    KEY_BITS, so that it runs in bounded device memory at any index size.
+    It answers every pool batch in one set of passes, at the first call
+    (in the warm-up), and each call then returns its batch's answers."""
+    k = int(config["k"])
     spans: dict = {}
-    ref = deploy.timed(spans, "reference", device, ReferenceIndex, seqs, int(config["k"]))
+    info: dict = {}
+    batches: list = []
+    answers: list = []
 
-    def run(codes, lengths):
-        return ref.streaming_answers(codes, lengths, key_bits=KEY_BITS)
+    def prepare(batch):
+        batches.append(deploy.engine_args(batch))
+        return (len(batches) - 1,)
 
-    return deploy.Deployment(run, deploy.engine_args, spans, {"n_nodes": ref.n_nodes})
+    def run(i):
+        if not answers:
+            got = deploy.timed(spans, "reference", device, buckets.streaming_answers, seqs, k,
+                               batches, key_bits=KEY_BITS)
+            answers.extend(got.answers)
+            info["n_nodes"] = got.n_nodes
+        return answers[i]
+
+    return deploy.Deployment(run, prepare, spans, info)
 
 
 def main(argv=None) -> int:

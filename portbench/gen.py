@@ -12,6 +12,32 @@ that later changes to those files do not move the yardstick.
 Every seed gives the same sizes and the same counts (reads a batch, reads
 from the genomes, read lengths drawn from the same range); the seed moves
 only which positions, strands, bases and errors.
+
+A configuration's ``genome`` keys choose one of two shapes of the indexed
+sequences; every strain of either has the same length, so that reads are
+windows of a strain matrix [S, G].
+
+- **Strains of one base** (``base_bases`` G, ``strains`` S,
+  ``strain_substitution_rate``, ``add_reverse_complements``): a base of G
+  uniform random bases and S copies of it at independent substitutions of
+  one base. All S x G draws are made at once, so its temporaries are
+  O(S x G): a shape for a few strains.
+- **A pangenome** (``core_bases`` C, ``strains`` S,
+  ``strain_substitution_rate``, ``accessory_pool_blocks`` M,
+  ``accessory_block_bases`` b, ``accessory_blocks_per_strain`` A,
+  ``accessory_hotspots`` H, ``accessory_zipf_exponent`` s,
+  ``add_reverse_complements``): a core of C uniform random bases that every
+  strain carries, and a pool of M accessory blocks of b uniform random
+  bases each (gene content that strains do not all share), both fixed by
+  the seed. Each strain holds A distinct blocks of the pool, drawn without
+  replacement with weights proportional to rank^-s (rank 1..M, the pool's
+  order; torch.multinomial's successive draws), in H hotspots at evenly
+  spaced points of the core, A // H or A // H + 1 blocks to a hotspot, in
+  the order drawn. The whole strain (core and blocks, C + A x b bases) then
+  takes independent substitutions at the strain rate. Strains are made one
+  at a time, so the temporaries are O(C + A x b) besides the pool; the
+  output is S x (C + A x b) bytes, twice that with reverse complements.
+  Needs 1 <= H <= A <= M <= 2^24.
 """
 from __future__ import annotations
 
@@ -43,10 +69,12 @@ def substitute(codes: torch.Tensor, rate: float, g: torch.Generator) -> torch.Te
 
 
 def genome(params: dict, seed: int, device):
-    """(strains int8 [S, G], indexed sequences): a base of G uniform random
-    bases and S strains of it at independent substitutions; the indexed
-    sequences are the strains and, with ``add_reverse_complements``, their
-    reverse complements (the reference CLI's --add-reverse-complements)."""
+    """(strains int8 [S, G], indexed sequences) of either shape (above): the
+    indexed sequences are the strains and, with ``add_reverse_complements``,
+    their reverse complements (the reference CLI's
+    --add-reverse-complements)."""
+    if "core_bases" in params:
+        return pangenome(params, seed, device)
     g = generator(seed, _GENOME, device)
     G, S = int(params["base_bases"]), int(params["strains"])
     base = torch.randint(0, 4, (G,), generator=g, device=device, dtype=torch.int8)
@@ -54,6 +82,47 @@ def genome(params: dict, seed: int, device):
     seqs = list(strains)
     if params.get("add_reverse_complements", False):
         seqs += list(reverse_complement(strains))
+    return strains, seqs
+
+
+def pangenome(params: dict, seed: int, device):
+    """(strains int8 [S, G], indexed sequences) of the pangenome shape, one
+    strain at a time."""
+    g = generator(seed, _GENOME, device)
+    C, S = int(params["core_bases"]), int(params["strains"])
+    M, b = int(params["accessory_pool_blocks"]), int(params["accessory_block_bases"])
+    A, H = int(params["accessory_blocks_per_strain"]), int(params["accessory_hotspots"])
+    if not 1 <= H <= A <= M <= 1 << 24:
+        raise ValueError(f"need 1 <= hotspots {H} <= blocks a strain {A} <= pool {M} <= 2^24")
+    rate = float(params["strain_substitution_rate"])
+    source = torch.randint(0, 4, (C + M * b,), generator=g, device=device, dtype=torch.int8)
+    weights = torch.arange(1, M + 1, device=device, dtype=torch.float64).pow(
+        -float(params["accessory_zipf_exponent"]))
+    # where each base of a strain comes from: core position, or block slot and offset
+    spans, slots, at = [], [], 0
+    for h in range(H):
+        cut = (h + 1) * C // (H + 1)
+        spans.append(torch.arange(at, cut, device=device))
+        slots.append(torch.full((cut - at,), -1, device=device))
+        n = (h + 1) * A // H - h * A // H
+        off = torch.arange(n * b, device=device)
+        spans.append(C + off % b)
+        slots.append(h * A // H + off // b)
+        at = cut
+    spans.append(torch.arange(at, C, device=device))
+    slots.append(torch.full((C - at,), -1, device=device))
+    spans, slots = torch.cat(spans), torch.cat(slots)
+    is_block, slots = slots >= 0, slots.clamp(min=0)
+    G = C + A * b
+    strains = torch.empty((S, G), dtype=torch.int8, device=device)
+    rc = torch.empty_like(strains) if params.get("add_reverse_complements", False) else None
+    for i in range(S):
+        blocks = torch.multinomial(weights, A, replacement=False, generator=g)
+        src = torch.where(is_block, spans + blocks[slots] * b, spans)
+        strains[i] = substitute(source[src], rate, g)
+        if rc is not None:
+            rc[i] = reverse_complement(strains[i])
+    seqs = list(strains) + ([] if rc is None else list(rc))
     return strains, seqs
 
 

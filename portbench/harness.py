@@ -74,6 +74,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, device, t0
     after = dep.launches() if dep.launches else None
     kind = torch.cuda.get_device_name(device) if cuda else "cpu"
     answers = sum(pool[s].answers for s in run.slots)
+    width = yardstick.answer_bytes(next(iter(run.last.values())))
     record = {
         "setup_s": setup_s,
         "spans": dep.spans,
@@ -83,7 +84,8 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, device, t0
         "dispatch_s": run.dispatch_s,
         "answers": answers,
         "compulsory_bytes": sum(
-            yardstick.compulsory_bytes(pool[s].bases, pool[s].codes.shape[0], pool[s].answers)
+            yardstick.compulsory_bytes(pool[s].bases, pool[s].codes.shape[0], pool[s].answers,
+                                       width)
             for s in run.slots),
         "launches": None if before is None else {n: after[n] - before[n] for n in after},
         "trace": run.trace,

@@ -18,7 +18,10 @@ dummy nodes whose key is at most its own.
 
 Plain PyTorch on any device. It imports nothing of the program under test
 and takes none of its tables: the sorted k-mers, the sources and the
-dummies are worked out here again.
+dummies are worked out here again. It holds every distinct k-mer at once
+(about 40 B of device memory a base while it is built), so the check uses
+``buckets.py``, which gives the same answers in bounded memory, and so
+does the control; this whole table is the tests' oracle.
 """
 from __future__ import annotations
 

@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from portbench import control, deploy, gen, harness, spec
+from portbench.reference import buckets
 from portbench.reference.sbwt_ref import ReferenceIndex
 from portbench.tests import tiny
 
@@ -91,13 +92,14 @@ def test_reference_equals_port(variant):
 
     strains, seqs = gen.genome(tiny.CONFIG["genome"], SEED, "cpu")
     k = tiny.CONFIG["k"]
-    ref = ReferenceIndex(seqs, k)
+    codes, lengths = edge_reads(strains, k, gen.generator(SEED, 9, "cpu"))
+    ref = buckets.streaming_answers(seqs, k, [(codes, lengths)], max_keys=2000)
+    assert len(ref.buckets) > 1
     sb = SBWT.build_on_device([s.numpy() for s in seqs], k, "cpu", precalc_k=5)
     assert ref.n_nodes == sb.number_of_subsets()
     if variant != "plain-matrix":
         sb = sb.to_variant(variant)
-    codes, lengths = edge_reads(strains, k, gen.generator(SEED, 9, "cpu"))
-    want = ref.streaming_answers(codes, lengths)
+    want = ref.answers[0]
     assert (want >= 0).any() and (want < 0).any()
     got_lf = streaming_search(sb.device_index, codes, lengths)
     got_turbo = turbo_streaming_search(build_turbo(sb.device_index, 2), sb.device_index, codes,
