@@ -214,7 +214,11 @@ BUILD_KERNELS = {
     "edge_src_probe": ("sbwt_tpu_torch/csrc/build_sbwt.cu", "sbwt_tpu/construct/device.py:221"),
     "emit_dummies": ("sbwt_tpu_torch/csrc/build_sbwt.cu", "sbwt_tpu/construct/device.py:247"),
     "finalize_tables": ("sbwt_tpu_torch/csrc/build_sbwt.cu", "sbwt_tpu/construct/device.py:307"),
+    # the ranged build's pass over the codes (no XLA counterpart: the JAX
+    # build takes every window at once; its window packing is the nearest)
+    "pack_range": ("sbwt_tpu_torch/csrc/build_sbwt.cu", "sbwt_tpu/construct/device.py:198"),
 }
+RANGED_BUILD_KEYS = 1 << 21  # windows of both sides a range holds: about 4 ranges of the genome
 # the LF entry points of the variants path, one instance per variant
 # (csrc/lf_stream.cuh); plain-matrix's K1 is in KERNELS
 LF_KERNELS = {}
@@ -1225,6 +1229,24 @@ def run_device_build_path(dev, genome, sbwt, runs):
         seconds_with_upload_and_precalc=round(seconds, 4),
         second_call_seconds=round(again_seconds, 4))
     del again, ans
+    # the ranged build of the same genome: the same tables, range by range
+    from sbwt_tpu_torch.construct import device as td
+
+    budget = td.range_budget
+    td.range_budget = lambda device, k: RANGED_BUILD_KEYS
+    try:
+        t0 = time.perf_counter()
+        ranged = SBWT.build_on_device([genome], K, dev, precalc_k=PRECALC_K)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        td.range_budget = budget
+    check(td.LAST_BUILD["key_ranges"] > 1, f"ranged build: {td.LAST_BUILD}")
+    check_same_index(ranged, sbwt, "ranged device build of the genome")
+    say("device_build", input="genome, ranged", key_ranges=td.LAST_BUILD["key_ranges"],
+        max_abs_err=0, seconds_with_upload_and_precalc=round(seconds, 4),
+        peak_bytes=td.LAST_BUILD["peak_bytes"])
+    del ranged
 
     reads = list(codes[:BUILD_READS])
     t0 = time.perf_counter()
@@ -1357,6 +1379,21 @@ def compare_build_kernels(dev, genome, record, card, regs):
             bound_ms=bound_ms(moved, 0), bound_by="bytes", bytes_moved=moved, card=repr(card),
             **build_registers(regs, "pack_windows", kernels.key_words(k)))
         del codes_k, got, plain_k
+    # pack_range over the whole genome, the lower half of the buckets: the
+    # same keys as the plain version, in another order
+    bits = td.range_bits(K)
+    half = 1 << (bits - 1)
+    want = td.pack_range_plain(codes, K, 0, half, bits)
+    caps = (want[0].shape[0], want[1].shape[0])
+    *got, count = kernels.pack_range(codes, K, 0, half, bits, *caps)
+    check(tuple(count.tolist()) == caps, f"pack_range: counts {count.tolist()}, want {caps}")
+    record("pack_range", sum(max_abs_err(a[td.colex_order(a)], b[td.colex_order(b)])
+                             for a, b in zip(got, want)),
+           cuda_ms(lambda: kernels.pack_range(codes, K, 0, half, bits, *caps), 5),
+           cuda_ms(lambda: td.pack_range_plain(codes, K, 0, half, bits), 1),
+           nbytes(codes, *got), keys.shape[0] * K * 4, shape=(tuple(got[0].shape), tuple(got[1].shape)),
+           **build_registers(regs, "pack_range", W))
+    del got, want
     valid_keys = keys[valid]
     sort_kmers_ms = cuda_ms(lambda: td.colex_order(valid_keys), 3)
     sort_kmers_bound_ms = radix_sort_bytes(valid_keys.shape[0], -(-W // 2)) / HBM_BYTES_PER_S * 1e3
@@ -1364,8 +1401,8 @@ def compare_build_kernels(dev, genome, record, card, regs):
 
     dv = td.sorted_distinct_kmers(codes, K)
     n = dv.shape[0]
-    probe = kernels.edge_src_probe(dv, K)
-    plain = td.edge_src_probe_plain(dv, K)
+    probe = kernels.edge_src_probe(dv, K, dv)
+    plain = td.edge_src_probe_plain(dv, K, dv)
     groups = int(probe[1].sum())
     library, has_pred = searchsorted_probe(dv, K)
     check(torch.equal(has_pred, ~probe[2]), "edge_src_probe: sources differ from torch.searchsorted's")
@@ -1375,8 +1412,8 @@ def compare_build_kernels(dev, genome, record, card, regs):
     # replaced: ceil(log2 n) steps of W word compares, four a group start
     # and one a k-mer.
     record("edge_src_probe", sum(max_abs_err(a, b) for a, b in zip(probe, plain)),
-           cuda_ms(lambda: kernels.edge_src_probe(dv, K), 5),
-           cuda_ms(lambda: td.edge_src_probe_plain(dv, K), 1),
+           cuda_ms(lambda: kernels.edge_src_probe(dv, K, dv), 5),
+           cuda_ms(lambda: td.edge_src_probe_plain(dv, K, dv), 1),
            nbytes(dv, *probe), 5 * n * W, library_ms=cuda_ms(library, 5),
            shape=tuple(dv.shape), group_starts=groups, sources=int(probe[2].sum()),
            binary_search_ops_bound_ms=bound_ms(0, (4 * groups + n) * n.bit_length() * 4 * W),

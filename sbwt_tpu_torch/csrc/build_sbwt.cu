@@ -12,6 +12,15 @@
 //                    and _char_at)
 //   finalize_tables  streaming marks, bit packing, popcounts (:307-330, with
 //                    _pack_bits_words and the popcount of _rank_rows)
+// and, for the ranged build of construct/device.py (an index whose windows
+// do not fit the card at once; the JAX program has none):
+//   pack_range       one pass over the codes: pack_windows' staging, then
+//                    only the valid windows of a range of keys (the nodes)
+//                    and those whose (k-1)-prefix lies in it (the out-edges
+//                    of its suffix groups), appended warp by warp
+// edge_src_probe then takes the range's nodes as the list and its out-edges
+// as the queries, and finalize_tables writes the range's columns from a bit
+// offset inside the first word. Counts are 64-bit throughout.
 //
 // A key is W = ceil(k / 16) uint32 words, row-major [n, W], word 0 most
 // significant: the char at distance d from the END of the k-mer sits at
@@ -50,7 +59,8 @@
 // words, takes the left neighbour's key by shuffles, and a block writes
 // each output row as one contiguous run.
 //
-// Bounds on the H100: all four kernels are bound by bytes. pack_windows,
+// Bounds on the H100: all five kernels are bound by bytes; pack_range reads
+// the codes once and writes the selected keys once. pack_windows,
 // emit_dummies and finalize_tables write or read W words a row once;
 // edge_src_probe reads each run's keys once and the list once a run (four
 // times; the blocks of the four runs at one partition run side by side, so
@@ -145,6 +155,56 @@ __device__ __forceinline__ void pack_chunk(const unsigned* v, unsigned* chars, u
     *bad = neg;
 }
 
+// Where pack_range sends a window: the node keys, the top `bits` bits of
+// word 0 (the key's last chars) in [lo, hi), go to `nodes`, and the keys
+// whose (k-1)-prefix (the key shifted left by one char) has its top bits
+// there go to `edges`; `count` holds the two counts so far. A range of
+// such buckets never splits a suffix group (bits <= 2 (k - 1), so the
+// first char is never among them).
+struct RangeSink {
+    unsigned lo, hi;
+    int bits;
+    unsigned* nodes;
+    unsigned* edges;
+    long long cap_nodes, cap_edges;
+    unsigned long long* count;
+};
+
+__device__ __forceinline__ bool in_range(const RangeSink& s, unsigned word0) {
+    // 64-bit, so that bits = 0 (k = 1: one bucket) shifts every bit out
+    const unsigned b = (unsigned)((unsigned long long)word0 >> (32 - s.bits));
+    return b >= s.lo && b < s.hi;
+}
+
+// The warp's selected windows (bit r of a lane's mask: its window r0 + r)
+// appended to out at the warp's share of *count, W words each.
+template <int R>
+__device__ __forceinline__ void append_selected(const unsigned* sk, int r0, int W, unsigned mask,
+                                                unsigned* out, long long cap,
+                                                unsigned long long* count) {
+    const int lane = threadIdx.x & 31;
+    const int mine = __popc(mask);
+    int incl = mine;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_up_sync(0xFFFFFFFFu, incl, o);
+        if (lane >= o) incl += v;
+    }
+    unsigned long long base = 0;
+    if (lane == 31 && incl > 0) base = atomicAdd(count, (unsigned long long)incl);
+    base = __shfl_sync(0xFFFFFFFFu, base, 31);
+    long long at = (long long)base + incl - mine;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+        if ((mask >> r) & 1u) {
+            if (at < cap) {
+                for (int j = 0; j < W; ++j) out[at * W + j] = sk[key_slot((r0 + r) * W + j)];
+            }
+            ++at;
+        }
+    }
+}
+
 // A warp owns 32 R consecutive windows, lane l windows l R .. l R + R - 1
 // of them. The warp stages the codes they cover with 16-byte loads, from
 // the chunk 16 bytes before the first, and each lane turns the chunks it
@@ -159,10 +219,13 @@ __device__ __forceinline__ void pack_chunk(const unsigned* v, unsigned* chars, u
 // bytes go out as one R-byte store, its keys into the warp's staged keys,
 // which the warp writes as one contiguous span with 16-byte stores. A
 // window holding a code < 0 gets kSentinel in every word.
-template <int WMAX>
-__global__ void __launch_bounds__(kPackWarps * 32)
-    pack_windows_kernel(const int8_t* __restrict__ codes, int64_t m, int k, int W,
-                        unsigned* __restrict__ keys, uint8_t* __restrict__ valid) {
+// kRange (pack_range_kernel): no keys or valid bytes are written; each
+// lane tests its valid windows against the sink's range and the warp
+// appends the selected keys from its staged ones, in no fixed order.
+template <int WMAX, bool kRange>
+__device__ __forceinline__ void pack_warp(const int8_t* __restrict__ codes, int64_t m, int k,
+                                          int W, unsigned* __restrict__ keys,
+                                          uint8_t* __restrict__ valid, const RangeSink& sink) {
     constexpr int R = pack_run<WMAX>();
     constexpr int kSpan = 32 * R;  // windows a warp
     constexpr int kChunks = (kSpan + 16 * WMAX + 31 + 15) / 16 + 1;
@@ -190,6 +253,7 @@ __global__ void __launch_bounds__(kPackWarps * 32)
     __syncwarp();
     unsigned* sk = s_keys[warp];
     const int r0 = lane * R;
+    unsigned sel_nodes = 0, sel_edges = 0;  // kRange: bit r, window r0 + r
     if (r0 < nwin) {
         const int last = k - 16 * (W - 1);  // chars in the last word
         const unsigned top = last == 16 ? ~0u : ~(~0u >> (2 * last));
@@ -231,19 +295,37 @@ __global__ void __launch_bounds__(kPackWarps * 32)
                 }
             }
         }
-        uint8_t* v_out = valid + w0 + r0;
-        if (r0 + R <= nwin && ((uintptr_t)v_out & (R - 1)) == 0) {
-            if constexpr (R == 8) {
-                *reinterpret_cast<uint2*>(v_out) = make_uint2(ok[0], ok[1]);
-            } else {
-                *reinterpret_cast<unsigned*>(v_out) = ok[0];
-            }
-        } else {
+        if constexpr (kRange) {
 #pragma unroll
             for (int r = 0; r < R; ++r) {
-                if (r0 + r < nwin) v_out[r] = (uint8_t)(ok[r / 4] >> (8 * (r % 4)));
+                if (r0 + r < nwin && ((ok[r / 4] >> (8 * (r % 4))) & 1u)) {
+                    // the (k-1)-prefix's word 0 is (a0 << 2) | (word 1 >> 30), whose
+                    // low 2 bits lie below the bucket's (bits <= 16)
+                    const unsigned a0 = sk[key_slot((r0 + r) * W)];
+                    sel_nodes |= (unsigned)in_range(sink, a0) << r;
+                    sel_edges |= (unsigned)in_range(sink, a0 << 2) << r;
+                }
+            }
+        } else {
+            uint8_t* v_out = valid + w0 + r0;
+            if (r0 + R <= nwin && ((uintptr_t)v_out & (R - 1)) == 0) {
+                if constexpr (R == 8) {
+                    *reinterpret_cast<uint2*>(v_out) = make_uint2(ok[0], ok[1]);
+                } else {
+                    *reinterpret_cast<unsigned*>(v_out) = ok[0];
+                }
+            } else {
+#pragma unroll
+                for (int r = 0; r < R; ++r) {
+                    if (r0 + r < nwin) v_out[r] = (uint8_t)(ok[r / 4] >> (8 * (r % 4)));
+                }
             }
         }
+    }
+    if constexpr (kRange) {
+        append_selected<R>(sk, r0, W, sel_nodes, sink.nodes, sink.cap_nodes, sink.count);
+        append_selected<R>(sk, r0, W, sel_edges, sink.edges, sink.cap_edges, sink.count + 1);
+        return;
     }
     __syncwarp();
     // the warp's keys, words [w0 W, (w0 + nwin) W): a 16-byte chunk never
@@ -256,6 +338,19 @@ __global__ void __launch_bounds__(kPackWarps * 32)
         *reinterpret_cast<uint4*>(out + i) = make_uint4(s[0], s[1], s[2], s[3]);
     }
     for (int i = vec_words + lane; i < words; i += 32) out[i] = sk[key_slot(i)];
+}
+
+template <int WMAX>
+__global__ void __launch_bounds__(kPackWarps * 32)
+    pack_windows_kernel(const int8_t* __restrict__ codes, int64_t m, int k, int W,
+                        unsigned* __restrict__ keys, uint8_t* __restrict__ valid) {
+    pack_warp<WMAX, false>(codes, m, k, W, keys, valid, RangeSink{});
+}
+
+template <int WMAX>
+__global__ void __launch_bounds__(kPackWarps * 32)
+    pack_range_kernel(const int8_t* __restrict__ codes, int64_t m, int k, int W, RangeSink sink) {
+    pack_warp<WMAX, true>(codes, m, k, W, nullptr, nullptr, sink);
 }
 
 // ---- edge_src_probe: the four query runs merged against the masked list ----
@@ -271,9 +366,11 @@ constexpr int merge_share() {
     return (kWinWords - 3) / WMAX - 2;
 }
 
-// Partitions of every run. A run holds at most n queries, so each
+// Partitions of every run. A run holds at most nq queries, so each
 // partition's ceil((run + n) / parts) merge steps stay within the share.
-inline int merge_parts(int n, int share) { return (int)((2LL * n + share - 1) / share); }
+inline int64_t merge_parts(int64_t n, int64_t nq, int share) {
+    return (n + nq + share - 1) / share;
+}
 
 // The first x in [lo, hi) where f(x) is false, else hi, for f true then
 // false on [lo, hi): a 32-ary search by the whole warp, one probe a lane a
@@ -336,8 +433,12 @@ __device__ __forceinline__ bool differs_staged(const unsigned* a, const unsigned
     return d != 0;
 }
 
-// The merge steps of run c are its queries pred(j), j in [r0, r0 + len),
-// and the n masked list keys, cut into `parts` partitions of `share` steps.
+// The queries are the keys of `qkeys` [nq] and the list those of `keys`
+// [n]: the same array in the whole build; in a range of the ranged build
+// the range's k-mers whose (k-1)-prefix lies in the range, and the
+// range's k-mers. The merge steps of run c are its queries pred(j), j in
+// [r0, r0 + len), and the n masked list keys, cut into `parts` partitions
+// of `share` steps.
 // Queries go first on ties, so the list keys before a query are exactly
 // those below it: its lower bound. One warp a partition edge (c, p), p in
 // [0, parts]: run c's bounds, and the split at diagonal d = p * share (the
@@ -346,22 +447,24 @@ __device__ __forceinline__ bool differs_staged(const unsigned* a, const unsigned
 // round at a time, so the searches of all edges run side by side here,
 // not one after another in front of each block's work.
 template <int WMAX>
-__global__ void edge_src_split_kernel(const unsigned* __restrict__ keys, int n, int W, int k,
-                                      int parts, int64_t* __restrict__ splits,
+__global__ void edge_src_split_kernel(const unsigned* __restrict__ keys, int64_t n,
+                                      const unsigned* __restrict__ qkeys, int64_t nq, int W, int k,
+                                      int64_t parts, int64_t* __restrict__ splits,
                                       int64_t* __restrict__ runs) {
     const int64_t e = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-    if (e >= 4 * (int64_t)(parts + 1)) return;  // whole warps
-    const int c = (int)(e / (parts + 1)), p = (int)(e % (parts + 1));
+    if (e >= 4 * (parts + 1)) return;  // whole warps
+    const int c = (int)(e / (parts + 1));
+    const int64_t p = e % (parts + 1);
     auto run_at = [&](unsigned r) -> int64_t {
-        return r == 0 ? 0 : r == 4 ? n : warp_partition(0, n, [&](int64_t x) {
-            return (keys[x * W] >> 30) < r;
+        return r == 0 ? 0 : r == 4 ? nq : warp_partition(0, nq, [&](int64_t x) {
+            return (qkeys[x * W] >> 30) < r;
         });
     };
     const int64_t r0 = run_at(c), len = run_at(c + 1) - r0, total = len + n;
     const int64_t share = (total + parts - 1) / parts;
-    const int64_t d = min((int64_t)p * share, total);
+    const int64_t d = min(p * share, total);
     const int64_t a = warp_partition(max((int64_t)0, d - n), min(d, len), [&](int64_t x) {
-        const Key<WMAX> q = shift_left2(load_key<WMAX>(keys, r0 + x, W), W);
+        const Key<WMAX> q = shift_left2(load_key<WMAX>(qkeys, r0 + x, W), W);
         Key<WMAX> m = load_key<WMAX>(keys, d - 1 - x, W);
         drop_first(m, k);
         return compare(q, m) <= 0;
@@ -381,18 +484,20 @@ __global__ void edge_src_split_kernel(const unsigned* __restrict__ keys, int n, 
 // group starts of their list keys.
 template <int WMAX>
 __global__ void __launch_bounds__(kMergeThreads)
-    edge_src_probe_kernel(const unsigned* __restrict__ keys, int n, int W, int k, int parts,
-                          const int64_t* __restrict__ splits, const int64_t* __restrict__ runs,
-                          unsigned* __restrict__ edge_words, uint8_t* __restrict__ gstart,
-                          uint8_t* __restrict__ is_src) {
+    edge_src_probe_kernel(const unsigned* __restrict__ keys, int64_t n,
+                          const unsigned* __restrict__ qkeys, int64_t nq, int W, int k,
+                          int64_t parts, const int64_t* __restrict__ splits,
+                          const int64_t* __restrict__ runs, unsigned* __restrict__ edge_words,
+                          uint8_t* __restrict__ gstart, uint8_t* __restrict__ is_src) {
     __shared__ __align__(16) unsigned win[kWinWords];
-    const int c = blockIdx.x & 3, p = blockIdx.x >> 2;
+    const int c = blockIdx.x & 3;
+    const int64_t p = blockIdx.x >> 2;
     const int wi = word_of(k - 1);
     const unsigned mask = ~(3u << shift_of(k - 1));
-    const int64_t r0 = runs[c], len = (c == 3 ? n : runs[c + 1]) - r0, total = len + n;
+    const int64_t r0 = runs[c], len = (c == 3 ? nq : runs[c + 1]) - r0, total = len + n;
     const int64_t share = (total + parts - 1) / parts;
-    const int64_t d0 = min((int64_t)p * share, total), d1 = min(d0 + share, total);
-    const int64_t* cut = splits + c * (int64_t)(parts + 1) + p;
+    const int64_t d0 = min(p * share, total), d1 = min(d0 + share, total);
+    const int64_t* cut = splits + c * (parts + 1) + p;
     const int64_t a0 = cut[0], a1 = cut[1], b0 = d0 - a0, b1 = d1 - a1;
     if (c != 0 && a0 == a1) return;
 
@@ -424,7 +529,7 @@ __global__ void __launch_bounds__(kMergeThreads)
     }
     for (int64_t a = a0 + threadIdx.x; a < a1; a += kMergeThreads) {
         const int64_t j = r0 + a;
-        const Key<WMAX> q = shift_left2(load_key<WMAX>(keys, j, W), W);
+        const Key<WMAX> q = shift_left2(load_key<WMAX>(qkeys, j, W), W);
         int64_t lo = b0, hi = b1;
         while (lo < hi) {
             const int64_t mid = (lo + hi) >> 1;
@@ -441,18 +546,18 @@ __global__ void __launch_bounds__(kMergeThreads)
 }
 
 template <int WMAX>
-int launch_edge_src_probe(const void* keys, int n, int W, int k, void* edges, void* gstart,
-                          void* is_src, void* scratch, cudaStream_t s) {
-    const int parts = merge_parts(n, merge_share<WMAX>());
+int launch_edge_src_probe(const void* keys, int64_t n, const void* qkeys, int64_t nq, int W, int k,
+                          void* edges, void* gstart, void* is_src, void* scratch, cudaStream_t s) {
+    const int64_t parts = merge_parts(n, nq, merge_share<WMAX>());
     int64_t* splits = (int64_t*)scratch;
-    int64_t* runs = splits + 4 * (int64_t)(parts + 1);
-    const int64_t edges_per_block = kMergeThreads / 32, n_edges = 4 * (int64_t)(parts + 1);
+    int64_t* runs = splits + 4 * (parts + 1);
+    const int64_t edges_per_block = kMergeThreads / 32, n_edges = 4 * (parts + 1);
     edge_src_split_kernel<WMAX><<<(unsigned)((n_edges + edges_per_block - 1) / edges_per_block),
                                   kMergeThreads, 0, s>>>(
-        (const unsigned*)keys, n, W, k, parts, splits, runs);
-    edge_src_probe_kernel<WMAX><<<4u * parts, kMergeThreads, 0, s>>>(
-        (const unsigned*)keys, n, W, k, parts, splits, runs, (unsigned*)edges, (uint8_t*)gstart,
-        (uint8_t*)is_src);
+        (const unsigned*)keys, n, (const unsigned*)qkeys, nq, W, k, parts, splits, runs);
+    edge_src_probe_kernel<WMAX><<<(unsigned)(4 * parts), kMergeThreads, 0, s>>>(
+        (const unsigned*)keys, n, (const unsigned*)qkeys, nq, W, k, parts, splits, runs,
+        (unsigned*)edges, (uint8_t*)gstart, (uint8_t*)is_src);
     return (int)cudaGetLastError();
 }
 
@@ -538,17 +643,18 @@ __device__ __forceinline__ Key<WMAX> shfl_key(const Key<WMAX>& a, int src, bool 
 // from its neighbour. The four edge ballots and the mark ballot of each
 // round go to shared memory, and the block writes each of the nine output
 // runs (four rank rows, four popcount rows, the marks) as kFinalWords
-// contiguous words.
+// contiguous words. Column t sits at bit lead + t (lead < 32: a range of
+// the ranged build that starts inside a word; 0 in the whole build).
 template <int WMAX>
 __global__ void __launch_bounds__(kFinalWarps * 32)
     finalize_tables_kernel(const unsigned* __restrict__ keys, const int* __restrict__ len,
                            const uint8_t* __restrict__ edges, int64_t T, int W, int k,
-                           int64_t n_words, unsigned* __restrict__ rank_words,
+                           int64_t n_words, int lead, unsigned* __restrict__ rank_words,
                            int* __restrict__ pops, unsigned* __restrict__ sgs_words) {
     constexpr int Q = kFinalRounds;
     __shared__ unsigned s_out[5][kFinalWords];
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int64_t col0 = ((int64_t)blockIdx.x * kFinalWords + warp * Q) * 32;
+    const int64_t col0 = ((int64_t)blockIdx.x * kFinalWords + warp * Q) * 32 - lead;
     const bool streaming = sgs_words != nullptr;
     const bool vec = W == WMAX && ((uintptr_t)keys & (WMAX == 2 ? 7 : 15)) == 0;
     unsigned e[Q];
@@ -557,7 +663,7 @@ __global__ void __launch_bounds__(kFinalWarps * 32)
 #pragma unroll
     for (int q = 0; q < Q; ++q) {
         const int64_t t = col0 + 32 * q + lane;
-        const bool act = t < T;
+        const bool act = t >= 0 && t < T;
         e[q] = act ? __ldcs(edges + t) : 0u;
         la[q] = -1;
         a[q] = Key<WMAX>{};
@@ -591,7 +697,7 @@ __global__ void __launch_bounds__(kFinalWarps * 32)
                 left = prev;
                 ll = lprev;
             }
-            mark = t < T && (t == 0 || ll != la[q] || compare(a[q], left) != 0);
+            mark = t >= 0 && t < T && (t == 0 || ll != la[q] || compare(a[q], left) != 0);
             prev = shfl_key(a[q], 31, false);
             lprev = __shfl_sync(0xFFFFFFFFu, la[q], 31);
         }
@@ -622,23 +728,35 @@ __global__ void __launch_bounds__(kFinalWarps * 32)
 }
 
 template <int WMAX>
+unsigned pack_grid(int64_t m) {
+    const int64_t per_block = (int64_t)kPackWarps * 32 * pack_run<WMAX>();
+    return (unsigned)((m + per_block - 1) / per_block);
+}
+
+template <int WMAX>
 int launch_pack_windows(const void* codes, int64_t m, int k, void* keys, void* valid,
                         cudaStream_t s) {
-    const int64_t per_block = (int64_t)kPackWarps * 32 * pack_run<WMAX>();
-    const unsigned grid = (unsigned)((m + per_block - 1) / per_block);
-    pack_windows_kernel<WMAX><<<grid, kPackWarps * 32, 0, s>>>(
+    pack_windows_kernel<WMAX><<<pack_grid<WMAX>(m), kPackWarps * 32, 0, s>>>(
         (const int8_t*)codes, m, k, (k + 15) / 16, (unsigned*)keys, (uint8_t*)valid);
     return (int)cudaGetLastError();
 }
 
 template <int WMAX>
+int launch_pack_range(const void* codes, int64_t m, int k, const RangeSink& sink,
+                      cudaStream_t s) {
+    pack_range_kernel<WMAX><<<pack_grid<WMAX>(m), kPackWarps * 32, 0, s>>>(
+        (const int8_t*)codes, m, k, (k + 15) / 16, sink);
+    return (int)cudaGetLastError();
+}
+
+template <int WMAX>
 int launch_finalize_tables(const void* keys, const void* len, const void* edges, int64_t T, int k,
-                           int64_t n_words, void* rank_words, void* pops, void* sgs_words,
-                           cudaStream_t s) {
+                           int64_t n_words, int lead, void* rank_words, void* pops,
+                           void* sgs_words, cudaStream_t s) {
     finalize_tables_kernel<WMAX><<<(unsigned)((n_words + kFinalWords - 1) / kFinalWords),
                                    kFinalWarps * 32, 0, s>>>(
         (const unsigned*)keys, (const int*)len, (const uint8_t*)edges, T, (k + 15) / 16, k, n_words,
-        (unsigned*)rank_words, (int*)pops, (unsigned*)sgs_words);
+        lead, (unsigned*)rank_words, (int*)pops, (unsigned*)sgs_words);
     return (int)cudaGetLastError();
 }
 
@@ -655,20 +773,44 @@ extern "C" int sbwt_pack_windows(int device, const void* codes, long long m, int
     return launch(codes, m, k, keys, valid, (cudaStream_t)stream);
 }
 
-// n >= 1. edges: 4-byte aligned, room for (n + 3) / 4 words, zeroed here:
-// the kernel ORs each edge bit into its word. scratch: int64, 4 * (parts +
-// 1) + 4 of them, parts = ceil(2 n / sbwt_edge_src_share(k)).
-extern "C" int sbwt_edge_src_probe(int device, const void* keys, int n, int k, void* edges,
-                                   void* gstart, void* is_src, void* scratch, void* stream) {
+// pack_range: the valid windows of the codes [m + k - 1] whose key's top
+// `bits` bits (0..16, at most 2 (k - 1)) lie in [lo, hi) into nodes [cap_nodes,
+// W], those whose (k-1)-prefix's do into edges [cap_edges, W], each in no
+// fixed order; count (two uint64, zeroed here) ends as the windows sent to
+// each, also past a capacity (no key is written there).
+extern "C" int sbwt_pack_range(int device, const void* codes, long long m, int k, unsigned lo,
+                               unsigned hi, int bits, void* nodes, long long cap_nodes,
+                               void* edges, long long cap_edges, void* count, void* stream) {
+    cudaSetDevice(device);
+    cudaStream_t s = (cudaStream_t)stream;
+    if (const cudaError_t e = cudaMemsetAsync(count, 0, 2 * sizeof(unsigned long long), s)) {
+        return (int)e;
+    }
+    const int W = (k + 15) / 16;
+    const RangeSink sink{lo, hi, bits, (unsigned*)nodes, (unsigned*)edges, cap_nodes, cap_edges,
+                         (unsigned long long*)count};
+    auto launch = W <= 2 ? launch_pack_range<2> : W <= 4 ? launch_pack_range<4>
+                                                         : launch_pack_range<16>;
+    return launch(codes, m, k, sink, s);
+}
+
+// n >= 1 list keys, nq query keys (a range's out-edges, or the list itself).
+// edges: 4-byte aligned, room for (n + 3) / 4 words, zeroed here:
+// the kernel ORs each edge bit into its word; gstart [n], is_src [nq].
+// scratch: int64, 4 * (parts + 1) + 4 of them, parts = ceil((n + nq) /
+// sbwt_edge_src_share(k)).
+extern "C" int sbwt_edge_src_probe(int device, const void* keys, long long n, const void* qkeys,
+                                   long long nq, int k, void* edges, void* gstart, void* is_src,
+                                   void* scratch, void* stream) {
     cudaSetDevice(device);
     const int W = (k + 15) / 16;
     cudaStream_t s = (cudaStream_t)stream;
     if (const cudaError_t e = cudaMemsetAsync(edges, 0, ((size_t)n + 3) & ~(size_t)3, s)) {
         return (int)e;
     }
-    if (W <= 2) return launch_edge_src_probe<2>(keys, n, W, k, edges, gstart, is_src, scratch, s);
-    if (W <= 4) return launch_edge_src_probe<4>(keys, n, W, k, edges, gstart, is_src, scratch, s);
-    return launch_edge_src_probe<16>(keys, n, W, k, edges, gstart, is_src, scratch, s);
+    auto launch = W <= 2 ? launch_edge_src_probe<2>
+                  : W <= 4 ? launch_edge_src_probe<4> : launch_edge_src_probe<16>;
+    return launch(keys, n, qkeys, nq, W, k, edges, gstart, is_src, scratch, s);
 }
 
 // The list keys a block of edge_src_probe takes at most at this k.
@@ -686,14 +828,15 @@ extern "C" int sbwt_emit_dummies(int device, const void* src, long long n_src, i
     return (int)cudaGetLastError();
 }
 
-// sgs_words is null without streaming support.
+// sgs_words is null without streaming support; column t at bit lead + t.
 extern "C" int sbwt_finalize_tables(int device, const void* keys, const void* len,
                                     const void* edges, long long T, int k, long long n_words,
-                                    void* rank_words, void* pops, void* sgs_words, void* stream) {
+                                    int lead, void* rank_words, void* pops, void* sgs_words,
+                                    void* stream) {
     cudaSetDevice(device);
     const int W = (k + 15) / 16;
     cudaStream_t s = (cudaStream_t)stream;
     auto launch = W <= 2 ? launch_finalize_tables<2>
                   : W <= 4 ? launch_finalize_tables<4> : launch_finalize_tables<16>;
-    return launch(keys, len, edges, T, k, n_words, rank_words, pops, sgs_words, s);
+    return launch(keys, len, edges, T, k, n_words, lead, rank_words, pops, sgs_words, s);
 }

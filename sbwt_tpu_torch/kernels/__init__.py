@@ -98,8 +98,9 @@ def lf_counter(op: str, variant: str) -> str:
 # substring with no search of their own (K14)
 WORK_COUNTERS = ("positions", "restarts", "restart_hits", "lf_steps", "table_rows", "skipped")
 
-# K19, the on-device build (csrc/build_sbwt.cu)
+# K19, the on-device build (csrc/build_sbwt.cu); the ranged build adds pack_range
 BUILD_OPS = ("pack_windows", "edge_src_probe", "emit_dummies", "finalize_tables")
+PACK_RANGE = "pack_range"
 
 # Launches per kernel entry point since the last reset_launch_counts().
 LAUNCHES = {
@@ -109,6 +110,7 @@ LAUNCHES = {
     "answer_stats": 0,
     f"answer_stats[{WIDE}]": 0,
     **{op: 0 for op in BUILD_OPS},
+    PACK_RANGE: 0,
     **{lf_counter(op, v): 0 for op in LF_OPS for v in RANK_TYPES if op in RANK_OPS[v]},
     TURBO_SHARDED: 0,
     COMPOSE_RANGE: 0,
@@ -137,12 +139,15 @@ _SIGNATURES = {
     # (k, rank type): K14's
     "sbwt_lf_smem_bytes": [_I, _I],
     "sbwt_pack_windows": [_I, _P, _LL, _I, _P, _P, _P],
-    # (device, keys, n, k, edges, gstart, is_src, scratch, stream)
-    "sbwt_edge_src_probe": [_I, _P, _I, _I, _P, _P, _P, _P, _P],
+    # (device, codes, m, k, lo, hi, bits, nodes, cap, edges, cap, count, stream)
+    "sbwt_pack_range": [_I, _P, _LL, _I, ctypes.c_uint, ctypes.c_uint, _I, _P, _LL, _P, _LL, _P,
+                        _P],
+    # (device, keys, n, query keys, nq, k, edges, gstart, is_src, scratch, stream)
+    "sbwt_edge_src_probe": [_I, _P, _LL, _P, _LL, _I, _P, _P, _P, _P, _P],
     # (k): the list keys a block of edge_src_probe takes at most
     "sbwt_edge_src_share": [_I],
     "sbwt_emit_dummies": [_I, _P, _LL, _I, _P, _P, _P, _P],
-    "sbwt_finalize_tables": [_I, _P, _P, _P, _LL, _I, _LL, _P, _P, _P, _P],
+    "sbwt_finalize_tables": [_I, _P, _P, _P, _LL, _I, _LL, _I, _P, _P, _P, _P],
     # (device, PlainMatrix*, ShardedTable*, LFArgs*, stream)
     "sbwt_turbo_sharded_table": [_I, _P, _P, _P, _P],
     "sbwt_enable_peer": [_I, _I],
@@ -812,24 +817,52 @@ def pack_windows(codes, k: int):
     return keys, valid
 
 
-def edge_src_probe(keys, k: int):
-    """Over the n sorted distinct k-mer keys int32 [n, W]: uint8 [n] edge
-    nibble (bit c: the suffix group's out-edge c, on the group's first
-    column only), bool [n] suffix-group start, bool [n] source (no
-    predecessor in the set)."""
+def pack_range(codes, k: int, lo: int, hi: int, bits: int, cap_nodes: int, cap_edges: int):
+    """The valid length-k windows of the int8 codes [Ntot] whose key's top
+    ``bits`` bits lie in [lo, hi) (int32 [cap_nodes, W]), and those whose
+    (k-1)-prefix's top bits do (int32 [cap_edges, W]), each in no fixed
+    order, and int64 [2] the windows the kernel sent to each: the caller
+    checks them against the capacities (a key past one is not written)."""
+    dev = _cuda_device(codes)
+    m, W = codes.shape[0] - k + 1, key_words(k)
+    if m < 1:
+        raise ValueError(f"codes: {codes.shape[0]} codes hold no window of k = {k}")
+    if not 0 <= bits <= min(16, 2 * (k - 1)) or not 0 <= lo <= hi <= 1 << bits:
+        raise ValueError(f"pack_range: bits {bits}, range [{lo}, {hi}) at k = {k}")
+    nodes = torch.empty((cap_nodes, W), dtype=torch.int32, device=dev)
+    edges = torch.empty((cap_edges, W), dtype=torch.int32, device=dev)
+    count = torch.empty(2, dtype=torch.int64, device=dev)
+    _launch("sbwt_pack_range", PACK_RANGE, dev,
+            _check(codes, "codes", torch.int8, dev, (m + k - 1,), 1), m, k, lo, hi, bits,
+            _check(nodes, "nodes", torch.int32, dev), cap_nodes,
+            _check(edges, "edges", torch.int32, dev), cap_edges,
+            _check(count, "count", torch.int64, dev, align=8))
+    return nodes, edges, count
+
+
+def edge_src_probe(keys, k: int, queries):
+    """Over the n sorted distinct k-mer keys int32 [n, W] (the list) and the
+    sorted distinct query keys [nq, W]: uint8
+    [n] edge nibble (bit c: the suffix group's out-edge c, among the
+    queries, on the group's first column only), bool [n] suffix-group
+    start, bool [nq] source (no list key's (k-1)-suffix is its
+    (k-1)-prefix)."""
     dev = _cuda_device(keys)
     n = keys.shape[0]
+    nq = queries.shape[0]
     # the kernel ORs each edge bit into its 4-byte word: whole words, aligned
     edges = torch.empty(-(-n // 4) * 4, dtype=torch.uint8, device=dev)[:n]
     gstart = torch.empty(n, dtype=torch.bool, device=dev)
-    is_src = torch.empty(n, dtype=torch.bool, device=dev)
+    is_src = torch.empty(nq, dtype=torch.bool, device=dev)
     if n == 0:
+        is_src.fill_(True)
         return edges, gstart, is_src
     # every partition's split and the run starts (merge_parts in build_sbwt.cu)
-    parts = -(-2 * n // edge_src_share(k))
+    parts = -(-(n + nq) // edge_src_share(k))
     scratch = torch.empty(4 * (parts + 1) + 4, dtype=torch.int64, device=dev)
     _launch("sbwt_edge_src_probe", "edge_src_probe", dev,
-            _check(keys, "keys", torch.int32, dev, (n, key_words(k))), n, k,
+            _check(keys, "keys", torch.int32, dev, (n, key_words(k))), n,
+            _check(queries, "queries", torch.int32, dev, (nq, key_words(k))), nq, k,
             _check(edges, "edges", torch.uint8, dev),
             _check(gstart, "gstart", torch.bool, dev, align=1),
             _check(is_src, "is_src", torch.bool, dev, align=1),
@@ -862,21 +895,26 @@ def emit_dummies(src, k: int):
     return out_keys, out_len, out_edge
 
 
-def finalize_tables(keys, lengths, edges, k: int, streaming: bool):
+def finalize_tables(keys, lengths, edges, k: int, streaming: bool, lead: int = 0,
+                    n_words: int | None = None):
     """Over the T merged nodes sorted by (key, length): the packed edge rows
-    int32 [4 * n_words] (char-major, n_words = T // 32 + 1), their per-word
-    popcounts int32 [4 * n_words], and the packed streaming marks int32
-    [n_words] (None without streaming support)."""
+    int32 [4 * n_words] (char-major, n_words = T // 32 + 1 unless given),
+    their per-word popcounts int32 [4 * n_words], and the packed streaming
+    marks int32 [n_words] (None without streaming support). Column t sits
+    at bit ``lead`` + t (0 <= lead < 32)."""
     dev = _cuda_device(keys)
     T = keys.shape[0]
-    n_words = T // 32 + 1
+    if n_words is None:
+        n_words = T // 32 + 1
+    if not 0 <= lead < 32 or n_words * 32 < lead + T:
+        raise ValueError(f"finalize_tables: {T} columns at lead {lead} in {n_words} words")
     rank_words = torch.empty(4 * n_words, dtype=torch.int32, device=dev)
     pops = torch.empty(4 * n_words, dtype=torch.int32, device=dev)
     sgs_words = torch.empty(n_words, dtype=torch.int32, device=dev) if streaming else None
     _launch("sbwt_finalize_tables", "finalize_tables", dev,
             _check(keys, "keys", torch.int32, dev, (T, key_words(k))),
             _check(lengths, "lengths", torch.int32, dev, (T,)),
-            _check(edges, "edges", torch.uint8, dev, (T,), 1), T, k, n_words,
+            _check(edges, "edges", torch.uint8, dev, (T,), 1), T, k, n_words, lead,
             _check(rank_words, "rank_words", torch.int32, dev),
             _check(pops, "pops", torch.int32, dev),
             _check(sgs_words, "sgs_words", torch.int32, dev) if streaming else 0)

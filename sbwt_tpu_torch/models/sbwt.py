@@ -192,7 +192,10 @@ class SBWT:
         """Construct on ``device``: the whole pipeline (window packing, colex
         sort, dedup, out-edge probes, dummy emission, rank-table packing)
         runs there (construct/device.py), any k <= 255, with the build
-        kernels on a CUDA device and their plain versions on the CPU.
+        kernels on a CUDA device and their plain versions on the CPU; in
+        ranges of consecutive keys where the windows do not fit the free
+        device memory at once. At 2^31 columns or more the index is a
+        WideMatrixIndex built from the device tables.
         Raises ValueError when the input has more sources than an explicit
         ``src_pad``; calling ``build`` instead is then the caller's choice.
 

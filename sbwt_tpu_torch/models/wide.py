@@ -59,6 +59,22 @@ def wide_from_numpy_state(state: dict, device) -> WideMatrixIndex:
     )
 
 
+def wide_from_device_tables(rank_tbl: torch.Tensor, sgs_tbl: torch.Tensor, C: torch.Tensor, *,
+                            n_nodes: int, n_kmers: int, k: int, n_words: int,
+                            has_streaming: bool, precalc_k: int = 0) -> WideMatrixIndex:
+    """A WideMatrixIndex over tables already on its device (the device
+    build's: rank_tbl int32 [4 * n_words, 3], sgs_tbl int32, C int64), with
+    K1's precalc fill at int64 when precalc_k > 0. Nothing passes the host."""
+    index = WideMatrixIndex(
+        rank_tbl, sgs_tbl, C, torch.zeros((1, 2), dtype=torch.int64, device=rank_tbl.device),
+        n_nodes=n_nodes, n_kmers=n_kmers, k=k, precalc_k=0, n_words=n_words,
+        has_streaming=has_streaming,
+    )
+    if precalc_k > 0:
+        wide_with_precalc(index, precalc_k)
+    return index
+
+
 def from_packed_rows_wide(row_words: np.ndarray, n: int, sgs_words: np.ndarray | None, k: int,
                           n_kmers: int, device, precalc_k: int = 0,
                           precalc_table: np.ndarray | None = None) -> WideMatrixIndex:

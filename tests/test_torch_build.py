@@ -236,7 +236,7 @@ def test_edge_src_merge_identity(k):
     version (held to the JAX stages in the test below)."""
     dv = _probe_input(k)
     edges, gstart, is_src = _merge_identity(dv, k)
-    want = td.edge_src_probe_plain(dv, k)
+    want = td.edge_src_probe_plain(dv, k, dv)
     np.testing.assert_array_equal(edges, want[0].numpy())
     np.testing.assert_array_equal(gstart, want[1].numpy())
     np.testing.assert_array_equal(is_src, want[2].numpy())
@@ -249,7 +249,7 @@ def test_edge_src_probe_plain_matches_jax_stages(k):
     program compute them, on a de Bruijn-like set with shared suffixes; the
     kernel's merge identity gives the same."""
     dv = _probe_input(k)
-    edges, gstart, is_src = td.edge_src_probe_plain(dv, k)
+    edges, gstart, is_src = td.edge_src_probe_plain(dv, k, dv)
     for got, want in zip(_merge_identity(dv, k), (edges, gstart, is_src)):
         np.testing.assert_array_equal(got, want.numpy())
     n = len(dv)
@@ -333,7 +333,7 @@ def test_colex_order_is_unsigned_with_length_ties(W):
 
 @pytest.mark.parametrize("call", [
     lambda t: kernels.pack_windows(t["codes"], 5),
-    lambda t: kernels.edge_src_probe(t["keys"], 5),
+    lambda t: kernels.edge_src_probe(t["keys"], 5, t["keys"]),
     lambda t: kernels.emit_dummies(t["keys"], 5),
     lambda t: kernels.finalize_tables(t["keys"], t["len"], t["edges"], 5, True),
 ], ids=list(kernels.BUILD_OPS))

@@ -21,7 +21,7 @@ from sbwt_tpu_torch.models.wide import WideMatrixIndex, from_packed_rows_wide
 from sbwt_tpu_torch.ops import bitvector as bv
 from sbwt_tpu_torch.ops import search as ts
 from sbwt_tpu_torch.ops import turbo as tt
-from sbwt_tpu_torch.utils.dna import encode_query
+from sbwt_tpu_torch.utils.dna import decode, encode_query
 
 import search_cases as sc
 import subsetwt_cases as swc
@@ -696,8 +696,8 @@ def test_build_kernels_equal_plain_versions(cuda, k):
     keys = keys[valid]
     keys = keys[td.colex_order(keys)]
     dv = keys[td._differs_from_left(keys)]
-    probe = kernels.edge_src_probe(dv, k)
-    _same(probe, td.edge_src_probe_plain(dv, k))
+    probe = kernels.edge_src_probe(dv, k, dv)
+    _same(probe, td.edge_src_probe_plain(dv, k, dv))
     src = dv[probe[2]]
     dummies = kernels.emit_dummies(src, k)
     _same(dummies, td.emit_dummies_plain(src, k))
@@ -820,10 +820,10 @@ def test_edge_src_probe_merge_partitions(cuda, case):
              "k255_share_plus_1": share + 1}[case]
         dv = _random_kmer_keys(rng, n, k, cuda, last=2 if case == "one_run" else None)
     before = kernels.LAUNCHES["edge_src_probe"]
-    got = kernels.edge_src_probe(dv, k)
+    got = kernels.edge_src_probe(dv, k, dv)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["edge_src_probe"] == before + 1
-    want = td.edge_src_probe_plain(dv, k)
+    want = td.edge_src_probe_plain(dv, k, dv)
     _same(got, want)
     edges, gstart, is_src = want
     if case == "complete_k4":
@@ -898,6 +898,112 @@ def test_device_build_equals_host_build(cuda, k, n_seqs, size):
     np.testing.assert_array_equal(a._bits_packed, b._bits_packed)
     np.testing.assert_array_equal(a._sgs_packed, b._sgs_packed)
     assert all(kernels.LAUNCHES[op] > 0 for op in kernels.BUILD_OPS)
+
+
+def _rows_sorted(t):
+    return t[td.colex_order(t)]
+
+
+@pytest.mark.parametrize("k", [1, 4, 16, 31, 33, 64])
+def test_pack_range_equals_plain(cuda, k):
+    """pack_range, pack_windows' staging with a range sink, against its plain
+    version: the same keys as multisets (the kernel's order is not fixed)
+    and counts, for ranges at the ends and inside the bucket space, over
+    codes with N, at and beside a warp's and a block's windows, 0-15 bytes
+    off a 16-byte boundary; a wrong capacity raises."""
+    rng = np.random.default_rng(1500 + k)
+    bits = td.range_bits(k)
+    top = 1 << bits
+    ranges = [(0, top), (0, 1), (top // 3, 2 * top // 3), (top - 1, top)]
+    for m in (1, 255, 256, 257, 1025, 70001):
+        n = m + k - 1
+        raw = rng.choice(np.array([-1, 0, 1, 2, 3], np.int8), p=[0.01] + [0.2475] * 4,
+                         size=n + 32)
+        buf = torch.from_numpy(raw).to(cuda)
+        for off in (0, 5, 15):
+            at = (off - buf.data_ptr()) % 16
+            view = buf[at : at + n]
+            for lo, hi in ranges:
+                want = td.pack_range_plain(view, k, lo, hi, bits)
+                caps = (want[0].shape[0], want[1].shape[0])
+                *got, count = kernels.pack_range(view, k, lo, hi, bits, *caps)
+                assert tuple(count.tolist()) == caps
+                for a, b in zip(got, want):
+                    assert torch.equal(_rows_sorted(a), _rows_sorted(b)), (m, off, lo, hi)
+    with pytest.raises(RuntimeError, match="pack_range"):
+        td.pack_range(view, k, 0, top, bits, want[0].shape[0] + 1, 0)
+
+
+@pytest.mark.parametrize("k", [4, 16, 31, 33, 64])
+def test_edge_src_probe_of_a_range_equals_plain(cuda, k):
+    """edge_src_probe with a list (a range's k-mers) and queries (the k-mers
+    whose (k-1)-prefix lies in the range) apart, against its plain
+    version, in each of several ranges, an empty one among them."""
+    rng = np.random.default_rng(1600 + k)
+    seqs = ["".join(rng.choice(list("ACGT"), size=20000))] + [
+        "".join(rng.choice(list("ACGT"), size=int(n))) for n in rng.integers(k, k + 9, 300)]
+    codes = td.prepare_device_codes(seqs, k, cuda)
+    bits = td.range_bits(k)
+    top = 1 << bits
+    for lo, hi in ((0, top // 5), (top // 5, top // 2), (top // 2, top), (7, 7)):
+        nodes, edges = td.pack_range_plain(codes, k, lo, hi, bits)
+        dv, ev = td.sorted_distinct_rows(nodes), td.sorted_distinct_rows(edges)
+        got = kernels.edge_src_probe(dv, k, ev)
+        torch.cuda.synchronize()
+        _same(got, td.edge_src_probe_plain(dv, k, ev))
+        assert got[2].shape == (ev.shape[0],)
+
+
+@pytest.mark.parametrize("k", [16, 31, 64])
+def test_finalize_tables_at_a_lead_equals_plain(cuda, k):
+    """finalize_tables with the columns starting at bit lead of the first
+    word (a range of the ranged build that begins inside a word)."""
+    rng = np.random.default_rng(1700 + k)
+    for T in (1, 31, 32, 33, 127, 129, 513, 2049):
+        case = [t.to(cuda) for t in _finalize_cases(rng, T, k)]
+        for lead in (1, 17, 31):
+            nw = (lead + T + 31) // 32
+            for streaming in (True, False):
+                _same(kernels.finalize_tables(*case, k, streaming, lead, nw),
+                      td.finalize_tables_plain(*case, k, streaming, lead, nw))
+
+
+@pytest.mark.parametrize("k", [16, 31])
+def test_ranged_build_equals_one_range_build(cuda, k, monkeypatch):
+    """The ranged build on the card at a few million columns, with forced
+    small ranges, against the build that takes every window at once: the
+    tables word for word, narrow and forced wide, and K14's answers over
+    the wide one against the narrow one's."""
+    from sbwt_tpu_torch.models.matrix import needs_wide_index
+
+    rng = np.random.default_rng(1800 + k)
+    base = rng.integers(0, 4, size=1_500_000).astype(np.int8)
+    strains = [np.where(rng.random(base.size) < 0.01, (base + 1) % 4, base).astype(np.int8)
+               for _ in range(2)]
+    seqs = strains + [(3 - s[::-1]).astype(np.int8) for s in strains]
+    seqs[1][777_777] = -1
+    one = td.build_sbwt_device(seqs, k, cuda, precalc_k=8)
+    assert td.LAST_BUILD["key_ranges"] == 1 and not needs_wide_index(one.n_nodes)
+    monkeypatch.setattr(td, "range_budget", lambda device, k: 1 << 21)
+    ranged = td.build_sbwt_device(seqs, k, cuda, precalc_k=8)
+    assert td.LAST_BUILD["key_ranges"] > 2 and td.LAST_BUILD["peak_bytes"] > 0
+    for name in ("rank_tbl", "sgs_tbl", "C", "precalc"):
+        assert torch.equal(getattr(ranged, name), getattr(one, name)), name
+    monkeypatch.setattr(td, "needs_wide_index", lambda n: True)
+    wide = td.build_sbwt_device(seqs, k, cuda, precalc_k=8)
+    assert isinstance(wide, WideMatrixIndex) and td.LAST_BUILD["index"] == "WideMatrixIndex"
+    W = one.n_words
+    assert torch.equal(wide.rank_tbl[:, 0], one.rank_tbl[:, 0])
+    assert torch.equal(wide.rank_tbl[:, 1], one.rank_tbl[:, 1]) and not wide.rank_tbl[:, 2].any()
+    assert torch.equal(wide.sgs_tbl, one.sgs_tbl) and torch.equal(wide.C, one.C.long())
+    assert torch.equal(wide.precalc, one.precalc.long()) and W == wide.n_words
+    codes, lengths = _reads(decode(strains[0][:200_000]), rng, 4096, 100, k)
+    c, n = torch.from_numpy(codes).to(cuda), torch.from_numpy(lengths).to(cuda)
+    got = ts.streaming_search(wide, c, n)
+    want = ts.streaming_search(one, c, n)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int64 and torch.equal(got, want.long())
+    assert (want >= 0).float().mean() > 0.25
 
 
 # ---------------------------------------------------------------------------

@@ -90,14 +90,14 @@ dev = torch.device("cuda", 0)
 genome = np.random.default_rng(20260817).integers(0, 4, size=4_000_000, dtype=np.int8)
 codes = td.prepare_device_codes([genome], K, dev)
 dv = td.sorted_distinct_kmers(codes, K)
-probe = kernels.edge_src_probe(dv, K)
+probe = kernels.edge_src_probe(dv, K, dv)
 src = dv[probe[2]]
 nodes = td.merged_nodes(td.dummy_nodes(src, K), dv, probe[0], K)
 library, _ = smoke.searchsorted_probe(dv, K)
 n_kmers, n_src = len(dv), len(src)
 fields = []
 for name, fn in (("pack_windows", lambda: kernels.pack_windows(codes, K)),
-                 ("edge_src_probe", lambda: kernels.edge_src_probe(dv, K)),
+                 ("edge_src_probe", lambda: kernels.edge_src_probe(dv, K, dv)),
                  ("searchsorted", library),
                  ("emit_dummies", lambda: kernels.emit_dummies(src, K)),
                  ("finalize_tables", lambda: kernels.finalize_tables(*nodes, K, True)),
@@ -111,7 +111,7 @@ del dv, probe, src, nodes
 for k in WIDE_K:
     codes_k = td.prepare_device_codes([genome], k, dev)
     dv = td.sorted_distinct_kmers(codes_k, k)
-    probe = td.edge_src_probe(dv, k)
+    probe = td.edge_src_probe(dv, k, dv)
     nodes = td.merged_nodes(td.dummy_nodes(dv[probe[2]], k), dv, probe[0], k)
     del dv, probe
     for name, fn in (("pack_windows", lambda: kernels.pack_windows(codes_k, k)),
